@@ -1,0 +1,87 @@
+"""Carry the reference's state into the port.
+
+This system has no model weights: its state is the memory pool and the
+encoded operator programs.  The reference keeps both as plain numpy
+(``int64[n_devices, pool_words]`` pools, ``int64[n, INSTR_WIDTH]``
+instruction words), so carrying them across needs no import of the
+reference package — only its arrays and, for region tables, any object
+with the reference ``RegionTable``'s read surface (``pool_words``,
+``as_arrays()`` and iteration over regions with ``.name``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import isa
+from repro_torch.core.isa import Op
+from repro_torch.core.memory import RegionTable
+from repro_torch.core.program import TiaraProgram
+from repro_torch.core.vm import resolve_device
+
+
+def pool_from_numpy(mem, device=None) -> torch.Tensor:
+    """The reference's ``int64[n_devices, pool_words]`` pool as a device
+    tensor (a copy) on ``device`` — the card unless named."""
+    arr = np.asarray(mem, dtype=np.int64)
+    if arr.ndim != 2:
+        raise ValueError(f"pool must be (n_devices, pool_words); got "
+                         f"shape {arr.shape}")
+    return torch.from_numpy(arr).to(resolve_device(device), copy=True)
+
+
+def regions_from(table) -> RegionTable:
+    """The port's :class:`RegionTable` with the same region ids, names,
+    bases, sizes and writability as ``table`` (a reference table or
+    view: its ``as_arrays()`` are the backing table's, in rid order)."""
+    base, mask, writable = (np.asarray(a, dtype=np.int64)
+                            for a in table.as_arrays())
+    names = {}
+    backing = getattr(table, "table", table)
+    for r in backing:
+        names[int(r.rid)] = r.name
+    rt = RegionTable(int(backing.pool_words))
+    for rid in range(base.shape[0]):
+        rt.register(names[rid], int(mask[rid]) + 1, base=int(base[rid]),
+                    writable=bool(writable[rid]))
+    return rt
+
+
+def _region_sets(code: np.ndarray) -> Tuple[Tuple[int, ...],
+                                            Tuple[int, ...]]:
+    """Region ids a program touches and writes, derived from its words
+    the way the builder declares them: every region an instruction names
+    is read; STORE/CAS/CAA and the MEMCPY destination also write."""
+    read, written = set(), set()
+    for ins in isa.decode_program(code):
+        if ins.op == Op.LOAD:
+            read.add(int(ins.a))
+        elif ins.op in (Op.STORE, Op.CAS, Op.CAA):
+            read.add(int(ins.a))
+            written.add(int(ins.a))
+        elif ins.op == Op.MEMCPY:
+            read.update((int(ins.a), int(ins.d)))
+            written.add(int(ins.a))
+    return tuple(sorted(read)), tuple(sorted(written))
+
+
+def program_from_code(code, name: str, n_params: int, regions, *,
+                      regions_read: Optional[Sequence[int]] = None,
+                      regions_written: Optional[Sequence[int]] = None
+                      ) -> TiaraProgram:
+    """Rebuild the port's :class:`TiaraProgram` from the reference's
+    encoded instruction words.  ``regions`` is the table the program was
+    built against (reference or port); the declared read/write region
+    sets default to the ones the code implies."""
+    code = np.asarray(code, dtype=np.int64).reshape(-1, isa.INSTR_WIDTH)
+    rd, wr = _region_sets(code)
+    return TiaraProgram(
+        name=name, code=code.copy(), n_params=int(n_params),
+        regions_read=tuple(regions_read) if regions_read is not None
+        else rd,
+        regions_written=tuple(regions_written)
+        if regions_written is not None else wr,
+        region_names=tuple(regions.names()))

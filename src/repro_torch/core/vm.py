@@ -1,0 +1,1122 @@
+"""PyTorch execution engines for verified Tiara operators.
+
+The port of ``repro.core.vm``'s dense engines.  One memory processor
+(MP) frontend steps **B independent requests at once** against one
+shared memory pool; the carry is the architectural state of the paper's
+Fig. 4 datapath — pc, the 16x64 b register file, the depth-8 loop stack,
+the in-flight async counter.
+
+Execution semantics of a batch (deterministic round-robin interleaving):
+each macro-step, every live request executes its current instruction in
+request-index order, and request *i* observes all memory effects of
+requests ``j < i`` within the same macro-step.  When the requests'
+memory footprints are disjoint this is bit-identical to running them one
+after another on the ``pyvm`` oracle; under contention (e.g. CAS on a
+shared latch) the ordering stays deterministic — the lowest-indexed
+request wins.
+
+Two step implementations share that semantics:
+
+  * a fully vectorized step (active-mask semantics, every opcode computed
+    for every lane and combined with masks, scatters of dead lanes routed
+    to a sink word past the pool) used whenever the per-step sweep-line
+    conflict check proves no request's write window can touch another's
+    read or write window, and
+  * the exact serialized step — requests ``0..B-1`` one after another,
+    each executing the vectorized step on its own one-lane slice against
+    the pool — used for contended steps so atomics (STORE/CAS/CAA) keep
+    pyvm ordering.  The one-lane vectorized step *is* the scalar
+    interpreter (``_make_scalar_step``): one definition of the semantics
+    serves both paths, so they cannot drift apart.
+
+Where the JAX engine is one ``lax.while_loop``, this engine is a host
+loop: each macro-step ends in one host read of a few flags (any request
+live, conflict found, which memory routes the step needs), so a step
+costs one device synchronization.  ``B == 1`` is the classic single-MP
+datapath with no conflict machinery.
+
+**Mixed batches**: the engine runs over a *merged instruction store* —
+every registered program laid out back to back, exactly the registry's
+shared BRAM — and each request carries an ``op_sel`` slot index; request
+``b`` starts at ``start_pc[op_sel[b]]`` and terminates against its own
+program end and its own verified step bound.  ``build_batched_vm`` is the
+one-program specialization (``op_sel`` pinned to slot 0).
+
+**Memory ownership**: an engine run never mutates its input pool.  It
+copies the pool once into a private flat buffer with one spare *sink*
+word at the end (dead lanes scatter there — torch has no ``mode="drop"``
+scatter), updates that buffer in place, and returns a view of it as the
+result's pool.  A launch that fails therefore leaves the caller's pool
+untouched (the endpoint's retry path relies on it).
+
+**Devices**: every entry point runs where its pool lies.  A numpy pool
+goes to ``device`` — the CUDA card unless the caller names the CPU; with
+no card and no device named the call raises instead of quietly running on
+the CPU.  Results keep ``mem`` on the device (the pool stays resident);
+:func:`materialize_result` copies only the per-request fields to the
+host.
+
+Semantics are defined by ``repro_torch.core.pyvm`` — keep the two in
+lockstep.  All ISA values are int64; torch integer arithmetic wraps like
+the hardware, and ``SHR`` is emulated as a logical shift (torch's ``>>``
+on int64 is arithmetic).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Dict, NamedTuple, Optional, Sequence, Set, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core import isa
+from repro_torch.core.isa import (Alu, Op, FLAG_ASYNC, FLAG_DEV_REG,
+                                  FLAG_DSTDEV_REG, FLAG_IMMB, FLAG_LEN_REG,
+                                  FLAG_MREG, FLAG_SRCDEV_REG, FLAG_THR_REG,
+                                  DEV_LOCAL, ERR_REG)
+from repro_torch.core.memory import RegionTable
+from repro_torch.core.verifier import VerifiedOperator
+
+_REG_MASK = isa.NUM_REGS - 1
+_I64 = torch.int64
+_BIG = 1 << 62
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the named one, else the CUDA
+    card.  Raises when no device is named and no card is present — the
+    port never falls back to the CPU on its own."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU")
+    return torch.device("cuda")
+
+
+def as_pool(mem, device=None) -> torch.Tensor:
+    """An int64 ``(n_devices, pool_words)`` pool tensor: a tensor stays
+    on its own device (``device``, when given, must match), a numpy array
+    is copied to ``device`` (the card unless named)."""
+    if isinstance(mem, torch.Tensor):
+        if device is not None and \
+                torch.device(device).type != mem.device.type:
+            raise ValueError(
+                f"pool lies on {mem.device}, call asked for {device}")
+        return mem if mem.dtype == _I64 else mem.to(_I64)
+    return torch.as_tensor(np.asarray(mem, dtype=np.int64),
+                           device=resolve_device(device)).clone()
+
+
+class ReqState(NamedTuple):
+    """Per-request architectural state; every leaf carries a leading
+    batch dimension.  The shared memory pool is threaded separately so B
+    requests step against one pool."""
+
+    pc: torch.Tensor          # i64 [B]
+    regs: torch.Tensor        # i64 [B, 16]
+    lstack: torch.Tensor      # i64 [B, 8, 3]  (start, end, remaining)
+    lsp: torch.Tensor         # i64 [B]
+    inflight: torch.Tensor    # i64 [B]
+    halted: torch.Tensor      # bool [B]
+    ret: torch.Tensor         # i64 [B]
+    status: torch.Tensor      # i64 [B]
+    steps: torch.Tensor       # i64 [B]
+    ctrl: torch.Tensor        # i64 [B]: 0 = advance, 1 = taken jump
+    pc_new: torch.Tensor      # i64 [B]
+    fault: torch.Tensor       # i64 [B, 4]: (pc, opcode, addr, device)
+
+
+class VMResult(NamedTuple):
+    mem: torch.Tensor
+    ret: torch.Tensor
+    status: torch.Tensor
+    steps: torch.Tensor
+    regs: torch.Tensor
+    fault: torch.Tensor       # i64 [B, 4] FaultInfo rows (pc=-1 = no fault)
+
+
+# The "no fault" FaultInfo row every clean lane carries (pc = -1).
+NO_FAULT = np.asarray([-1, 0, 0, 0], dtype=np.int64)
+
+
+def fault_info(row) -> Optional[isa.FaultInfo]:
+    """Decode one [4] fault row into a FaultInfo (None when clean)."""
+    if isinstance(row, torch.Tensor):
+        row = row.cpu().numpy()
+    row = np.asarray(row, dtype=np.int64).reshape(4)
+    if int(row[0]) < 0:
+        return None
+    return isa.FaultInfo(pc=int(row[0]), opcode=int(row[1]),
+                         addr=int(row[2]), device=int(row[3]))
+
+
+def shr_logical(a: torch.Tensor, sh: torch.Tensor) -> torch.Tensor:
+    """Logical right shift of int64 ``a`` by ``sh`` in 0..63: the
+    arithmetic shift with the sign-extended high bits masked off (the
+    mask of the low ``64 - sh`` bits is ``~((-1 << (63 - sh)) << 1)``,
+    all ones at ``sh == 0``)."""
+    low = ~((torch.full_like(sh, -1) << (63 - sh)) << 1)
+    return (a >> sh) & low
+
+
+def _alu_table(a, b):
+    """All 16 ALU results for operands ``a``/``b`` (any common shape),
+    indexed by ``Alu`` opcode — the single definition the vectorized
+    evaluator selects from."""
+    sh = b & 63
+    return [
+        a + b, a - b, a * b, a & b, a | b, a ^ b,
+        a << sh, shr_logical(a, sh),
+        (a == b).to(_I64), (a != b).to(_I64),
+        (a < b).to(_I64), (a >= b).to(_I64),
+        torch.minimum(a, b), torch.maximum(a, b), a, a,
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Memory access — the one seam between instruction semantics and the
+# pool's physical layout (the JAX engine's ``_DenseOps``).  ``memx`` is the
+# engine's private flat pool plus one sink word at index ``sink``.
+# ---------------------------------------------------------------------------
+
+
+class _DenseOps:
+    """Direct access to the full ``(n_devices, pool_words)`` pool held flat
+    in ``memx``; a masked write goes to the sink word."""
+
+    def __init__(self, n_dev: int, pool_words: int):
+        self.n_dev = n_dev
+        self.P = pool_words
+        self.sink = n_dev * pool_words
+
+    def readv(self, memx, dev, addr):
+        return memx[dev.clamp(0, self.n_dev - 1) * self.P
+                    + addr.clamp(0, self.P - 1)]
+
+    def writev(self, memx, dev, addr, val, mask):
+        tgt = torch.where(mask, dev * self.P + addr,
+                          torch.full_like(addr, self.sink))
+        memx.index_put_((tgt,), val)
+
+    def readv_win(self, memx, dev, phys):
+        return memx[dev.clamp(0, self.n_dev - 1)[:, None] * self.P
+                    + phys.clamp(0, self.P - 1)]
+
+    def writev_win(self, memx, dev, phys, val, live):
+        tgt = torch.where(live, dev[:, None] * self.P + phys,
+                          torch.full_like(phys, self.sink))
+        memx.index_put_((tgt.reshape(-1),), val.reshape(-1))
+
+
+# ---------------------------------------------------------------------------
+# Step emitters
+# ---------------------------------------------------------------------------
+
+
+def _sweep_conflict(r_lo, r_hi, w_lo, w_hi):
+    """Conflict existence over per-lane footprint intervals (see
+    ``lane_intervals``): does some lane's write window overlap another
+    lane's read or write window?  A sweep line over the sorted interval
+    starts with exclusive running maxima of the ends — O(L log L).
+    Returns a 0-d bool tensor."""
+    empty_hi = -_BIG
+    L = r_lo.shape[0]
+    lo = torch.cat([r_lo, w_lo])
+    hi = torch.cat([r_hi, w_hi])
+    isw = torch.cat([torch.zeros(L, dtype=torch.bool, device=lo.device),
+                     torch.ones(L, dtype=torch.bool, device=lo.device)])
+    order = torch.argsort(lo, stable=True)
+    lo_s, hi_s, w_s = lo[order], hi[order], isw[order]
+    hi_w = torch.where(w_s, hi_s, torch.full_like(hi_s, empty_hi))
+    neg1 = torch.full((1,), empty_hi, dtype=_I64, device=lo.device)
+    excl_all = torch.cat([neg1, torch.cummax(hi_s, 0).values[:-1]])
+    excl_w = torch.cat([neg1, torch.cummax(hi_w, 0).values[:-1]])
+    return (excl_w > lo_s).any() | (w_s & (excl_all > lo_s)).any()
+
+
+def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
+                      max_window, depth, failed, ops, protect=True):
+    """The vectorized macro-step plus the per-lane footprint intervals
+    feeding the conflict sweep.  Returns ``(vector_step,
+    lane_intervals)``; both take the lanes' ``homes`` so the same closure
+    serves the whole batch and the one-lane slices of the serialized
+    step.
+
+    Every opcode path is computed for every lane and combined with
+    masks.  With ``protect`` (the default) the runtime protection checks
+    are decoded per lane and a faulting lane halts with
+    ``STATUS_PROT_FAULT``, all channels masked.
+    """
+    dev_t = base_c.device
+    lane16 = torch.arange(isa.NUM_REGS, dtype=_I64, device=dev_t)[None, :]
+    lane8 = torch.arange(depth, dtype=_I64, device=dev_t)[None, :]
+    col3 = torch.arange(3, dtype=_I64, device=dev_t)[None, None, :]
+    iw_full = torch.arange(max_window, dtype=_I64, device=dev_t)[None, :]
+
+    def rd(regs, idx):
+        """Vector register-file read: regs[b, idx[b] & 15]."""
+        return regs.gather(1, (idx & _REG_MASK)[:, None])[:, 0]
+
+    def dev_of_v(regs, field, via_reg, homes):
+        d = torch.where(via_reg, rd(regs, field), field)
+        return torch.where(d == DEV_LOCAL, homes, torch.remainder(d, n_dev))
+
+    def dev_oob_v(regs, field, via_reg):
+        d = rd(regs, field)
+        return via_reg & (d != DEV_LOCAL) & ((d < 0) | (d >= n_dev))
+
+    def _decode(s, rows, homes):
+        """Shared per-lane decode of memory operands (word ops and
+        memcpy windows) used by both the vector step and the conflict
+        check."""
+        flags = rows[:, isa.F_FLAGS]
+        # word ops (LOAD/STORE/CAS/CAA) share the same addressing form
+        w_rid = rows[:, isa.F_A].clamp(0, n_regions - 1)
+        w_via = (flags & FLAG_DEV_REG) != 0
+        w_dev = dev_of_v(s.regs, rows[:, isa.F_E], w_via, homes)
+        w_off = rd(s.regs, rows[:, isa.F_B]) + rows[:, isa.F_IMM]
+        w_addr = base_c[w_rid] + (w_off & mask_c[w_rid])
+        # memcpy operands
+        m_drid = rows[:, isa.F_A].clamp(0, n_regions - 1)
+        m_srid = rows[:, isa.F_D].clamp(0, n_regions - 1)
+        m_via_d = (flags & FLAG_DSTDEV_REG) != 0
+        m_via_s = (flags & FLAG_SRCDEV_REG) != 0
+        m_ddev = dev_of_v(s.regs, rows[:, isa.F_DST], m_via_d, homes)
+        m_sdev = dev_of_v(s.regs, rows[:, isa.F_C], m_via_s, homes)
+        cap = rows[:, isa.F_IMM]
+        lnreg = rd(s.regs, rows[:, isa.F_IMM2])
+        ln = torch.where((flags & FLAG_LEN_REG) != 0,
+                         torch.minimum(lnreg.clamp(min=0), cap), cap)
+        ln = torch.minimum(torch.minimum(ln, mask_c[m_drid] + 1),
+                           mask_c[m_srid] + 1)
+        m_fail = failed[m_ddev] | failed[m_sdev]
+        m_soff = rd(s.regs, rows[:, isa.F_E])
+        m_doff = rd(s.regs, rows[:, isa.F_B])
+        out = dict(flags=flags, w_rid=w_rid, w_dev=w_dev, w_addr=w_addr,
+                   m_drid=m_drid, m_srid=m_srid, m_ddev=m_ddev,
+                   m_sdev=m_sdev, m_fail=m_fail, m_soff=m_soff,
+                   m_doff=m_doff)
+        if protect:
+            # word-op fault columns (mirrors pyvm's word-op checks)
+            w_draw = torch.where(w_via, rd(s.regs, rows[:, isa.F_E]),
+                                 rows[:, isa.F_E])
+            w_oob_dev = dev_oob_v(s.regs, rows[:, isa.F_E], w_via)
+            w_flt = w_oob_dev | (w_off != (w_off & mask_c[w_rid])) | \
+                failed[w_dev]
+            # memcpy fault columns (4-way priority, pre-fail-zero ln)
+            oob_dd = dev_oob_v(s.regs, rows[:, isa.F_DST], m_via_d)
+            oob_sd = dev_oob_v(s.regs, rows[:, isa.F_C], m_via_s)
+            d_oob = (m_doff != (m_doff & mask_c[m_drid])) | \
+                (m_doff + ln > mask_c[m_drid] + 1)
+            s_oob = (m_soff != (m_soff & mask_c[m_srid])) | \
+                (m_soff + ln > mask_c[m_srid] + 1)
+            m_flt = (ln > 0) & (oob_dd | oob_sd | d_oob | s_oob)
+            m_faddr = torch.where(oob_dd | (~oob_sd & d_oob), m_doff,
+                                  m_soff)
+            m_fdev = torch.where(
+                oob_dd, rd(s.regs, rows[:, isa.F_DST]),
+                torch.where(oob_sd, rd(s.regs, rows[:, isa.F_C]),
+                            torch.where(d_oob, m_ddev, m_sdev)))
+            m_fail = m_fail & ~m_flt
+            ln = torch.where(m_flt, torch.zeros_like(ln), ln)
+            out.update(w_flt=w_flt, w_off=w_off,
+                       w_fdev=torch.where(w_oob_dev, w_draw, w_dev),
+                       m_flt=m_flt, m_faddr=m_faddr, m_fdev=m_fdev,
+                       m_fail=m_fail)
+        ln = torch.where(m_fail, torch.zeros_like(ln), ln)
+        out["ln"] = ln
+        return out
+
+    def lane_intervals(s, rows, active, homes):
+        """Per-lane read/write footprint intervals in flat
+        ``dev * pool_words + addr`` coordinates.
+
+        Word ops contribute exact one-word intervals; memcpy its exact
+        window when it does not wrap the region mask, else the whole
+        region.  An atomic's read is the same word as its write, so it
+        contributes one write interval only.  The only false positive is
+        a memcpy whose *own* source and destination windows overlap
+        (memmove within one request), which merely takes the exact
+        serialized path.  Never unsound."""
+        d = _decode(s, rows, homes)
+        opv = rows[:, isa.F_OP]
+        is_load = active & (opv == int(Op.LOAD))
+        is_store = active & (opv == int(Op.STORE))
+        is_atom = active & ((opv == int(Op.CAS)) | (opv == int(Op.CAA)))
+        is_mcpy = active & (opv == int(Op.MEMCPY))
+        P = pool_words
+        wf = d["w_dev"] * P + d["w_addr"]
+        zero = torch.zeros_like(wf)
+        # memcpy source span
+        s_size = mask_c[d["m_srid"]] + 1
+        s_start = d["m_soff"] & mask_c[d["m_srid"]]
+        s_wrap = (s_start + d["ln"]) > s_size
+        src_lo = d["m_sdev"] * P + base_c[d["m_srid"]] + \
+            torch.where(s_wrap, zero, s_start)
+        src_hi = src_lo + torch.where(s_wrap, s_size, d["ln"])
+        # memcpy destination span
+        d_size = mask_c[d["m_drid"]] + 1
+        d_start = d["m_doff"] & mask_c[d["m_drid"]]
+        d_wrap = (d_start + d["ln"]) > d_size
+        dst_lo = d["m_ddev"] * P + base_c[d["m_drid"]] + \
+            torch.where(d_wrap, zero, d_start)
+        dst_hi = dst_lo + torch.where(d_wrap, d_size, d["ln"])
+
+        e_lo = torch.full_like(wf, _BIG)
+        e_hi = torch.full_like(wf, -_BIG)
+        r_lo = torch.where(is_load, wf, torch.where(is_mcpy, src_lo, e_lo))
+        r_hi = torch.where(is_load, wf + 1,
+                           torch.where(is_mcpy, src_hi, e_hi))
+        w_lo = torch.where(is_store | is_atom, wf,
+                           torch.where(is_mcpy, dst_lo, e_lo))
+        w_hi = torch.where(is_store | is_atom, wf + 1,
+                           torch.where(is_mcpy, dst_hi, e_hi))
+        # zero-length memcpy windows must be empty, not points
+        r_hi = torch.where(r_hi <= r_lo, e_hi, r_hi)
+        w_hi = torch.where(w_hi <= w_lo, e_hi, w_hi)
+        return r_lo, r_hi, w_lo, w_hi
+
+    def alu_eval_v(aop, a, b):
+        stacked = torch.stack(_alu_table(a, b))      # (16, B)
+        return stacked.gather(0, aop.clamp(0, 15)[None, :])[0]
+
+    def vector_step(s: ReqState, memx, rows, active, homes,
+                    gates=None) -> ReqState:
+        """One macro-step over the lanes of ``s``; updates ``memx`` in
+        place and returns the new state.  ``gates`` = host-known
+        ``(any word read, any word write, any memcpy)`` among the active
+        lanes: a route no lane needs is skipped (None runs every route —
+        the result is the same either way)."""
+        B = s.pc.shape[0]
+        g_read, g_write, g_mcpy = gates if gates is not None \
+            else (True, True, True)
+        d = _decode(s, rows, homes)
+        opv = rows[:, isa.F_OP]
+        flags = d["flags"]
+        imm = rows[:, isa.F_IMM]
+        imm2 = rows[:, isa.F_IMM2]
+
+        def is_op(o):
+            return active & (opv == int(o))
+
+        is_movi, is_alu = is_op(Op.MOVI), is_op(Op.ALU)
+        is_load, is_store = is_op(Op.LOAD), is_op(Op.STORE)
+        is_mcpy = is_op(Op.MEMCPY)
+        is_cas, is_caa = is_op(Op.CAS), is_op(Op.CAA)
+        is_jump, is_loop = is_op(Op.JUMP), is_op(Op.LOOP)
+        is_wait, is_ret = is_op(Op.WAIT), is_op(Op.RET)
+        is_atom = is_cas | is_caa
+        zero = torch.zeros_like(s.pc)
+        one = torch.ones_like(s.pc)
+
+        # --- runtime protection faults -----------------------------
+        if protect:
+            flt = (d["w_flt"] & (is_load | is_store | is_atom)) | \
+                (d["m_flt"] & is_mcpy)
+            f_addr = torch.where(is_mcpy, d["m_faddr"], d["w_off"])
+            f_dev = torch.where(is_mcpy, d["m_fdev"], d["w_fdev"])
+            frows = torch.stack([s.pc, opv, f_addr, f_dev], dim=-1)
+        else:
+            flt = torch.zeros(B, dtype=torch.bool, device=dev_t)
+
+        # --- ALU / MOVI --------------------------------------------
+        alu_rhs = torch.where((flags & FLAG_IMMB) != 0, imm,
+                              rd(s.regs, rows[:, isa.F_B]))
+        alu_val = alu_eval_v(rows[:, isa.F_D],
+                             rd(s.regs, rows[:, isa.F_A]), alu_rhs)
+
+        # --- LOAD / CAS / CAA reads (step-start memory: the conflict
+        # check guarantees no same-step writer touches these words)
+        w_old = ops.readv(memx, d["w_dev"], d["w_addr"]) if g_read \
+            else zero
+        hit = w_old == rd(s.regs, rows[:, isa.F_C])
+        swp = rd(s.regs, rows[:, isa.F_D])
+        atom_new = torch.where(
+            hit, torch.where(is_cas, swp, w_old + swp), w_old)
+
+        # --- register write channel (one per opcode at most) --------
+        err_old = s.regs[:, ERR_REG]
+        err_new = torch.where(d["m_fail"], err_old | 1, err_old)
+        reg_w_mask = (is_movi | is_alu | is_load | is_atom | is_mcpy) \
+            & ~flt
+        reg_w_idx = torch.where(
+            is_mcpy, torch.full_like(opv, ERR_REG),
+            rows[:, isa.F_DST] & _REG_MASK)
+        reg_w_val = torch.where(
+            is_movi, imm,
+            torch.where(is_alu, alu_val,
+                        torch.where(is_load | is_atom, w_old, err_new)))
+        upd = (lane16 == reg_w_idx[:, None]) & reg_w_mask[:, None]
+        regs = torch.where(upd, reg_w_val[:, None], s.regs)
+
+        # --- single-word scatter (STORE / CAS / CAA) -----------------
+        if g_write:
+            sw_mask = (is_store | is_atom) & ~flt
+            sw_val = torch.where(is_store, rd(s.regs, rows[:, isa.F_DST]),
+                                 atom_new)
+            ops.writev(memx, d["w_dev"], d["w_addr"], sw_val, sw_mask)
+
+        # --- memcpy window gather + scatter --------------------------
+        # skipped on the (frequent) macro-steps where no live lane is
+        # copying: the window machinery materializes (B, max_window)
+        if g_mcpy:
+            sphys = base_c[d["m_srid"]][:, None] + \
+                ((d["m_soff"][:, None] + iw_full)
+                 & mask_c[d["m_srid"]][:, None])
+            dphys = base_c[d["m_drid"]][:, None] + \
+                ((d["m_doff"][:, None] + iw_full)
+                 & mask_c[d["m_drid"]][:, None])
+            live = is_mcpy[:, None] & (iw_full < d["ln"][:, None])
+            svals = ops.readv_win(memx, d["m_sdev"], sphys)
+            ops.writev_win(memx, d["m_ddev"], dphys, svals, live)
+
+        # --- inflight ------------------------------------------------
+        inflight = torch.where(
+            is_mcpy & ~flt & ((flags & FLAG_ASYNC) != 0),
+            torch.clamp(s.inflight + 1, max=isa.MAX_INFLIGHT), s.inflight)
+        thr = torch.where((flags & FLAG_THR_REG) != 0,
+                          rd(s.regs, rows[:, isa.F_A]), imm)
+        inflight = torch.where(
+            is_wait, torch.minimum(inflight, thr.clamp(min=0)), inflight)
+
+        # --- RET / protection fault ----------------------------------
+        halted = s.halted | is_ret | flt
+        ret = torch.where(is_ret, rd(s.regs, rows[:, isa.F_A]), s.ret)
+        status = torch.where(
+            is_ret, imm,
+            torch.where(flt, torch.full_like(imm, isa.STATUS_PROT_FAULT),
+                        s.status))
+
+        # --- control flow -------------------------------------------
+        jcond = rows[:, isa.F_D]
+        jlhs = rd(s.regs, rows[:, isa.F_A])
+        jrhs = torch.where((flags & FLAG_IMMB) != 0, imm,
+                           rd(s.regs, rows[:, isa.F_B]))
+        take = torch.where(
+            jcond == int(Alu.ALWAYS), torch.ones_like(active),
+            torch.where(jcond == int(Alu.EQ), jlhs == jrhs,
+                        torch.where(jcond == int(Alu.NE), jlhs != jrhs,
+                                    torch.where(jcond == int(Alu.LT),
+                                                jlhs < jrhs,
+                                                jlhs >= jrhs))))
+        # LOOP push
+        cap = imm
+        m = torch.where((flags & FLAG_MREG) != 0,
+                        torch.minimum(rd(s.regs, rows[:, isa.F_B])
+                                      .clamp(min=0), cap),
+                        cap)
+        skip = m <= 0
+        push = is_loop & ~skip
+        frame = torch.stack([s.pc + 1, s.pc + imm2, m], dim=-1)  # (B, 3)
+        sp = s.lsp.clamp(0, depth - 1)
+        push_lane = (lane8 == sp[:, None]) & push[:, None]       # (B, 8)
+        lstack = torch.where(push_lane[:, :, None], frame[:, None, :],
+                             s.lstack)
+        lsp = torch.where(push, s.lsp + 1, s.lsp)
+
+        pc_new = torch.where(
+            is_jump & take, s.pc + 1 + imm2,
+            torch.where(is_loop & skip, s.pc + 1 + imm2, s.pc + 1))
+        ctrl = torch.where(is_jump & take, one, zero)
+
+        # --- loop fixup, vectorized over the batch -------------------
+        def top(field, stk, lsp_v):
+            idx = (lsp_v - 1).clamp(0, depth - 1)
+            return stk[:, :, field].gather(1, idx[:, None])[:, 0]
+
+        # taken jump: pop every frame whose body the jump escaped
+        pop_lsp = lsp
+        for _ in range(depth):
+            cond = (pop_lsp > 0) & (top(1, lstack, pop_lsp) < pc_new)
+            pop_lsp = torch.where(cond, pop_lsp - 1, pop_lsp)
+
+        # normal advance: iterate / pop frames whose body just ended
+        it_stack, it_lsp, it_pcn = lstack, lsp, pc_new
+        done = torch.zeros(B, dtype=torch.bool, device=dev_t)
+        for _ in range(depth):
+            idx = (it_lsp - 1).clamp(0, depth - 1)
+            t_end = top(1, it_stack, it_lsp)
+            cond = (~done) & (it_lsp > 0) & (it_pcn == t_end + 1)
+            rem = top(2, it_stack, it_lsp) - 1
+            cont = rem > 0
+            set_m = cond & cont
+            upd2 = (lane8 == idx[:, None]) & set_m[:, None]
+            it_stack = torch.where(upd2[:, :, None] & (col3 == 2),
+                                   rem[:, None, None], it_stack)
+            it_pcn = torch.where(set_m, top(0, it_stack, it_lsp), it_pcn)
+            it_lsp = torch.where(cond & ~cont, it_lsp - 1, it_lsp)
+            done = done | set_m
+
+        is_jtaken = ctrl == 1
+        fix = active & ~is_ret & ~flt
+        pc = torch.where(fix, torch.where(is_jtaken, pc_new, it_pcn), s.pc)
+        lsp_f = torch.where(fix, torch.where(is_jtaken, pop_lsp, it_lsp),
+                            torch.where(active, lsp, s.lsp))
+        lstack_f = torch.where(
+            fix[:, None, None],
+            torch.where(is_jtaken[:, None, None], lstack, it_stack),
+            torch.where(active[:, None, None], lstack, s.lstack))
+
+        # --- merge, masking out inactive lanes -----------------------
+        regs = torch.where(active[:, None], regs, s.regs)
+        fault = s.fault
+        if protect:
+            fault = torch.where(flt[:, None], frows, s.fault)
+        return ReqState(
+            pc=pc, regs=regs, lstack=lstack_f, lsp=lsp_f,
+            inflight=torch.where(active, inflight, s.inflight),
+            halted=torch.where(active, halted, s.halted),
+            ret=torch.where(active, ret, s.ret),
+            status=torch.where(active, status, s.status),
+            steps=s.steps + active.to(_I64),
+            ctrl=torch.where(active, ctrl, s.ctrl),
+            pc_new=torch.where(active, pc_new, s.pc_new),
+            fault=fault)
+
+    return vector_step, lane_intervals
+
+
+def _make_scalar_step(vector_step):
+    """The scalar (one-request) interpreter — the semantic reference the
+    vectorized batch must match: the vectorized step on one lane's
+    slice, so the two share one definition.  Returns ``step_one(s, memx,
+    b, rows, homes)`` executing request ``b`` in place of ``s``."""
+
+    def step_one(s: ReqState, memx, b: int, rows, homes) -> ReqState:
+        sl = slice(b, b + 1)
+        one = ReqState(*(f[sl] for f in s))
+        active = torch.ones(1, dtype=torch.bool, device=rows.device)
+        s1 = vector_step(one, memx, rows[sl], active, homes[sl])
+        for dst, src in zip(s, s1):
+            dst[sl] = src
+        return s
+
+    return step_one
+
+
+def _serial_step_fn(step_one):
+    """The contention-exact macro-step: requests 0..B-1 each execute one
+    instruction in lane order against the shared pool."""
+    def serial_step(s: ReqState, memx, rows, homes, active_host) -> ReqState:
+        s = ReqState(*(f.clone() for f in s))
+        for b, act in enumerate(active_host):
+            if act:
+                s = step_one(s, memx, b, rows, homes)
+        return s
+
+    return serial_step
+
+
+def _program_statics(codes, fuels):
+    """Normalize a merged instruction store: per-slot entry/end/fuel
+    vectors plus the static memcpy window."""
+    codes = [np.asarray(c, dtype=np.int64).reshape(-1, isa.INSTR_WIDTH)
+             for c in codes]
+    if not codes:
+        raise ValueError("engine needs at least one program")
+    code_np = np.concatenate(codes, axis=0)
+    lens_np = np.asarray([c.shape[0] for c in codes], dtype=np.int64)
+    start_np = np.concatenate(
+        [np.zeros(1, np.int64), np.cumsum(lens_np)[:-1]])
+    end_np = start_np + lens_np
+    fuel_np = np.asarray([int(f) for f in fuels], dtype=np.int64)
+    if fuel_np.shape != (len(codes),):
+        raise ValueError("one step bound per program required")
+    # Static memcpy window: the largest cap used by any merged program.
+    memcpy_caps = [int(r[isa.F_IMM]) for r in code_np
+                   if int(r[isa.F_OP]) == int(Op.MEMCPY)]
+    max_window = int(min(max(memcpy_caps, default=1), isa.MAX_MEMCPY_WORDS))
+    return code_np, start_np, end_np, fuel_np, max_window
+
+
+def private_pool(mem: torch.Tensor) -> torch.Tensor:
+    """The engine's private copy of ``mem``: flat, plus one zeroed sink
+    word at the end that masked writes land in."""
+    n = mem.numel()
+    memx = torch.empty(n + 1, dtype=_I64, device=mem.device)
+    memx[:n].copy_(mem.reshape(-1))
+    memx[n] = 0
+    return memx
+
+
+class _Engine:
+    """The lockstep engine over a *merged* instruction store (see
+    :func:`_build_engine`).  Device-agnostic: the constant tables are
+    placed on each pool's device on first use."""
+
+    def __init__(self, codes, fuels, regions: RegionTable, n_devices: int,
+                 batch: int, protect: bool, static_noconflict: bool):
+        (self.code_np, self.start_np, self.end_np, self.fuel_np,
+         self.max_window) = _program_statics(codes, fuels)
+        self.n_ops = int(self.fuel_np.shape[0])
+        self.n_instr = int(self.code_np.shape[0])
+        self.base_np, self.mask_np, _ = regions.as_arrays()
+        self.n_regions = int(self.base_np.shape[0])
+        self.n_dev = int(n_devices)
+        self.B = int(batch)
+        self.protect = bool(protect)
+        self.static_noconflict = bool(static_noconflict)
+        self._consts: Dict[torch.device, Tuple[torch.Tensor, ...]] = {}
+
+    def _const(self, dev: torch.device):
+        c = self._consts.get(dev)
+        if c is None:
+            c = tuple(torch.as_tensor(a, dtype=_I64, device=dev)
+                      for a in (self.code_np, self.base_np, self.mask_np,
+                                self.start_np, self.end_np, self.fuel_np))
+            self._consts[dev] = c
+        return c
+
+    def __call__(self, mem, params, homes, failed, op_sel) -> VMResult:
+        dev = mem.device
+        code, base_c, mask_c, start_c, end_c, fuel_c = self._const(dev)
+        B, n_dev, depth = self.B, self.n_dev, isa.LOOP_STACK_DEPTH
+        pool_words = int(mem.shape[1])
+        homes = torch.as_tensor(homes, dtype=_I64, device=dev).reshape(B)
+        failed = torch.as_tensor(failed, dtype=torch.bool, device=dev)
+        op_sel = torch.as_tensor(op_sel, dtype=_I64, device=dev) \
+            .reshape(B).clamp(0, self.n_ops - 1)
+        pc0 = start_c[op_sel]
+        end_arr = end_c[op_sel]
+        fuel_arr = fuel_c[op_sel]
+
+        params = torch.as_tensor(params, dtype=_I64, device=dev) \
+            .reshape(B, -1)
+        regs0 = torch.zeros((B, isa.NUM_REGS), dtype=_I64, device=dev)
+        k = min(int(params.shape[1]), isa.NUM_REGS)
+        if k:
+            regs0[:, :k] = params[:, :k]
+
+        memx = private_pool(mem)
+        ops = _DenseOps(n_dev, pool_words)
+        vector_step, lane_intervals = _make_vector_step(
+            base_c=base_c, mask_c=mask_c, n_regions=self.n_regions,
+            n_dev=n_dev, pool_words=pool_words,
+            max_window=self.max_window, depth=depth, failed=failed,
+            ops=ops, protect=self.protect)
+        serial_step = _serial_step_fn(_make_scalar_step(vector_step))
+
+        zb = torch.zeros(B, dtype=_I64, device=dev)
+        s = ReqState(
+            pc=pc0, regs=regs0,
+            lstack=torch.zeros((B, depth, 3), dtype=_I64, device=dev),
+            lsp=zb, inflight=zb,
+            halted=torch.zeros(B, dtype=torch.bool, device=dev),
+            ret=zb, status=torch.full((B,), isa.STATUS_FELL_OFF, dtype=_I64,
+                                      device=dev),
+            steps=zb, ctrl=zb, pc_new=zb,
+            fault=torch.as_tensor(NO_FAULT, device=dev).repeat(B, 1))
+        sweep = B > 1 and not self.static_noconflict
+        op_read = (int(Op.LOAD), int(Op.CAS), int(Op.CAA))
+        op_write = (int(Op.STORE), int(Op.CAS), int(Op.CAA))
+        read_t = torch.as_tensor(op_read, dtype=_I64, device=dev)
+        write_t = torch.as_tensor(op_write, dtype=_I64, device=dev)
+
+        while True:
+            active = (~s.halted) & (s.pc < end_arr) & (s.steps < fuel_arr)
+            rows = code[s.pc.clamp(0, self.n_instr - 1)]
+            opv = rows[:, isa.F_OP]
+            probe = [active.any(),
+                     (active & torch.isin(opv, read_t)).any(),
+                     (active & torch.isin(opv, write_t)).any(),
+                     (active & (opv == int(Op.MEMCPY))).any()]
+            if sweep:
+                probe.append(_sweep_conflict(
+                    *lane_intervals(s, rows, active, homes)))
+            flags = torch.stack(probe).tolist()      # the step's one sync
+            if not flags[0]:
+                break
+            if sweep and flags[4]:
+                s = serial_step(s, memx, rows, homes, active.tolist())
+            else:
+                s = vector_step(s, memx, rows, active, homes,
+                                gates=flags[1:4])
+
+        status = torch.where(
+            s.halted, s.status,
+            torch.where(s.steps >= fuel_arr,
+                        torch.full_like(s.status, isa.STATUS_FUEL),
+                        torch.full_like(s.status, isa.STATUS_FELL_OFF)))
+        return VMResult(mem=memx[:-1].view(n_dev, pool_words), ret=s.ret,
+                        status=status, steps=s.steps, regs=s.regs,
+                        fault=s.fault)
+
+
+def _build_engine(codes: Sequence[np.ndarray], fuels: Sequence[int],
+                  regions: RegionTable, n_devices: int, batch: int,
+                  protect: bool = True,
+                  static_noconflict: bool = False):
+    """Build the lockstep engine over a *merged* instruction store.
+
+    ``codes`` holds one program per dispatch-table slot, laid out back to
+    back in slot order — the registry's shared BRAM layout, so slot ``i``
+    starts at the registry's ``start_pc[i]``.  Returns
+    ``f(mem, params, homes, failed, op_sel) -> VMResult`` where
+    ``op_sel``: int64[batch] picks each request's program.
+
+    ``mem``: int64[n_devices, pool_words] tensor shared by the whole
+    batch (never mutated); ``params``: int64[batch, <=8]; ``homes``:
+    int64[batch]; ``failed``: bool[n_devices].  Result fields are
+    tensors on ``mem``'s device.
+
+    ``static_noconflict=True`` builds the engine *without* the per-step
+    sweep-line conflict check: every macro-step takes the vectorized
+    path.  The caller must hold a registration-time proof
+    (``access.prove_wave_noconflict``) that no macro-step of any wave run
+    on this engine can conflict; the engine trusts the flag.
+    """
+    return _Engine(codes, fuels, regions, n_devices, batch, protect,
+                   static_noconflict)
+
+
+def build_batched_vm(op: VerifiedOperator, regions: RegionTable,
+                     n_devices: int, batch: int, protect: bool = True,
+                     static_noconflict: bool = False):
+    """Returns ``f(mem, params, homes, failed) -> VMResult`` — the
+    one-program specialization of :func:`_build_engine`."""
+    eng = _build_engine([op.code], [op.step_bound], regions, n_devices,
+                        batch, protect=protect,
+                        static_noconflict=static_noconflict)
+    sel0 = np.zeros(int(batch), dtype=np.int64)
+
+    def run(mem, params, homes, failed):
+        return eng(mem, params, homes, failed, sel0)
+
+    return run
+
+
+def build_mixed_batched_vm(ops: Sequence[VerifiedOperator],
+                           regions: RegionTable, n_devices: int,
+                           batch: int, protect: bool = True,
+                           static_noconflict: bool = False):
+    """The multi-tenant engine: one lockstep run executing a batch of
+    requests whose per-request ``op_sel`` picks among the ``ops``
+    programs.  Returns ``f(mem, params, homes, failed, op_sel) ->
+    VMResult``."""
+    return _build_engine([o.code for o in ops],
+                         [o.step_bound for o in ops],
+                         regions, n_devices, batch, protect=protect,
+                         static_noconflict=static_noconflict)
+
+
+def build_vm(op: VerifiedOperator, regions: RegionTable, n_devices: int,
+             protect: bool = True):
+    """Single-request entry point: ``f(mem, params, home, failed)`` —
+    the ``batch=1`` specialization with scalar result fields."""
+    batched = build_batched_vm(op, regions, n_devices, batch=1,
+                               protect=protect)
+
+    def run(mem, params, home, failed):
+        params = torch.as_tensor(params, dtype=_I64).reshape(1, -1)
+        out = batched(mem, params, [int(home)], failed)
+        return VMResult(mem=out.mem, ret=out.ret[0], status=out.status[0],
+                        steps=out.steps[0], regs=out.regs[0],
+                        fault=out.fault[0])
+
+    return run
+
+
+# Serializing a program's code for its cache key costs tobytes() over the
+# whole instruction array; a registry hot path keys the full merged store
+# per wave, so memoize per live VerifiedOperator.  Keyed by id() but
+# guarded by a weakref identity check — recycled ids miss and recompute,
+# and dead entries are purged on the weakref callback.
+_CODE_BYTES_MEMO: Dict[int, Tuple[object, bytes]] = {}
+
+
+def _code_bytes(op: VerifiedOperator) -> bytes:
+    ent = _CODE_BYTES_MEMO.get(id(op))
+    if ent is not None and ent[0]() is op:
+        return ent[1]
+    key = id(op)
+    b = op.code.tobytes()
+    _CODE_BYTES_MEMO[key] = (
+        weakref.ref(op, lambda _: _CODE_BYTES_MEMO.pop(key, None)), b)
+    return b
+
+
+def engine_key(op: VerifiedOperator, regions: RegionTable, n_dev: int,
+               batch: int, *extra) -> Tuple:
+    """Content-addressed cache key for a built engine (object ids recycle
+    after GC — never key on id).  Shared with the compiled-path cache."""
+    base, mask, _ = regions.as_arrays()
+    return (_code_bytes(op), base.tobytes(), mask.tobytes(),
+            op.step_bound, n_dev, batch) + extra
+
+
+def mixed_engine_key(ops: Sequence[VerifiedOperator], regions: RegionTable,
+                     n_dev: int, batch: int, *extra) -> Tuple:
+    """Content-addressed cache key for a mixed (multi-program) engine."""
+    base, mask, _ = regions.as_arrays()
+    return (tuple((_code_bytes(o), int(o.step_bound)) for o in ops),
+            base.tobytes(), mask.tobytes(), n_dev, batch) + extra
+
+
+# Engines are cached per (operator, regions, n_devices, batch), exactly as
+# the reference caches its jit-compiled engines, so the dispatch cost
+# model's cache-miss charge sees the same hits and misses.
+_VM_CACHE: Dict[Tuple, object] = {}
+
+
+def engine_cached(op: VerifiedOperator, regions: RegionTable, n_dev: int,
+                  batch: int, protect: bool = True,
+                  static_noconflict: bool = False) -> bool:
+    """True iff the batched interpreter engine for this (op, batch) is
+    already built."""
+    return engine_key(op, regions, n_dev, batch, bool(protect),
+                      bool(static_noconflict)) in _VM_CACHE
+
+
+def mixed_engine_cached(ops: Sequence[VerifiedOperator],
+                        regions: RegionTable, n_dev: int,
+                        batch: int, protect: bool = True,
+                        static_noconflict: bool = False) -> bool:
+    return mixed_engine_key(ops, regions, n_dev, batch, bool(protect),
+                            bool(static_noconflict)) in _VM_CACHE
+
+
+def _cached_engine(op: VerifiedOperator, regions: RegionTable, n_dev: int,
+                   batch: int, protect: bool = True,
+                   static_noconflict: bool = False):
+    key = engine_key(op, regions, n_dev, batch, bool(protect),
+                     bool(static_noconflict))
+    fn = _VM_CACHE.get(key)
+    if fn is None:
+        fn = build_batched_vm(op, regions, n_dev, batch, protect=protect,
+                              static_noconflict=static_noconflict)
+        _VM_CACHE[key] = fn
+    return fn
+
+
+def _cached_mixed_engine(ops: Sequence[VerifiedOperator],
+                         regions: RegionTable, n_dev: int, batch: int,
+                         protect: bool = True,
+                         static_noconflict: bool = False):
+    key = mixed_engine_key(ops, regions, n_dev, batch, bool(protect),
+                           bool(static_noconflict))
+    fn = _VM_CACHE.get(key)
+    if fn is None:
+        fn = build_mixed_batched_vm(ops, regions, n_dev, batch,
+                                    protect=protect,
+                                    static_noconflict=static_noconflict)
+        _VM_CACHE[key] = fn
+    return fn
+
+
+def finish_result(res: "BatchedInvokeResult", *,
+                  block: bool) -> "BatchedInvokeResult":
+    """Seal a launched result: on a CUDA pool record the completion
+    event on the current stream; then retire it now (``block=True``) or
+    hand it back deferred."""
+    if res.mem.is_cuda:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(res.mem.device))
+        res.event = ev
+    return materialize_result(res) if block else res
+
+
+def run_batched_fn(fn, mem, p: np.ndarray, h: np.ndarray,
+                   failed: Optional[Set[int]], *, block: bool = True,
+                   device=None) -> "BatchedInvokeResult":
+    """Execute a built batched engine.  ``mem`` is a pool tensor (the
+    engine runs on its device) or a numpy pool (copied to ``device``).
+
+    With ``block=False`` the per-request fields stay device tensors and
+    the result carries a CUDA event recorded after the launch: the
+    endpoint's split-phase doorbell retires it later with
+    :func:`materialize_result`.  On the CPU the work is eager either way.
+    The launch itself happens here, so malformed waves raise here."""
+    mem_t = as_pool(mem, device)
+    n_dev = int(mem_t.shape[0])
+    out = fn(mem_t, p, h, _failed_mask(n_dev, failed))
+    res = BatchedInvokeResult(mem=out.mem, ret=out.ret, status=out.status,
+                              steps=out.steps, regs=out.regs,
+                              fault=out.fault)
+    return finish_result(res, block=block)
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def materialize_result(res: "BatchedInvokeResult") -> "BatchedInvokeResult":
+    """Retire a (possibly deferred) batched result: wait for its launch
+    and copy the per-request fields (ret, status, steps, regs, fault) to
+    host numpy arrays.  ``mem`` stays where it is — on the card the pool
+    is never copied to the host here.  A no-op on a materialized
+    result."""
+    if res.event is not None:
+        res.event.synchronize()
+    return BatchedInvokeResult(
+        mem=res.mem, ret=_host(res.ret), status=_host(res.status),
+        steps=_host(res.steps), regs=_host(res.regs),
+        fault=None if res.fault is None else _host(res.fault))
+
+
+def result_ready(res: "BatchedInvokeResult") -> bool:
+    """Non-blocking readiness probe of a deferred batched result: True
+    once its launch has landed (a CPU or materialized result is always
+    ready)."""
+    return res.event is None or bool(res.event.query())
+
+
+def _wrap_param(v) -> np.int64:
+    return np.int64(np.uint64(v & (2**64 - 1)).astype(np.uint64)
+                    .view(np.int64)) \
+        if v > 2**63 - 1 or v < -2**63 else np.int64(v)
+
+
+def _failed_mask(n_dev: int, failed: Optional[Set[int]]) -> np.ndarray:
+    m = np.zeros(n_dev, dtype=bool)
+    for f in (failed or ()):
+        m[f] = True
+    return m
+
+
+def homes_array(homes: Union[int, Sequence[int]],
+                batch: int) -> np.ndarray:
+    """Normalize a ``homes`` argument (scalar broadcast or per-request
+    sequence) to i64[batch] — the one place that marshalling lives."""
+    h = np.full(batch, homes, dtype=np.int64) if np.isscalar(homes) \
+        else np.asarray(list(homes), dtype=np.int64)
+    if h.shape != (batch,):
+        raise ValueError(f"homes shape {h.shape} != ({batch},)")
+    return h
+
+
+def _marshal_batch(params: Sequence[Sequence[int]],
+                   homes: Union[int, Sequence[int]]
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Validate and pack a request batch: params -> i64[B, width],
+    homes -> i64[B].  Shared by the interpreter and compiled wrappers."""
+    batch = len(params)
+    if batch == 0:
+        raise ValueError("empty request batch")
+    width = max(max((len(row) for row in params), default=0), 1)
+    p = np.zeros((batch, width), dtype=np.int64)
+    for b, row in enumerate(params):
+        for i, v in enumerate(row):
+            p[b, i] = _wrap_param(v)
+    return p, homes_array(homes, batch)
+
+
+def invoke(op: VerifiedOperator, regions: RegionTable, mem,
+           params: Sequence[int] = (), *, home: int = 0,
+           failed: Optional[Set[int]] = None,
+           protect: bool = True, device=None) -> "InvokeResult":
+    """Single-request entry point: pool tensor or numpy in, host fields
+    out (``mem`` stays on the pool's device)."""
+    p, h = _marshal_batch([list(params)], home)
+    mem_t = as_pool(mem, device)
+    fn = _cached_engine(op, regions, int(mem_t.shape[0]), batch=1,
+                        protect=protect)
+    out = run_batched_fn(fn, mem_t, p, h, failed)
+    return InvokeResult(mem=out.mem, ret=int(out.ret[0]),
+                        status=int(out.status[0]), steps=int(out.steps[0]),
+                        regs=out.regs[0], fault=fault_info(out.fault[0]))
+
+
+def invoke_batched(op: VerifiedOperator, regions: RegionTable,
+                   mem, params: Sequence[Sequence[int]],
+                   *, homes: Union[int, Sequence[int]] = 0,
+                   failed: Optional[Set[int]] = None,
+                   block: bool = True,
+                   protect: bool = True,
+                   static_noconflict: bool = False,
+                   device=None) -> "BatchedInvokeResult":
+    """Run a batch of requests against one shared pool.
+
+    ``params`` is a [B][k] nested sequence (one row per request); ``homes``
+    is a scalar (all requests from the same host) or a [B] sequence.
+    ``block=False`` defers retirement (see :func:`run_batched_fn`).
+    ``static_noconflict=True`` asserts the caller holds a registration-time
+    proof that the wave is conflict-free; the engine then skips the
+    per-step runtime sweep.
+    """
+    p, h = _marshal_batch(params, homes)
+    mem_t = as_pool(mem, device)
+    fn = _cached_engine(op, regions, int(mem_t.shape[0]), p.shape[0],
+                        protect=protect,
+                        static_noconflict=static_noconflict)
+    return run_batched_fn(fn, mem_t, p, h, failed, block=block)
+
+
+def invoke_batched_mixed(ops: Sequence[VerifiedOperator],
+                         regions: RegionTable, mem,
+                         op_sel: Sequence[int],
+                         params: Sequence[Sequence[int]], *,
+                         homes: Union[int, Sequence[int]] = 0,
+                         failed: Optional[Set[int]] = None,
+                         block: bool = True,
+                         protect: bool = True,
+                         static_noconflict: bool = False,
+                         device=None) -> "BatchedInvokeResult":
+    """Run a *mixed* batch — request ``b`` executes ``ops[op_sel[b]]`` —
+    against one shared pool in one lockstep run.
+
+    Semantics are the engine's deterministic round-robin interleaving
+    across programs: each macro-step, request ``i`` executes the next
+    instruction *of its own operator* and observes all same-step memory
+    effects of requests ``j < i``.
+    """
+    p, h = _marshal_batch(params, homes)
+    B = p.shape[0]
+    sel = np.asarray(list(op_sel), dtype=np.int64)
+    if sel.shape != (B,):
+        raise ValueError(f"op_sel shape {sel.shape} != ({B},)")
+    if sel.size and (sel.min() < 0 or sel.max() >= len(ops)):
+        raise ValueError(
+            f"op_sel entries must be in [0, {len(ops)}) for {len(ops)} "
+            f"programs; got range [{sel.min()}, {sel.max()}]")
+    mem_t = as_pool(mem, device)
+    eng = _cached_mixed_engine(tuple(ops), regions, int(mem_t.shape[0]), B,
+                               protect=protect,
+                               static_noconflict=static_noconflict)
+
+    def fn(mem_j, p_j, h_j, failed_j):
+        return eng(mem_j, p_j, h_j, failed_j, sel)
+
+    return run_batched_fn(fn, mem_t, p, h, failed, block=block)
+
+
+@dataclasses.dataclass
+class InvokeResult:
+    mem: torch.Tensor
+    ret: int
+    status: int
+    steps: int
+    regs: np.ndarray
+    fault: Optional[isa.FaultInfo] = None
+
+    @property
+    def ok(self) -> bool:
+        return self.status == isa.STATUS_OK
+
+
+@dataclasses.dataclass
+class BatchedInvokeResult:
+    mem: torch.Tensor
+    ret: Union[np.ndarray, torch.Tensor]       # i64 [B]
+    status: Union[np.ndarray, torch.Tensor]    # i64 [B]
+    steps: Union[np.ndarray, torch.Tensor]     # i64 [B]
+    regs: Union[np.ndarray, torch.Tensor]      # i64 [B, 16]
+    fault: Optional[Union[np.ndarray, torch.Tensor]] = None  # i64 [B, 4]
+    # CUDA event recorded after the launch (None on the CPU / once
+    # materialized): what result_ready() queries
+    event: Optional[object] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def ok(self) -> np.ndarray:
+        return _host(self.status) == isa.STATUS_OK
+
+    def fault_at(self, b: int) -> Optional[isa.FaultInfo]:
+        """The decoded FaultInfo of lane ``b`` (None when clean)."""
+        if self.fault is None:
+            return None
+        return fault_info(_host(self.fault)[b])
