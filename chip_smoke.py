@@ -11,11 +11,14 @@ its plain PyTorch version on the card.  Phases:
 1. device and build: the card's name and power limit; every CUDA kernel
    of the port built from the checkout's sources with ``nvcc``;
 2. each kernel against its plain version at the main path's shapes
-   (exact equality), with its time, the plain version's time and the
+   (exact equality; the gather chain's window form also at unaligned and
+   wrapping windows), with its time, the plain version's time and the
    least time the card could take for the same bytes;
-3. the endpoint at real size: a compiled paged-KV wave (which must
-   launch the kernel), a mixed auto wave, a split-phase pair, and a pyvm
-   replay against a downloaded copy of the pool, every result checked;
+3. the endpoint at real size: a compiled and a double-buffered compiled
+   paged-KV wave (which must launch the kernel once and once per chunk),
+   a mixed auto wave, a split-phase pair, and a pyvm replay against a
+   downloaded copy of the pool, every result checked; each wave prints
+   the engine its doorbell ran and its kernel launches;
 4. the serving loop on a virtual clock with its exactly-one-CQE
    identity.
 
@@ -82,9 +85,9 @@ def time_cuda(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    lib = _build.build()
     dt = time.perf_counter() - t0
-    log(f"[build] {', '.join(sorted(libs))} built for sm_90a in {dt:.1f} s")
+    log(f"[build] {lib.name} built for sm_90a in {dt:.1f} s")
     return dt
 
 
@@ -111,33 +114,83 @@ def phase_kernel(dev, scratch):
     log("[kernel] tiara_gather == plain version for f32, bf16, int32, "
         "int64 small cases")
 
-    # the main path's shape: an int64 pool of 131072 rows x 1024 words
-    # (1 GiB, the paged-KV pool of 8 KiB blocks), 4096 requested rows
-    # (a 256-post wave x 16 blocks), table = physical rows, ids = arange
+    # window form, unaligned offsets and windows that wrap in the region
+    from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
+    from repro_torch.kernels.tiara_gather.ref import tiara_gather_window_ref
+    for dtype, width, mask in [(torch.int64, 1024, 4095), (torch.int64, 5, 63),
+                               (torch.float32, 64, 63),
+                               (torch.bfloat16, 9, 31)]:
+        flat = torch.from_numpy(rng.integers(0, 1 << 30, 2 * (mask + 1) + 1)) \
+            .to(dev, dtype)
+        table = torch.from_numpy(
+            rng.integers(0, mask + 1, 12).astype(np.int32)).to(dev)
+        table[0] = mask
+        bases = torch.from_numpy(rng.integers(0, 2, 12) * (mask + 1)).to(dev)
+        ids = torch.from_numpy(rng.integers(0, 12, 9).astype(np.int32)).to(dev)
+        ids[0] = 0
+        out = tiara_gather_window(flat, table, bases, ids, width=width,
+                                  mask=mask)
+        want = tiara_gather_window_ref(flat, table, bases, ids, width=width,
+                                       mask=mask)
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            raise AssertionError(f"tiara_gather_window != plain for {dtype} "
+                                 f"width {width} mask {mask}")
+    log("[kernel] tiara_gather_window == plain version for unaligned and "
+        "wrapping windows (int64, f32, bf16)")
+
+    # The main path's shape.  The compiled gather chain of a 256-post
+    # paged-KV wave calls the window form over the engine's flat pool:
+    # 4096 entries (256 posts x 16 blocks), 1024-word rows (8 KiB
+    # blocks), offsets into the 1 GiB kvpool region (mask 2**27 - 1) at
+    # the block-aligned translations the stock table holds, ids = arange.
+    # The row form runs on the same bytes as a (131072, 1024) view.
     n_rows, R, n = 131072, 1024, 4096
-    pool = torch.randint(-(1 << 62), 1 << 62, (n_rows, R), dtype=torch.int64,
-                         device=dev)
-    table = torch.from_numpy(
-        rng.choice(n_rows, n, replace=False).astype(np.int32)).to(dev)
+    mask = n_rows * R - 1
+    flat = torch.randint(-(1 << 62), 1 << 62, (n_rows * R + 1,),
+                         dtype=torch.int64, device=dev)
+    blocks = rng.choice(n_rows, n, replace=False)
+    offs = torch.from_numpy((blocks * R).astype(np.int32)).to(dev)
+    bases = torch.zeros(n, dtype=torch.int64, device=dev)
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-    out = tiara_gather(pool, table, ids)
-    ref = tiara_gather_ref(pool, table, ids)
+
+    def win():
+        return tiara_gather_window(flat, offs, bases, ids, width=R, mask=mask)
+
+    def win_plain():
+        return tiara_gather_window_ref(flat, offs, bases, ids, width=R,
+                                       mask=mask)
+
+    out, ref = win(), win_plain()
     torch.cuda.synchronize()
     if not torch.equal(out, ref):
-        raise AssertionError("tiara_gather != plain at the path shape")
+        raise AssertionError("tiara_gather_window != plain at the path shape")
     max_abs_err = int((out - ref).abs().max().item())
-    ms = time_cuda(lambda: tiara_gather(pool, table, ids), scratch)
-    plain_ms = time_cuda(lambda: tiara_gather_ref(pool, table, ids), scratch)
+    ms = time_cuda(win, scratch)
+    plain_ms = time_cuda(win_plain, scratch)
     # bytes the function must move: each distinct requested row read
-    # once, each output row written once, ids and table entries read once
-    uniq = int(torch.unique(table[ids.long()]).numel())
-    moved = uniq * R * 8 + n * R * 8 + n * 4 + uniq * 4
+    # once, each output row written once, the ids, offsets and bases
+    # read once
+    uniq = int(np.unique(blocks).size)
+    moved = uniq * R * 8 + n * R * 8 + n * (4 + 4 + 8)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"[kernel] path shape pool {n_rows}x{R} int64 ({pool.numel() * 8 >> 20}"
-        f" MiB), n={n}: equal; kernel {ms * 1e3:.1f} us "
-        f"({moved / ms / 1e6:.0f} GB/s), plain {plain_ms * 1e3:.1f} us, "
-        f"bound {bound_ms * 1e3:.1f} us")
-    del pool, out, ref
+
+    pool2d = flat[:n_rows * R].view(n_rows, R)
+    table = torch.from_numpy(blocks.astype(np.int32)).to(dev)
+    out_r = tiara_gather(pool2d, table, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(out_r, tiara_gather_ref(pool2d, table, ids)) \
+            or not torch.equal(out_r, out):
+        raise AssertionError("tiara_gather != plain at the path shape")
+    row_ms = time_cuda(lambda: tiara_gather(pool2d, table, ids), scratch)
+    row_plain_ms = time_cuda(lambda: tiara_gather_ref(pool2d, table, ids),
+                             scratch)
+    log(f"[kernel] path shape: flat int64 pool {flat.numel() * 8 >> 20} MiB, "
+        f"n={n} rows of {R} words: equal; window kernel {ms * 1e3:.2f} us "
+        f"({moved / ms / 1e6:.0f} GB/s), plain {plain_ms * 1e3:.2f} us, "
+        f"bound {bound_ms * 1e3:.2f} us; row form kernel "
+        f"{row_ms * 1e3:.2f} us, plain {row_plain_ms * 1e3:.2f} us")
+    del flat, out, ref, out_r, pool2d
     torch.cuda.empty_cache()
     return dict(name="tiara_gather", route="cuda",
                 source="src/repro_torch/kernels/tiara_gather/csrc/"
@@ -145,7 +198,8 @@ def phase_kernel(dev, scratch):
                 replaces="src/repro/kernels/tiara_gather/kernel.py:28",
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None,
-                bytes_moved=moved, shape=[n_rows, R, n])
+                bytes_moved=moved, shape=[n_rows, R, n],
+                row_form_ms=row_ms, row_form_plain_ms=row_plain_ms)
 
 
 def check_kv_slots(kvs, kv, host0, table, blocks, slots, slot_words):
@@ -189,68 +243,93 @@ def phase_endpoint(dev):
         f"set-up {time.perf_counter() - t0:.1f} s")
     slot = 16 * kv.block_words
 
-    def wave(name, fn):
+    from repro_torch.core import compile as tc
+    from repro_torch.kernels.tiara_gather import kernel as tg
+    launches, ran = {}, {}
+
+    def picked(asked, before):
+        d = ep.last_decision
+        if d is None or d is before:
+            return f"{asked} (forced: no cost-model decision)"
+        return f"{d.mode} {d.costs}"
+
+    def wave(name, asked, fn):
+        """Run one wave; record its wall time, the engine the doorbell
+        picked and the kernel launches it made."""
         torch.cuda.synchronize()
+        d0, n0 = ep.last_decision, tg.LAUNCHES
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t
+        launches[name] = tg.LAUNCHES - n0
+        ran[name] = picked(asked, d0)
+        log(f"[wave] {name}: mode={asked} -> {ran[name]}; tiara_gather "
+            f"launches {launches[name]}; {walls[name] * 1e3:.1f} ms")
         return out
 
-    # 1. compiled paged-KV wave: the gather chain through the kernel
-    from repro_torch.kernels.tiara_gather import kernel as tg
-    before = tg.LAUNCHES
-    cs = [kvs.post("paged_kv_fetch", [16, i * slot]) for i in range(256)]
-    wave("kv_compiled", lambda: ep.doorbell(mode="compiled"))
-    if tg.LAUNCHES == before:
-        raise AssertionError("compiled kv wave did not launch tiara_gather")
-    if any(c.status != isa.STATUS_OK or c.ret != 16 for c in cs):
-        raise AssertionError("kv wave statuses/rets wrong")
-    check_kv_slots(kvs, kv, host0, table, blocks, 256, slot)
-    log(f"[endpoint] kv wave (256 posts, compiled): "
-        f"{walls['kv_compiled'] * 1e3:.1f} ms, tiara_gather launches "
-        f"{tg.LAUNCHES - before}, all 256 reply slots == reference")
+    # 1. compiled paged-KV wave: the gather chain through the kernel, once
+    #    monolithic (one launch) and once double-buffered (one launch per
+    #    chunk of DBUF_CHUNK blocks)
+    chunks = -(-16 // tc.DBUF_CHUNK)
+    for mode, want_launches in (("compiled", 1), ("compiled_dbuf", chunks)):
+        kvs.write_region("reply", np.zeros(256 * slot, dtype=np.int64))
+        cs = [kvs.post("paged_kv_fetch", [16, i * slot]) for i in range(256)]
+        wave(f"kv_{mode}", mode, lambda: ep.doorbell(mode=mode))
+        if launches[f"kv_{mode}"] != want_launches:
+            raise AssertionError(f"kv wave mode={mode} launched tiara_gather "
+                                 f"{launches[f'kv_{mode}']} times, expected "
+                                 f"{want_launches}")
+        if any(c.status != isa.STATUS_OK or c.ret != 16 for c in cs):
+            raise AssertionError(f"kv wave mode={mode}: statuses/rets wrong")
+        check_kv_slots(kvs, kv, host0, table, blocks, 256, slot)
+        log(f"[endpoint] kv wave (256 posts, {mode}): all 256 reply slots "
+            f"== reference")
 
     # 2. mixed auto wave: 256 kv + 256 graph walks of depth 10
     starts = [int(order[i]) for i in range(256)]
     kc = [kvs.post("paged_kv_fetch", [16, i * slot]) for i in range(256)]
     gc = [gws.post("graph_walk", [s * 8, 10, 8 * i])
           for i, s in enumerate(starts)]
-    wave("mixed_auto", lambda: ep.doorbell(mode="auto"))
+    wave("mixed_auto", "auto", lambda: ep.doorbell(mode="auto"))
     if any(c.ret != 16 or not c.ok for c in kc):
         raise AssertionError("mixed wave: kv rets wrong")
     want = [gw.reference(order, s, 10) for s in starts]
     if [c.ret for c in gc] != want or not all(c.ok for c in gc):
         raise AssertionError("mixed wave: graph-walk rets wrong")
     check_kv_slots(kvs, kv, host0, table, blocks, 256, slot)
-    log(f"[endpoint] mixed wave (256 kv + 256 graph walk): "
-        f"{walls['mixed_auto'] * 1e3:.1f} ms, decision "
-        f"{ep.last_decision.mode} {ep.last_decision.costs}")
+    log("[endpoint] mixed wave (256 kv + 256 graph walk): every ret == "
+        "reference")
 
     # 3. split-phase pair
     def split():
         a = [gws.post("graph_walk", [s * 8, 5, 8 * i])
              for i, s in enumerate(starts[:64])]
+        d0 = ep.last_decision
         h1 = ep.doorbell(wait=False)
+        ran["split_phase_1"] = picked("auto", d0)
         b = [kvs.post("paged_kv_fetch", [8, i * slot]) for i in range(64)]
+        d0 = ep.last_decision
         h2 = ep.doorbell(wait=False)
+        ran["split_phase_2"] = picked("auto", d0)
         n = ep.wait_all()
         return a, b, h1, h2, n
-    a, b, h1, h2, n = wave("split_phase", split)
+    a, b, h1, h2, n = wave("split_phase", "auto", split)
     if n != 128 or not (h1.done and h2.done):
         raise AssertionError("split-phase pair did not retire")
     if [c.ret for c in a] != [gw.reference(order, s, 5) for s in starts[:64]] \
             or any(c.ret != 8 or not c.ok for c in b):
         raise AssertionError("split-phase rets wrong")
     log(f"[endpoint] split-phase pair (64 + 64, wait=False then wait_all): "
-        f"{walls['split_phase'] * 1e3:.1f} ms")
+        f"graph-walk doorbell -> {ran['split_phase_1']}; kv doorbell -> "
+        f"{ran['split_phase_2']}; every ret == reference")
 
     # 4. pyvm replay of 8 posts against a downloaded copy of the pool
     pre = ep._host_view().copy()
     posts = [(kvs, "paged_kv_fetch", [16, i * slot]) for i in range(4)] + \
         [(gws, "graph_walk", [starts[i] * 8, 10, 8 * i]) for i in range(4)]
     cs = [s.post(op, p) for s, op, p in posts]
-    wave("replay8", lambda: ep.doorbell(mode="auto"))
+    wave("replay8", "auto", lambda: ep.doorbell(mode="auto"))
     vops = ep.registry.store_ops()
     mem = pre
     for c in cs:
@@ -260,10 +339,11 @@ def phase_endpoint(dev):
             raise AssertionError(f"pyvm replay differs for seq {c.seq}")
     if not np.array_equal(ep._host_view(), mem):
         raise AssertionError("pyvm replay: pool differs")
-    log(f"[endpoint] 8 posts == pyvm replay bit for bit (ret, status, "
-        f"steps, whole pool); wave {walls['replay8'] * 1e3:.1f} ms")
+    log("[endpoint] 8 posts == pyvm replay bit for bit (ret, status, "
+        "steps, whole pool)")
 
     # 5. the serving loop on a virtual clock
+    n0 = tg.LAUNCHES
     t = time.perf_counter()
     loop = ServingLoop(ep, ServingConfig(ring_size=16, max_inflight_waves=2))
     subs = []
@@ -278,6 +358,7 @@ def phase_endpoint(dev):
     st = loop.drain()
     ep.wait_all()
     walls["serving_64"] = time.perf_counter() - t
+    launches["serving_64"] = tg.LAUNCHES - n0
     total = st.executed + st.flushed + st.timed_out + st.rejected + st.shed
     if st.submitted != 64 or total != 64:
         raise AssertionError(f"CQE identity broken: {st}")
@@ -290,8 +371,9 @@ def phase_endpoint(dev):
     log(f"[serving] 64 submissions: submitted {st.submitted} == executed "
         f"{st.executed} + flushed {st.flushed} + timed_out {st.timed_out} "
         f"+ rejected {st.rejected} + shed {st.shed}; ok {st.ok}; "
+        f"tiara_gather launches {launches['serving_64']}; "
         f"{walls['serving_64'] * 1e3:.1f} ms for the whole phase")
-    return walls, ep.last_decision.mode
+    return walls, launches, ran
 
 
 def main() -> int:
@@ -311,7 +393,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()           # the main path starts here
-    walls, last_mode = phase_endpoint(dev)
+    walls, launches, ran = phase_endpoint(dev)
     counts = kernels.launch_counts()         # ... and ends here
     if counts["tiara_gather"] < 1:
         raise AssertionError("main path never launched tiara_gather")
@@ -320,7 +402,8 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernel": kinfo,
-                   "wave_wall_s": walls, "last_mode": last_mode}, f,
+                   "wave_wall_s": walls, "wave_launches": launches,
+                   "wave_engine": ran}, f,
                   indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

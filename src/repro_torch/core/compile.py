@@ -28,7 +28,8 @@ Lowering rules (B = request batch, every value is an int64 ``(B,)`` lane):
     memcpy row``) — MoE expert gather and paged-KV block fetch — is
     recognized structurally and fused into one two-level batched gather,
     whose row gather is the hand-written CUDA ``tiara_gather`` kernel
-    when the pool lies on the card (``impl="auto"``).
+    (one launch per chunk) when the pool lies on the card, and its plain
+    version on a CPU pool (``impl="auto"``).
 
 Where the JAX trace is jit-compiled once, this trace is emitted eagerly on
 every call: the Python unroll issues the same torch operations in the
@@ -72,6 +73,7 @@ from repro_torch.core.isa import (Alu, Instr, Op, FLAG_ASYNC, FLAG_DEV_REG,
 from repro_torch.core.memory import RegionTable
 from repro_torch.core.verifier import LoopInfo, VerifiedOperator
 from repro_torch.core import vm as _vm
+from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
 
 _REG_MASK = isa.NUM_REGS - 1
 _I64 = torch.int64
@@ -90,9 +92,10 @@ DEFAULT_UNROLL_LIMIT = 4096
 # the engine must chunk identically.
 DBUF_CHUNK = _costmodel.EngineCost().dbuf_chunk_iters
 
-# The gather-chain row-gather implementations: "torch" lowers it to plain
-# torch indexing, "cuda" to the tiara_gather kernel, "auto" picks "cuda"
-# when the pool lies on a CUDA device and "torch" otherwise.
+# The gather-chain row-gather implementations: "cuda" launches the
+# tiara_gather kernel, "torch" runs its plain version (CPU pools only),
+# "auto" picks "cuda" when the pool lies on a CUDA device and "torch"
+# otherwise.
 IMPLS = ("auto", "torch", "cuda")
 
 
@@ -866,11 +869,6 @@ class _Tracer:
 
     # -- the gather-chain superoperator ------------------------------------
 
-    def _use_kernel(self) -> bool:
-        if self.impl == "auto":
-            return self.memf.is_cuda
-        return self.impl == "cuda"
-
     def _fused_gather_chain(self, g: GatherChain, m, p) -> None:
         """One two-level batched gather for the whole loop: ids -> table ->
         pool rows -> destination window.  Commit order is (iteration,
@@ -952,12 +950,29 @@ class _Tracer:
             js = kstar = None
             m_eff = m
         iw = torch.arange(W, dtype=_I64, device=self.dev)
-        mem0 = self.memf     # every row below is read before any scatter
+        # The row gather is the tiara_gather kernel's window form (the
+        # plain version on a CPU pool): entry (b, j) of its table pairs
+        # the region's start on the request's home device with the
+        # masked translated offset, and word w of the row is
+        # pool[start + ((offset + w) & pool_mask)] — the interpreter's
+        # MEMCPY, at any alignment.  Masking keeps every index inside the
+        # region, the kernel's precondition.
+        if pool_mask >= 1 << 31:
+            raise NotImplementedError(
+                "gather-chain pool regions above 2**31 words do not fit "
+                "the kernel's int32 offsets")
+        offs = (paddr & pool_mask).reshape(-1).to(torch.int32)
+        starts = (home * P + pool_base).expand(B, cap).reshape(-1)
+        ids_all = torch.arange(B * cap, dtype=torch.int32,
+                               device=self.dev).view(B, cap)
 
-        def gather_rows(pa):
-            src = home[:, :, None] * P + pool_base + \
-                ((pa[:, :, None] + iw) & pool_mask)     # (B, chunk, W)
-            return mem0[src]
+        def gather_rows(lo, hi):
+            # every chunk is gathered before the first scatter, so all
+            # rows are read from the pre-chain pool
+            return tiara_gather_window(
+                self.memf, offs, starts, ids_all[:, lo:hi].reshape(-1),
+                width=W, mask=pool_mask, impl=self.impl,
+            ).view(B, hi - lo, W)
 
         dst_addr = home[:, :, None] * P + int(self.base[g.dst_rid]) + \
             ((dst0[:, :, None] + jj[:, :, None] * W + iw)
@@ -966,39 +981,15 @@ class _Tracer:
 
         if self.double_buffer and cap > DBUF_CHUNK:
             bounds = list(range(0, cap, DBUF_CHUNK)) + [cap]
-            chunks = [gather_rows(paddr[:, lo:hi])
-                      for lo, hi in zip(bounds[:-1], bounds[1:])]
-            for (lo, hi), rows_k in zip(zip(bounds[:-1], bounds[1:]),
-                                        chunks):
-                # commit chunk k in (iteration, request, word) order
-                det_scatter(self.memf,
-                            dst_addr[:, lo:hi].transpose(0, 1),
-                            rows_k.transpose(0, 1),
-                            wmask[:, lo:hi].transpose(0, 1))
         else:
-            if self._use_kernel() and self.n_dev == 1 \
-                    and (pool_mask + 1) % W == 0:
-                # Route the row gather through the CUDA double-
-                # indirection kernel: rows must be W-aligned in the pool
-                # region (true for every translation table the
-                # workloads build).  The masked physical row index is in
-                # range by construction — the kernel's precondition.
-                from repro_torch.kernels.tiara_gather.ops import \
-                    tiara_gather
-                pool_view = self.memf[pool_base:pool_base + pool_mask + 1] \
-                    .view(-1, W)
-                rows = tiara_gather(
-                    pool_view,
-                    ((paddr & pool_mask).reshape(-1) // W).to(torch.int32),
-                    torch.arange(B * cap, dtype=torch.int32,
-                                 device=self.dev),
-                    impl="cuda" if self.impl == "cuda" else "auto",
-                ).view(B, cap, W)
-            else:
-                rows = gather_rows(paddr)                # (B, cap, W)
-            # commit in (iteration, request, word) order = round-robin
-            det_scatter(self.memf, dst_addr.transpose(0, 1),
-                        rows.transpose(0, 1), wmask.transpose(0, 1))
+            bounds = [0, cap]
+        spans = list(zip(bounds[:-1], bounds[1:]))
+        chunks = [gather_rows(lo, hi) for lo, hi in spans]
+        for (lo, hi), rows_k in zip(spans, chunks):
+            # commit chunk k in (iteration, request, word) order
+            det_scatter(self.memf, dst_addr[:, lo:hi].transpose(0, 1),
+                        rows_k.transpose(0, 1),
+                        wmask[:, lo:hi].transpose(0, 1))
 
         # architectural register effects of the executed iterations; a
         # faulted lane commits the loads that retired before the fault
@@ -1375,16 +1366,14 @@ def build_compiled(op: VerifiedOperator, regions: RegionTable,
     (the same signature as :func:`vm.build_batched_vm`).  ``mem`` is a
     pool tensor; it is never mutated.
 
-    ``impl``: "torch" lowers the gather-chain row gather to plain torch
-    indexing; "cuda" routes it through the ``tiara_gather`` CUDA kernel
-    (rows must be row-aligned in the pool, which all stock translation
-    tables are); "auto" takes the kernel when the pool lies on a CUDA
-    device.
+    ``impl``: "cuda" runs the gather-chain row gather on the
+    ``tiara_gather`` CUDA kernel; "torch" on its plain version, which
+    takes CPU pools only; "auto" takes the kernel when the pool lies on a
+    CUDA device and the plain version otherwise.
 
     ``double_buffer``: emit gather-chain superoperators as a chunked
     schedule (the compiled analogue of the operator's async Memcpy
-    pipelining).  Bit-identical results; takes precedence over the
-    kernel row-gather route for the chain.
+    pipelining): one row gather per chunk.  Bit-identical results.
 
     ``check_failed=False`` statically elides every failed-device check
     (the ``failed`` argument is accepted and ignored) — the variant the

@@ -1,13 +1,10 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA kernel with ``nvcc`` and load it with ctypes.
 
-Each kernel source under ``kernels/<name>/csrc/`` has a plain C
+The kernel source ``tiara_gather/csrc/tiara_gather.cu`` has a plain C
 interface, so it compiles in seconds without PyTorch's headers.  The
-shared libraries land in ``build/torch_ext/`` at the repository root
+shared library lands in ``build/torch_ext/`` at the repository root
 (listed in ``.gitignore``), named by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is reused.
-
-:func:`build_all` starts one ``nvcc`` per source at once and waits for
-all of them — a later kernel adds no wall time to the build.  Nothing is
+so an edited source rebuilds and an unchanged one is reused.  Nothing is
 compiled at import: the CPU tests import every module, and a machine
 with no CUDA toolkit must still import the package.
 """
@@ -19,24 +16,18 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Optional
 
 _PKG = Path(__file__).resolve().parent
 _REPO = _PKG.parents[2]
 BUILD_DIR = _REPO / "build" / "torch_ext"
+SOURCE = _PKG / "tiara_gather" / "csrc" / "tiara_gather.cu"
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-# kernel name -> source path (relative to kernels/)
-SOURCES: Dict[str, str] = {
-    "tiara_gather": "tiara_gather/csrc/tiara_gather.cu",
-}
-
-_LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
 
 
 class KernelBuildError(RuntimeError):
@@ -54,53 +45,38 @@ def nvcc_path() -> str:
     if found is None:
         raise KernelBuildError(
             "nvcc not found (looked in $CUDA_HOME, /usr/local/cuda, PATH): "
-            "the CUDA kernels build only on a machine with the CUDA toolkit")
+            "the CUDA kernel builds only on a machine with the CUDA toolkit")
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = (_PKG / SOURCES[name]).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+def lib_path() -> Path:
+    tag = hashlib.sha256(SOURCE.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libtiara_gather_{tag}.so"
 
 
-def build_all(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Path]:
-    """Compile every named kernel that is not built yet, all ``nvcc``
-    processes started together; returns name -> shared library path.
-    Raises :class:`KernelBuildError` with the compiler's output when any
-    build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out: Dict[str, Path] = {}
-    procs = []
-    for name in names:
-        lib = _lib_path(name)
-        out[name] = lib
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(_PKG / SOURCES[name])]
-        procs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    errors = []
-    for name, lib, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f"{name}: nvcc exited {proc.returncode}\n"
-                          f"{log.decode(errors='replace')}")
-            continue
-        os.replace(tmp, lib)
-    if errors:
-        raise KernelBuildError("\n".join(errors))
-    return out
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name``, built on first use."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            path = build_all([name])[name]
-            lib = ctypes.CDLL(str(path))
-            _LIBS[name] = lib
+def build() -> Path:
+    """Compile the kernel unless it is built already; returns the shared
+    library's path.  Raises :class:`KernelBuildError` with the compiler's
+    output when the build fails."""
+    lib = lib_path()
+    if lib.exists():
         return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(SOURCE)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc exited {proc.returncode}\n"
+                               f"{proc.stdout.decode(errors='replace')}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded shared library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        _LIB = ctypes.CDLL(str(build()))
+    return _LIB

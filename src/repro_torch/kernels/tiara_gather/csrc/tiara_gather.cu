@@ -1,30 +1,39 @@
-// Double-indirection row gather for Hopper (sm_90a):
+// Double-indirection window gather for Hopper (sm_90a):
 //
-//     out[i, :] = pool[table[ids[i]], :]      pool (N, R), table (T,) int32,
-//                                             ids (n,) int32 -> out (n, R)
+//     out[i, w] = pool[base + ((table[id] * stride + w) & mask)],
+//                 id = ids[i], base = bases ? bases[id] : 0,  0 <= w < width
+//
+// pool is flat, table (T,) int32, ids (n,) int32, bases (T,) int64 or null,
+// out (n, width).  Two callers:
+//
+//   * the row gather `out[i, :] = pool[table[ids[i]], :]` of a (N, R) pool:
+//     stride = width = R, mask = -1 (no wrap), bases = null;
+//   * the compiled gather chain's memcpy: the pool is the whole engine
+//     buffer, bases[id] the pool region's start on the request's home
+//     device, table[id] the translated word offset (any alignment),
+//     stride = 1, width = the row's words and mask the region's mask, so
+//     each word wraps inside the region exactly as the interpreter's
+//     MEMCPY does.
 //
 // Replaces the Pallas TPU kernel `tiara_gather_kernel`
 // (src/repro/kernels/tiara_gather/kernel.py), which resolves both
 // indirection levels inside a BlockSpec index_map and DMAs one row per
-// grid step.  On the H100 the work is pure data movement: it reads n rows
-// and writes n rows, so it is bound by HBM bytes (3.35 TB/s), never by
-// arithmetic.  The design keeps every byte on the wide path:
+// grid step.  On the H100 the work is pure data movement (n windows read,
+// n written), so it is bound by HBM bytes, never by arithmetic:
 //
-//   * one CTA per (request, row tile): blockIdx.x is the request, the
-//     tile loop over blockIdx.y covers the row;
-//   * the two indices are loaded once per CTA as scalars (the Pallas
-//     scalar prefetch becomes two dependent global loads);
-//   * the row is copied with the widest aligned vector that divides the
-//     row in bytes (16-byte uint4 for every row the gather chain issues),
-//     neighbouring threads on neighbouring addresses.
+//   * one CTA per (request, window tile): blockIdx.x is the request, the
+//     tile loop over blockIdx.y covers the window;
+//   * the indices are loaded once per CTA as scalars (the Pallas scalar
+//     prefetch becomes dependent global loads);
+//   * a window that does not wrap is copied with 16-byte uint4 vectors
+//     when its source, destination and length allow it (every row of the
+//     stock translation tables), else word by word; a wrapping window is
+//     copied word by word.  The choice is per CTA, uniform across it.
 //
-// The copy is dtype-agnostic (rows move as bytes), so int64, float32,
-// bfloat16 and int32 pools share one kernel.
-//
-// Precondition: every ids[i] lies in [0, T) and every table[ids[i]] in
-// [0, N).  The caller guarantees it (the compiled gather chain masks each
-// physical row with the pool region's mask before the call); the kernel
-// does not clamp.
+// Precondition: every ids[i] lies in [0, T) and every pool index above in
+// the pool.  The caller guarantees it (the gather chain masks each offset
+// with the region's mask, so it stays inside the region); the kernel does
+// not clamp.
 //
 // Plain C interface, loaded with ctypes: the launch takes raw device
 // pointers and the stream, launches on that stream, does not synchronise,
@@ -38,60 +47,82 @@ namespace {
 
 constexpr int kThreads = 128;
 
-template <typename VecT>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gather_rows_kernel(const VecT* __restrict__ pool,
-                   const int32_t* __restrict__ table,
-                   const int32_t* __restrict__ ids,
-                   VecT* __restrict__ out,
-                   int64_t row_vecs) {
+gather_window_kernel(const T* __restrict__ pool,
+                     const int32_t* __restrict__ table,
+                     const int32_t* __restrict__ ids,
+                     const int64_t* __restrict__ bases,
+                     T* __restrict__ out, int64_t width, int64_t stride,
+                     int64_t mask) {
   const int64_t req = blockIdx.x;
-  const int64_t phys = static_cast<int64_t>(table[ids[req]]);
-  const VecT* src = pool + phys * row_vecs;
-  VecT* dst = out + req * row_vecs;
-  for (int64_t v = static_cast<int64_t>(blockIdx.y) * blockDim.x + threadIdx.x;
-       v < row_vecs; v += static_cast<int64_t>(gridDim.y) * blockDim.x) {
-    dst[v] = src[v];
+  const int32_t id = ids[req];
+  const int64_t base = bases == nullptr ? 0 : bases[id];
+  const uint64_t umask = static_cast<uint64_t>(mask);
+  const uint64_t off =
+      static_cast<uint64_t>(static_cast<int64_t>(table[id]) * stride) & umask;
+  T* dst = out + req * width;
+  const int64_t first = static_cast<int64_t>(blockIdx.y) * blockDim.x +
+                        threadIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.y) * blockDim.x;
+  if (off + static_cast<uint64_t>(width - 1) <= umask) {
+    const T* src = pool + base + static_cast<int64_t>(off);
+    const int64_t bytes = width * static_cast<int64_t>(sizeof(T));
+    const uintptr_t align = reinterpret_cast<uintptr_t>(src) |
+                            reinterpret_cast<uintptr_t>(dst);
+    if (bytes % 16 == 0 && align % 16 == 0) {
+      const uint4* s = reinterpret_cast<const uint4*>(src);
+      uint4* d = reinterpret_cast<uint4*>(dst);
+      for (int64_t v = first; v < bytes / 16; v += step) d[v] = s[v];
+    } else {
+      for (int64_t w = first; w < width; w += step) dst[w] = src[w];
+    }
+  } else {
+    for (int64_t w = first; w < width; w += step) {
+      dst[w] = pool[base + static_cast<int64_t>(
+                               (off + static_cast<uint64_t>(w)) & umask)];
+    }
   }
 }
 
-template <typename VecT>
+template <typename T>
 cudaError_t launch(const void* pool, const int32_t* table,
-                   const int32_t* ids, void* out, int64_t n_req,
-                   int64_t row_bytes, cudaStream_t stream) {
-  const int64_t row_vecs = row_bytes / static_cast<int64_t>(sizeof(VecT));
-  int64_t tiles = (row_vecs + kThreads - 1) / kThreads;
+                   const int32_t* ids, const int64_t* bases, void* out,
+                   int64_t n_req, int64_t width, int64_t stride,
+                   int64_t mask, cudaStream_t stream) {
+  // enough tiles for the vector copy; the word loops stride over the rest
+  const int64_t vecs = (width * static_cast<int64_t>(sizeof(T)) + 15) / 16;
+  int64_t tiles = (vecs + kThreads - 1) / kThreads;
   if (tiles > 65535) tiles = 65535;
   if (tiles < 1) tiles = 1;
   dim3 grid(static_cast<unsigned>(n_req), static_cast<unsigned>(tiles));
-  gather_rows_kernel<VecT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const VecT*>(pool), table, ids, static_cast<VecT*>(out),
-      row_vecs);
+  gather_window_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(pool), table, ids, bases, static_cast<T*>(out),
+      width, stride, mask);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int tiara_gather_launch(const void* pool, const int32_t* table,
-                                   const int32_t* ids, void* out,
-                                   int64_t n_req, int64_t row_bytes,
-                                   void* stream) {
-  if (n_req <= 0 || row_bytes <= 0) return static_cast<int>(cudaSuccess);
+                                   const int32_t* ids, const int64_t* bases,
+                                   void* out, int64_t n_req, int64_t width,
+                                   int64_t stride, int64_t mask,
+                                   int64_t elem_bytes, void* stream) {
+  if (n_req <= 0 || width <= 0) return static_cast<int>(cudaSuccess);
   if (n_req > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uintptr_t align = reinterpret_cast<uintptr_t>(pool) |
-                          reinterpret_cast<uintptr_t>(out);
-  cudaError_t err;
-  if (row_bytes % 16 == 0 && align % 16 == 0) {
-    err = launch<uint4>(pool, table, ids, out, n_req, row_bytes, s);
-  } else if (row_bytes % 8 == 0 && align % 8 == 0) {
-    err = launch<uint2>(pool, table, ids, out, n_req, row_bytes, s);
-  } else if (row_bytes % 4 == 0 && align % 4 == 0) {
-    err = launch<uint32_t>(pool, table, ids, out, n_req, row_bytes, s);
-  } else if (row_bytes % 2 == 0 && align % 2 == 0) {
-    err = launch<uint16_t>(pool, table, ids, out, n_req, row_bytes, s);
-  } else {
-    err = launch<uint8_t>(pool, table, ids, out, n_req, row_bytes, s);
+  switch (elem_bytes) {
+    case 8:
+      return static_cast<int>(launch<uint64_t>(
+          pool, table, ids, bases, out, n_req, width, stride, mask, s));
+    case 4:
+      return static_cast<int>(launch<uint32_t>(
+          pool, table, ids, bases, out, n_req, width, stride, mask, s));
+    case 2:
+      return static_cast<int>(launch<uint16_t>(
+          pool, table, ids, bases, out, n_req, width, stride, mask, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }

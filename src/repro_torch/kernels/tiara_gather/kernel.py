@@ -1,8 +1,16 @@
-"""Launch wrapper of the hand-written CUDA ``tiara_gather`` kernel.
+"""Launch wrappers of the hand-written CUDA ``tiara_gather`` kernel.
 
-``out[i] = pool[table[ids[i]]]`` for ``pool (N, R)``, ``table (T,)``
-int32 and ``ids (n,)`` int32.  The kernel (``csrc/tiara_gather.cu``)
-replaces the Pallas TPU kernel ``tiara_gather_kernel``
+One kernel (``csrc/tiara_gather.cu``) serves two forms of the
+double-indirection gather:
+
+* :func:`tiara_gather_kernel` — ``out[i] = pool[table[ids[i]]]`` for
+  ``pool (N, R)``, ``table (T,)`` int32 and ``ids (n,)`` int32;
+* :func:`tiara_gather_window_kernel` — ``out[i, w] = pool[bases[id] +
+  ((table[id] + w) & mask)]`` with ``id = ids[i]`` over a flat pool, the
+  compiled gather chain's memcpy (any word alignment, wrapping inside the
+  region as the interpreter does).
+
+The kernel replaces the Pallas TPU kernel ``tiara_gather_kernel``
 (``src/repro/kernels/tiara_gather/kernel.py``); see the source for its
 design.  It is built with ``nvcc`` for ``sm_90a`` on first use.
 
@@ -14,6 +22,7 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -25,49 +34,79 @@ _DTYPES = (torch.int64, torch.float32, torch.bfloat16, torch.int32)
 
 
 def _launcher():
-    lib = _build.load("tiara_gather")
-    fn = lib.tiara_gather_launch
+    fn = _build.load().tiara_gather_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def tiara_gather_kernel(pool: torch.Tensor, table: torch.Tensor,
-                        ids: torch.Tensor) -> torch.Tensor:
-    """Run the CUDA kernel on CUDA tensors; returns ``(n, R)`` in
-    ``pool``'s dtype.  Raises on anything the kernel does not take —
-    there is no fallback."""
-    global LAUNCHES
-    if not (pool.is_cuda and table.is_cuda and ids.is_cuda):
+def _check(pool: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
+           bases: Optional[torch.Tensor]) -> None:
+    ts = [pool, table, ids] + ([] if bases is None else [bases])
+    if not all(t.is_cuda for t in ts):
         raise ValueError("tiara_gather_kernel needs CUDA tensors")
-    if pool.device != table.device or pool.device != ids.device:
-        raise ValueError("pool, table and ids must share one device")
-    if pool.dim() != 2 or table.dim() != 1 or ids.dim() != 1:
-        raise ValueError(
-            f"expected pool (N, R), table (T,), ids (n,); got "
-            f"{tuple(pool.shape)}, {tuple(table.shape)}, {tuple(ids.shape)}")
+    if any(t.device != pool.device for t in ts):
+        raise ValueError("all tiara_gather operands must share one device")
     if pool.dtype not in _DTYPES:
         raise ValueError(f"unsupported pool dtype {pool.dtype}")
+    if table.dim() != 1 or ids.dim() != 1:
+        raise ValueError(f"expected table (T,) and ids (n,); got "
+                         f"{tuple(table.shape)}, {tuple(ids.shape)}")
     if table.dtype != torch.int32 or ids.dtype != torch.int32:
         raise ValueError("table and ids must be int32")
-    if not (pool.is_contiguous() and table.is_contiguous()
-            and ids.is_contiguous()):
-        raise ValueError("pool, table and ids must be contiguous")
+    if bases is not None and (bases.dtype != torch.int64
+                              or bases.shape != table.shape):
+        raise ValueError("bases must be int64 and shaped like table")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("tiara_gather operands must be contiguous")
+
+
+def _launch(pool, table, ids, bases, *, width: int, stride: int,
+            mask: int) -> torch.Tensor:
+    global LAUNCHES
     n = int(ids.shape[0])
-    row_bytes = int(pool.shape[1]) * pool.element_size()
-    out = torch.empty((n, pool.shape[1]), dtype=pool.dtype,
-                      device=pool.device)
-    if n == 0 or row_bytes == 0:
+    out = torch.empty((n, width), dtype=pool.dtype, device=pool.device)
+    if n == 0 or width == 0:
         return out
     launch = _launcher()
     with torch.cuda.device(pool.device):
         stream = torch.cuda.current_stream(pool.device).cuda_stream
         err = launch(pool.data_ptr(), table.data_ptr(), ids.data_ptr(),
-                     out.data_ptr(), n, row_bytes, stream)
+                     None if bases is None else bases.data_ptr(),
+                     out.data_ptr(), n, width, stride, mask,
+                     pool.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"tiara_gather launch failed: cudaError {err}")
     LAUNCHES += 1
     return out
+
+
+def tiara_gather_kernel(pool: torch.Tensor, table: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """Row gather on CUDA tensors; returns ``(n, R)`` in ``pool``'s
+    dtype.  Raises on anything the kernel does not take — there is no
+    fallback."""
+    _check(pool, table, ids, None)
+    if pool.dim() != 2:
+        raise ValueError(f"expected pool (N, R); got {tuple(pool.shape)}")
+    R = int(pool.shape[1])
+    return _launch(pool, table, ids, None, width=R, stride=R, mask=-1)
+
+
+def tiara_gather_window_kernel(pool: torch.Tensor, table: torch.Tensor,
+                               bases: torch.Tensor, ids: torch.Tensor, *,
+                               width: int, mask: int) -> torch.Tensor:
+    """Window gather on CUDA tensors: ``out[i, w] = pool[bases[id] +
+    ((table[id] + w) & mask)]``, ``id = ids[i]``, ``w < width``; returns
+    ``(n, width)``.  ``pool`` is flat; every index must lie in it."""
+    _check(pool, table, ids, bases)
+    if pool.dim() != 1:
+        raise ValueError(f"expected a flat pool; got {tuple(pool.shape)}")
+    if width < 0 or mask < 0:
+        raise ValueError("width and mask must be non-negative")
+    return _launch(pool, table, ids, bases, width=int(width), stride=1,
+                   mask=int(mask))

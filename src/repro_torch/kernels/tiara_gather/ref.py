@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the double-indirection gather."""
+"""Plain PyTorch versions of the double-indirection gathers."""
 
 from __future__ import annotations
 
@@ -8,3 +8,11 @@ import torch
 def tiara_gather_ref(pool: torch.Tensor, table: torch.Tensor,
                      ids: torch.Tensor) -> torch.Tensor:
     return pool[table.long()[ids.long()]]
+
+
+def tiara_gather_window_ref(pool: torch.Tensor, table: torch.Tensor,
+                            bases: torch.Tensor, ids: torch.Tensor, *,
+                            width: int, mask: int) -> torch.Tensor:
+    i = ids.long()
+    w = torch.arange(width, dtype=torch.int64, device=pool.device)
+    return pool[bases[i][:, None] + ((table.long()[i][:, None] + w) & mask)]

@@ -183,6 +183,30 @@ def test_double_buffer_bit_parity():
     assert_same(dbuf, want_mem, want)
 
 
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_gather_chain_unaligned_translation_matches_pyvm(double_buffer):
+    """A translation entry need not be block-aligned: the chain copies
+    the W words starting at the translated offset itself, as pyvm's
+    MEMCPY does, on the monolithic and the chunked schedule."""
+    jprog, jrt, mem, params = _kv(4, max_req_blocks=2 * tc.DBUF_CHUNK)
+    W = jrt["kvpool"].size // 16
+    table = jmemory.read_region(mem, jrt, 0, "blocktable").copy()
+    table[1] = 5 * W + 3
+    table[14] = 7
+    jmemory.write_region(mem, jrt, 0, "blocktable", table)
+    jv, pv, prt = carry(jprog, jrt)
+    want_mem, want = oracle(jv, jrt, mem, params)
+    assert all(s == jisa.STATUS_OK for s in want["status"])
+    got = tc.invoke_compiled(pv, prt, mem, params, device="cpu",
+                             double_buffer=double_buffer)
+    assert_same(got, want_mem, want)
+    jres = jtc.invoke_compiled(jv, jrt, mem.copy(), params, impl="xla",
+                               double_buffer=double_buffer)
+    assert_same(got, jres.mem, {k: getattr(jres, k) for k in
+                                ("ret", "status", "steps", "regs",
+                                 "fault")})
+
+
 @pytest.mark.parametrize("name", ["graph_walk", "paged_kv_fetch"])
 def test_compiled_fault_lane_matches_pyvm(name):
     """A lane whose access leaves its region faults with pyvm's FaultInfo

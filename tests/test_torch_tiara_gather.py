@@ -16,7 +16,9 @@ from repro_torch import kernels
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiara_gather import (tiara_gather,
                                               tiara_gather_kernel,
-                                              tiara_gather_ref)
+                                              tiara_gather_ref,
+                                              tiara_gather_window,
+                                              tiara_gather_window_kernel)
 
 SHAPES = [(4, 16, 8), (7, 32, 128), (1, 4, 256)]
 
@@ -104,7 +106,51 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_names_follow_source():
-    a = _build._lib_path("tiara_gather")
-    assert a == _build._lib_path("tiara_gather")
+    a = _build.lib_path()
+    assert a == _build.lib_path()
     assert a.parent == _build.BUILD_DIR
     assert a.name.startswith("libtiara_gather_") and a.suffix == ".so"
+
+
+@pytest.mark.parametrize("width,mask", [(4, 15), (5, 15), (16, 15), (3, 63)])
+def test_window_gather_matches_word_loop(width, mask):
+    """The gather chain's form: word w of row i is
+    pool[bases[id] + ((table[id] + w) & mask)], at any alignment and
+    wrapping inside the region — the interpreter's MEMCPY word loop."""
+    rng = np.random.default_rng(width * 100 + mask)
+    pool = rng.integers(-(1 << 62), 1 << 62, 3 * (mask + 1) + 1)
+    table = rng.integers(0, mask + 1, 6).astype(np.int32)
+    bases = rng.integers(0, 3, 6) * (mask + 1)
+    ids = np.array([5, 0, 3, 3, 1], np.int32)
+    want = np.array([[pool[bases[i] + ((table[i] + w) & mask)]
+                      for w in range(width)] for i in ids])
+    out = tiara_gather_window(torch.from_numpy(pool),
+                              torch.from_numpy(table),
+                              torch.from_numpy(bases), torch.from_numpy(ids),
+                              width=width, mask=mask)
+    assert np.array_equal(out.numpy(), want)
+
+
+def test_window_gather_row_form_agrees():
+    """With aligned offsets and no wrap the window form is the row form."""
+    rng = np.random.default_rng(9)
+    pool = rng.integers(0, 1000, (8, 4))
+    table = rng.permutation(8).astype(np.int32)
+    ids = np.array([2, 7, 0], np.int32)
+    rows = tiara_gather(torch.from_numpy(pool), torch.from_numpy(table),
+                        torch.from_numpy(ids))
+    win = tiara_gather_window(torch.from_numpy(pool.reshape(-1)),
+                              torch.from_numpy(table * 4),
+                              torch.zeros(8, dtype=torch.int64),
+                              torch.from_numpy(ids), width=4, mask=31)
+    assert torch.equal(rows, win)
+
+
+def test_window_no_fallback_on_cpu_tensors():
+    pool = torch.zeros(16, dtype=torch.int64)
+    t = torch.zeros(4, dtype=torch.int32)
+    b = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tiara_gather_window(pool, t, b, t, width=2, mask=15, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tiara_gather_window_kernel(pool, t, b, t, width=2, mask=15)
