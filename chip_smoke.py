@@ -2,25 +2,43 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the Tiara endpoint: register operators,
-post on sessions, ring the doorbell, retire CQEs, then the serving loop —
-at a real deployment size (a 1 GiB paged-KV pool of 8 KiB blocks plus a
-one-million-node graph), and holds the hand-written CUDA kernel against
-its plain PyTorch version on the card.  Phases:
+Drives the port's two main paths and holds every hand-written CUDA
+kernel against its plain PyTorch version on the card:
+
+* the Tiara endpoint — register operators, post on sessions, ring the
+  doorbell, retire CQEs, then the serving loop — at a real deployment
+  size (a 1 GiB paged-KV pool of 8 KiB blocks plus a one-million-node
+  graph);
+* paged-KV decode serving of tiny-lm at full width (12 layers, d_model
+  768, random weights from a seed): ``ServingEngine`` answers 16 requests
+  under ``resolver="host"`` and again under ``resolver="tiara"``, where
+  every decode step resolves the block tables through the endpoint.
+
+Phases:
 
 1. device and build: the card's name and power limit; every CUDA kernel
    of the port built from the checkout's sources with ``nvcc``;
-2. each kernel against its plain version at the main path's shapes
-   (exact equality; the gather chain's window form also at unaligned and
-   wrapping windows), with its time, the plain version's time and the
-   least time the card could take for the same bytes;
+2. each kernel against its plain version at the main paths' shapes
+   (``tiara_gather`` exactly, also at unaligned and wrapping windows;
+   ``paged_attention`` and ``flash_attention`` within 3e-5 in f32, plus
+   small bf16, empty-row, G = 7, head-dim and ragged cases within 0.05 /
+   3e-5), with its time, the plain version's time, the least time the
+   card could take for the same work and, for flash, the time of
+   PyTorch's ``scaled_dot_product_attention`` on the same inputs;
 3. the endpoint at real size: a compiled and a double-buffered compiled
    paged-KV wave (which must launch the kernel once and once per chunk),
    a mixed auto wave, a split-phase pair, and a pyvm replay against a
    downloaded copy of the pool, every result checked; each wave prints
    the engine its doorbell ran and its kernel launches;
 4. the serving loop on a virtual clock with its exactly-one-CQE
-   identity.
+   identity;
+5. tiny-lm serving under both resolvers: identical tokens, every handle
+   ok, ``flash_attention`` launched 12 times per prefill and
+   ``paged_attention`` 12 times per decode step, ``tiara_gather`` at
+   least once in every tiara decode step; prefill time per bucket,
+   decode-step time and tokens/s; then the port on the card against the
+   port on the CPU, same weights, on a 64-token prompt and 8
+   teacher-forced decode steps.
 
 Any failure raises and the script exits non-zero.  It prints, before the
 last line, the card's name and power limit and one JSON object with each
@@ -44,6 +62,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+#                                 (NVIDIA data sheet, dense)
+# tests/test_kernels.py's attention tolerances
+ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 0.05}
+# Card against CPU, tiny-lm logits: both f32 (no TF32), but cuBLAS and the
+# CPU BLAS sum in other orders, and the kernels' online softmax against the
+# plain two-pass one, through 12 layers; logits are O(1).
+CARD_VS_CPU_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -87,7 +113,11 @@ def phase_build():
     t0 = time.perf_counter()
     lib = _build.build()
     dt = time.perf_counter() - t0
-    log(f"[build] {lib.name} built for sm_90a in {dt:.1f} s")
+    log(f"[build] {lib.name}: {len(_build.sources())} sources built for "
+        f"sm_90a in {dt:.1f} s")
+    for line in _build.log_path().read_text().splitlines():
+        if "registers" in line or line.startswith("=="):
+            log(f"[build] {line.strip()}")
     return dt
 
 
@@ -200,6 +230,330 @@ def phase_kernel(dev, scratch):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None,
                 bytes_moved=moved, shape=[n_rows, R, n],
                 row_form_ms=row_ms, row_form_plain_ms=row_plain_ms)
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dev, dtype)
+
+
+def _max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max().item())
+
+
+def _check_close(name, got, want, dtype):
+    """max |got - want|, after checking |got - want| <= tol + tol |want|
+    elementwise (``assert_allclose`` with atol = rtol = tol)."""
+    tol = ATTN_TOL[dtype]
+    err = _max_err(got, want)
+    ok = ((got.float() - want.float()).abs()
+          <= tol + tol * want.float().abs()).all()
+    if not bool(torch.isfinite(got.float()).all()) or not bool(ok):
+        raise AssertionError(f"{name}: max |kernel - plain| {err:.3g} "
+                             f"over the tolerance {tol} ({dtype})")
+    return err
+
+
+def phase_attention(dev, scratch):
+    """paged_attention and flash_attention against their plain versions
+    on the card: small edge cases, then the serving path's shapes, with
+    times and bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref)
+
+    def paged_plain(q, k, v, bt, ln):
+        b, qh, d = q.shape
+        kvh = k.shape[2]
+        return paged_attention_ref(q.view(b, kvh, qh // kvh, d), k, v, bt,
+                                   ln).view(b, qh, d)
+
+    rng = np.random.default_rng(7)
+    # small cases: bf16, an empty row, lengths that are no multiple of the
+    # page, G = 7, head dims 16 / 32 / 128
+    for dtype, (b, qh, kvh, d, pages, page, maxp) in [
+            (torch.float32, (3, 7, 1, 16, 12, 4, 5)),
+            (torch.bfloat16, (3, 12, 4, 64, 40, 16, 9)),
+            (torch.float32, (2, 8, 2, 32, 16, 8, 6)),
+            (torch.bfloat16, (2, 4, 2, 128, 8, 16, 4))]:
+        q = _randn(rng, (b, qh, d), dtype, dev)
+        k = _randn(rng, (pages, page, kvh, d), dtype, dev)
+        v = _randn(rng, (pages, page, kvh, d), dtype, dev)
+        bt = torch.from_numpy(rng.integers(0, pages, (b, maxp))
+                              .astype(np.int32)).to(dev)
+        ln = torch.tensor([0, maxp * page - 3] + [5] * (b - 2),
+                          dtype=torch.int32, device=dev)
+        out = paged_attention(q, k, v, bt, ln)
+        torch.cuda.synchronize()
+        _check_close("paged_attention", out, paged_plain(q, k, v, bt, ln),
+                     dtype)
+        if not bool((out[0] == 0).all()):
+            raise AssertionError("paged_attention: a length-0 row is not 0")
+    for dtype, causal, (b, qh, kvh, s, d) in [
+            (torch.float32, True, (2, 7, 1, 37, 16)),
+            (torch.bfloat16, True, (1, 12, 4, 200, 64)),
+            (torch.float32, False, (2, 4, 2, 96, 32)),
+            (torch.bfloat16, False, (1, 4, 2, 130, 128))]:
+        q = _randn(rng, (b, qh, s, d), dtype, dev)
+        k = _randn(rng, (b, kvh, s, d), dtype, dev)
+        v = _randn(rng, (b, kvh, s, d), dtype, dev)
+        ln = torch.tensor([0, s - 5][:b] if b > 1 else [s - 5],
+                          dtype=torch.int32, device=dev)
+        for lens in (ln, None):
+            out = flash_attention(q, k, v, lens, causal=causal)
+            torch.cuda.synchronize()
+            _check_close("flash_attention", out,
+                         flash_attention_ref(q, k, v, lens, causal=causal),
+                         dtype)
+    log("[kernel] paged_attention and flash_attention == plain versions for "
+        "f32/bf16, empty rows, G = 7, D in {16, 32, 64, 128}, ragged S and "
+        "lengths that are no multiple of the page")
+
+    # paged_attention at the decode path's shape: tiny-lm's 12 q / 4 kv
+    # heads of 64, 8 slots, page 16, 128 pages per sequence out of the
+    # engine's 1025, lengths spread to 2048
+    b, qh, kvh, d, page, maxp, n_pages = 8, 12, 4, 64, 16, 128, 1025
+    q = _randn(rng, (b, qh, d), torch.float32, dev)
+    k = _randn(rng, (n_pages, page, kvh, d), torch.float32, dev)
+    v = _randn(rng, (n_pages, page, kvh, d), torch.float32, dev)
+    bt = torch.from_numpy(rng.permutation(b * maxp).reshape(b, maxp)
+                          .astype(np.int32)).to(dev)
+    lens_np = np.sort(rng.integers(1, maxp * page + 1, b)).astype(np.int32)
+    lens_np[-1] = maxp * page
+    ln = torch.from_numpy(lens_np).to(dev)
+    out = paged_attention(q, k, v, bt, ln)
+    ref = paged_plain(q, k, v, bt, ln)
+    torch.cuda.synchronize()
+    pa_err = _check_close("paged_attention (path shape)", out, ref,
+                          torch.float32)
+    pa_ms = time_cuda(lambda: paged_attention(q, k, v, bt, ln), scratch)
+    pa_plain = time_cuda(lambda: paged_plain(q, k, v, bt, ln), scratch)
+    live = int(lens_np.sum())
+    pa_bytes = live * kvh * d * 4 * 2 + 2 * q.numel() * 4
+    pa_bound = pa_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[kernel] paged_attention, path shape q {tuple(q.shape)} pages "
+        f"{tuple(k.shape)} tables {tuple(bt.shape)} lengths "
+        f"{lens_np.tolist()}: max err {pa_err:.3g}; kernel "
+        f"{pa_ms * 1e3:.2f} us ({pa_bytes / pa_ms / 1e6:.0f} GB/s), plain "
+        f"{pa_plain * 1e3:.2f} us, bound {pa_bound * 1e3:.2f} us (bytes)")
+    paged = dict(name="paged_attention", route="cuda",
+                 source="src/repro_torch/kernels/paged_attention/csrc/"
+                        "paged_attention.cu",
+                 replaces="src/repro/kernels/paged_attention/kernel.py:79",
+                 max_abs_err=pa_err, ms=pa_ms, plain_ms=pa_plain,
+                 bound_ms=pa_bound, bound_by="bytes", library_ms=None,
+                 bytes_moved=pa_bytes, shape=list(q.shape) + list(k.shape),
+                 lengths=lens_np.tolist())
+    del q, k, v, out, ref
+
+    # flash_attention at the prefill path's largest bucket: 2048 tokens,
+    # tiny-lm's heads, causal
+    b, qh, kvh, s, d = 1, 12, 4, 2048, 64
+    q = _randn(rng, (b, qh, s, d), torch.float32, dev)
+    k = _randn(rng, (b, kvh, s, d), torch.float32, dev)
+    v = _randn(rng, (b, kvh, s, d), torch.float32, dev)
+    out = flash_attention(q, k, v)
+    ref = flash_attention_ref(q, k, v)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    torch.cuda.synchronize()
+    fa_err = _check_close("flash_attention (path shape)", out, ref,
+                          torch.float32)
+    lib_err = _max_err(lib, ref)
+    fa_ms = time_cuda(lambda: flash_attention(q, k, v), scratch)
+    fa_plain = time_cuda(lambda: flash_attention_ref(q, k, v), scratch)
+    fa_lib = time_cuda(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), scratch)
+    pairs = s * (s + 1) // 2                # causal (query, key) pairs
+    fa_flops = 2 * 2 * pairs * d * qh       # q.k and p.v, 2 flops per FMA
+    fa_bytes = (2 * q.numel() + 2 * k.numel()) * 4
+    fa_bound = max(fa_flops / F32_FLOPS_PER_S,
+                   fa_bytes / HBM_BYTES_PER_S) * 1e3
+    log(f"[kernel] flash_attention, path shape q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} causal: max err {fa_err:.3g} (sdpa "
+        f"{lib_err:.3g}); kernel {fa_ms * 1e3:.1f} us "
+        f"({fa_flops / fa_ms / 1e9:.2f} TFLOP/s), plain "
+        f"{fa_plain * 1e3:.1f} us, sdpa {fa_lib * 1e3:.1f} us, bound "
+        f"{fa_bound * 1e3:.1f} us (operations, f32 outside tensor cores)")
+    flash = dict(name="flash_attention", route="cuda",
+                 source="src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention/kernel.py:73",
+                 max_abs_err=fa_err, ms=fa_ms, plain_ms=fa_plain,
+                 bound_ms=fa_bound, bound_by="operations", library_ms=fa_lib,
+                 flops=fa_flops, shape=list(q.shape) + list(k.shape),
+                 library_max_abs_err=lib_err)
+    del q, k, v, out, ref, lib
+    torch.cuda.empty_cache()
+    return paged, flash
+
+
+class _Timed:
+    """Wall time of an engine's prefills (by bucket) and decode steps,
+    each ended by ``torch.cuda.synchronize()``, and the tiara_gather
+    launches of every decode step."""
+
+    def __init__(self, eng):
+        from repro_torch.kernels.tiara_gather import kernel as tg
+        self.prefill_ms, self.step_ms, self.step_gathers = {}, [], []
+        self._in_prefill = 0.0
+        prefill, step = eng._prefill, eng.step
+
+        def timed_prefill(seq):
+            bucket = min(max(eng.cfg.page_size,
+                             1 << int(np.ceil(np.log2(max(len(seq.prompt),
+                                                          1))))),
+                         eng.max_seq)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill(seq)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t) * 1e3
+            self.prefill_ms.setdefault(bucket, []).append(dt)
+            self._in_prefill += dt
+
+        def timed_step():
+            decoding = bool(eng.waiting) or any(eng.active)
+            torch.cuda.synchronize()
+            self._in_prefill, n0 = 0.0, tg.LAUNCHES
+            t = time.perf_counter()
+            out = step()
+            torch.cuda.synchronize()
+            if decoding:
+                self.step_ms.append((time.perf_counter() - t) * 1e3
+                                    - self._in_prefill)
+                self.step_gathers.append(tg.LAUNCHES - n0)
+            return out
+        eng._prefill, eng.step = timed_prefill, timed_step
+
+
+def phase_serving(dev):
+    """tiny-lm at full width through ServingEngine, host then tiara."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import count_params
+    from repro_torch.serving import ServingEngine
+
+    cfg = get_config("tiny-lm")
+    t = time.perf_counter()
+    params = tf.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    log(f"[serving] tiny-lm: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab}, {n_params / 1e6:.1f}M f32 params from seed 0 "
+        f"({time.perf_counter() - t:.1f} s)")
+    rng = np.random.default_rng(11)
+    plens = rng.permutation(np.round(np.geomspace(16, 1536, 16))
+                            .astype(int))
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, n))) for n in plens]
+    runs = {}
+    for resolver in ("host", "tiara"):
+        eng = ServingEngine(cfg, params, max_slots=8, max_seq=2048,
+                            eos_id=-1, temperature=0.0, resolver=resolver,
+                            device=dev)
+        timed = _Timed(eng)
+        kernels.reset_launch_counts()        # the serving path starts here
+        t = time.perf_counter()
+        handles = [eng.submit(p, max_new=32) for p in prompts]
+        out = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = kernels.launch_counts()     # ... and ends here
+        if not all(h.ok for h in handles):
+            raise AssertionError(f"{resolver}: a sequence did not finish ok")
+        if any(len(out[h.sid]) != 32 for h in handles):
+            raise AssertionError(f"{resolver}: a sequence is short")
+        n_prefill = sum(len(v) for v in timed.prefill_ms.values())
+        n_steps = len(timed.step_ms)
+        if n_prefill != len(prompts):
+            raise AssertionError(f"{resolver}: {n_prefill} prefills")
+        if counts["flash_attention"] != cfg.n_layers * n_prefill:
+            raise AssertionError(
+                f"{resolver}: flash_attention launched "
+                f"{counts['flash_attention']} times, expected "
+                f"{cfg.n_layers} x {n_prefill} prefills")
+        if counts["paged_attention"] != cfg.n_layers * n_steps:
+            raise AssertionError(
+                f"{resolver}: paged_attention launched "
+                f"{counts['paged_attention']} times, expected "
+                f"{cfg.n_layers} x {n_steps} decode steps")
+        if resolver == "tiara" and min(timed.step_gathers) < 1:
+            raise AssertionError("tiara: a decode step launched no "
+                                 "tiara_gather")
+        if resolver == "host" and counts["tiara_gather"] != 0:
+            raise AssertionError("host: tiara_gather launched")
+        tokens = sum(len(v) for v in out.values())
+        runs[resolver] = dict(
+            out=out, counts=counts, wall_s=wall, tokens=tokens,
+            prefill_ms={int(k): v
+                        for k, v in sorted(timed.prefill_ms.items())},
+            step_ms=timed.step_ms, step_gathers=timed.step_gathers)
+        log(f"[serving] resolver={resolver}: 16 requests (prompts "
+            f"{int(plens.min())}-{int(plens.max())} tokens), {tokens} tokens "
+            f"in {wall:.2f} s = {tokens / wall:.1f} tokens/s; "
+            f"{n_prefill} prefills, {n_steps} decode steps; launches "
+            f"{counts}")
+        log(f"[serving] resolver={resolver}: prefill ms by bucket "
+            + ", ".join(f"{k}: {np.median(v):.1f} (x{len(v)})"
+                        for k, v in sorted(timed.prefill_ms.items())))
+        log(f"[serving] resolver={resolver}: decode step ms median "
+            f"{np.median(timed.step_ms):.2f}, min {min(timed.step_ms):.2f}, "
+            f"max {max(timed.step_ms):.2f}"
+            + (f"; tiara_gather launches per step median "
+               f"{int(np.median(timed.step_gathers))}"
+               if resolver == "tiara" else ""))
+        del eng
+        torch.cuda.empty_cache()
+    if runs["tiara"]["out"] != runs["host"]["out"]:
+        raise AssertionError("resolver='tiara' tokens differ from 'host'")
+    log("[serving] tiara tokens == host tokens for all 16 requests")
+    cpu_err = card_vs_cpu(cfg, params, dev)
+    return runs, cpu_err
+
+
+def card_vs_cpu(cfg, params, dev) -> float:
+    """The port on the card against the port on the CPU, same weights: a
+    64-token prompt, then 8 teacher-forced decode steps; logits agree
+    within CARD_VS_CPU_TOL."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import tree_map
+    rng = np.random.default_rng(12)
+    toks = rng.integers(1, cfg.vocab, 64 + 8).astype(np.int64)
+    maxp = (64 + 8 + cfg.page_size - 1) // cfg.page_size
+    logits = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        p = tree_map(lambda a: a.to(d), params)
+        caches = tf.init_caches(cfg, 1, maxp, device=d)
+        bt = tf.default_block_tables(cfg, 1, maxp, device=d)
+        with torch.no_grad():
+            out = tf.apply_model(p, cfg, {
+                "tokens": torch.from_numpy(toks[None, :64]).to(d),
+                "caches": caches, "block_tables": bt,
+                "lengths": torch.tensor([64], dtype=torch.int32, device=d)},
+                mode="prefill")
+            got = [out.logits[0, -1]]
+            for i in range(8):
+                out = tf.apply_model(p, cfg, {
+                    "tokens": torch.from_numpy(toks[None, 64 + i:65 + i])
+                    .to(d), "caches": caches, "block_tables": bt,
+                    "lengths": torch.tensor([64 + i], dtype=torch.int32,
+                                            device=d)}, mode="decode")
+                got.append(out.logits[0, 0])
+        logits[where] = torch.stack(got).cpu()
+    err = _max_err(logits["cuda"], logits["cpu"])
+    if not bool(torch.isfinite(logits["cuda"]).all()) \
+            or err > CARD_VS_CPU_TOL:
+        raise AssertionError(f"card vs CPU logits differ by {err:.3g} "
+                             f"(tolerance {CARD_VS_CPU_TOL})")
+    log(f"[serving] card vs CPU, 64-token prompt + 8 teacher-forced decode "
+        f"steps: max |logit diff| {err:.3g} (tolerance {CARD_VS_CPU_TOL}, "
+        f"max |logit| {float(logits['cpu'].abs().max()):.2f})")
+    return err
 
 
 def check_kv_slots(kvs, kv, host0, table, blocks, slots, slot_words):
@@ -386,28 +740,46 @@ def main() -> int:
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
     build_s = phase_build()
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)  # 256 MiB
     kinfo = phase_kernel(dev, scratch)
+    paged, flash = phase_attention(dev, scratch)
     del scratch
     torch.cuda.empty_cache()
 
-    kernels.reset_launch_counts()           # the main path starts here
+    kernels.reset_launch_counts()           # the endpoint path starts here
     walls, launches, ran = phase_endpoint(dev)
     counts = kernels.launch_counts()         # ... and ends here
     if counts["tiara_gather"] < 1:
-        raise AssertionError("main path never launched tiara_gather")
-    kinfo["launches"] = counts["tiara_gather"]
+        raise AssertionError("the endpoint path never launched tiara_gather")
+    log(f"[launches] endpoint path: {counts}")
+    # the serving path resets and reads the counts around each resolver's
+    # run; its host run launches no tiara_gather
+    runs, cpu_err = phase_serving(dev)
+    serving = {k: sum(r["counts"][k] for r in runs.values())
+               for k in counts}
+    log(f"[launches] serving path (host + tiara): {serving}")
+    for k in ("paged_attention", "flash_attention"):
+        if serving[k] < 1:
+            raise AssertionError(f"the serving path never launched {k}")
+    kinfo["launches"] = counts["tiara_gather"] + serving["tiara_gather"]
+    paged["launches"] = serving["paged_attention"]
+    flash["launches"] = serving["flash_attention"]
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "build_s": build_s, "kernel": kinfo,
+        json.dump({"card": card, "build_s": build_s,
+                   "kernels": [kinfo, paged, flash],
                    "wave_wall_s": walls, "wave_launches": launches,
-                   "wave_engine": ran}, f,
-                  indent=1)
+                   "wave_engine": ran, "endpoint_launches": counts,
+                   "serving": {r: {k: v for k, v in run.items() if k != "out"}
+                               for r, run in runs.items()},
+                   "card_vs_cpu_max_abs_err": cpu_err}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: kinfo[k] for k in keys}]}))
+    log(json.dumps({"kernels": [{k: ki[k] for k in keys}
+                                for ki in (kinfo, paged, flash)]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

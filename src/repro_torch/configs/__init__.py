@@ -1,0 +1,130 @@
+"""Architecture configs of the port.
+
+``get_config(name)`` resolves an ``--arch`` id; each architecture lives in
+its own module with the published numbers.  Only ``tiny-lm`` is ported so
+far: it is the dense attention model the serving engine runs.  The other
+families join with their layers.
+
+The JAX reference's mesh and compiler knobs (``dp_spec``, ``moe_fn``,
+``moe_hints``, ``remat``, ``remat_unit``, ``scan_layers``) have no
+counterpart here: PyTorch runs eagerly and the port has no mesh yet.
+``paged_attn_fn`` stays as a field because the distributed decode plugs
+in through it; until that slice lands, a value other than ``None`` makes
+the decode raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Optional, Tuple
+
+from repro_torch.kernels import IMPLS as ATTN_IMPLS
+from repro_torch.models.mamba import MambaSpec
+from repro_torch.models.moe import MoESpec
+from repro_torch.models.rwkv import RWKVSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str = "attn"            # attn | mamba | rwkv
+    mlp: str = "swiglu"           # swiglu | relu2 | gelu | moe | rwkv_cm
+    moe: Optional[MoESpec] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                   # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    pattern: Tuple[LayerSpec, ...]
+    head_dim: int
+    source: str = ""
+    norm: str = "rmsnorm"
+    rope: str = "rope"            # rope | mrope | none
+    rope_theta: float = 1_000_000.0
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    tie_embeddings: bool = False
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    frontend: Optional[str] = None   # audio | vision
+    sub_quadratic: bool = False
+    mamba: MambaSpec = MambaSpec()
+    rwkv: RWKVSpec = RWKVSpec()
+    attn_impl: str = "auto"       # auto | cuda | torch (kernels' ``impl``)
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+    page_size: int = 128          # paged-KV page (tokens)
+    paged_attn_fn: Optional[Any] = None   # distributed decode (not ported)
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r} not in "
+                             f"{ATTN_IMPLS}")
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding rows padded to a multiple of 256 (padded logits are
+        masked), as in the reference, so weights cross shape for shape."""
+        return (self.vocab + 255) // 256 * 256
+
+    @property
+    def n_repeat(self) -> int:
+        assert self.n_layers % len(self.pattern) == 0, \
+            f"{self.name}: {self.n_layers} layers not a multiple of " \
+            f"pattern length {len(self.pattern)}"
+        return self.n_layers // len(self.pattern)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return all(s.kind != "attn" for s in self.pattern)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_MODULES = {
+    "tiny-lm": "tiny_lm",
+}
+
+
+def get_config(name: str) -> ArchConfig:
+    key = name.strip().lower().replace("_", "-")
+    if key not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[key]}")
+    return mod.CONFIG
+
+
+def reduce_config(cfg: ArchConfig) -> ArchConfig:
+    """Reduced same-family config for CPU smoke tests: small width, few
+    layers (but >= one full pattern period), tiny vocab/experts, preserved
+    GQA grouping and layer-kind structure.  The same numbers as the
+    reference's ``reduce_config``."""
+    group = max(1, cfg.n_heads // cfg.n_kv_heads)
+    n_kv = 1 if cfg.n_kv_heads < cfg.n_heads else 2
+    n_heads = group * n_kv if cfg.n_kv_heads < cfg.n_heads else 2
+    pattern = []
+    for spec in cfg.pattern:
+        moe = spec.moe
+        if moe is not None:
+            moe = dataclasses.replace(moe, n_experts=min(4, moe.n_experts),
+                                      d_ff_expert=64, capacity_factor=8.0)
+        pattern.append(dataclasses.replace(spec, moe=moe))
+    n_repeat = min(2, cfg.n_repeat)
+    return cfg.replace(
+        n_layers=len(pattern) * n_repeat,
+        d_model=128, n_heads=n_heads, n_kv_heads=n_kv,
+        head_dim=32, d_ff=160, vocab=512,
+        pattern=tuple(pattern),
+        n_enc_layers=min(2, cfg.n_enc_layers),
+        mamba=dataclasses.replace(cfg.mamba, d_state=8, dt_rank=8),
+        rwkv=dataclasses.replace(cfg.rwkv, head_size=32, decay_lora=16),
+        mrope_sections=(4, 6, 6),
+        dtype="float32", param_dtype="float32", page_size=8,
+    )

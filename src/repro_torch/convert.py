@@ -1,7 +1,8 @@
 """Carry the reference's state into the port.
 
-This system has no model weights: its state is the memory pool and the
-encoded operator programs.  The reference keeps both as plain numpy
+The Tiara state is the memory pool and the encoded operator programs;
+the serving stack adds model weights and paged KV caches.  The reference
+keeps pools and programs as plain numpy
 (``int64[n_devices, pool_words]`` pools, ``int64[n, INSTR_WIDTH]``
 instruction words), so carrying them across needs no import of the
 reference package — only its arrays and, for region tables, any object
@@ -21,6 +22,9 @@ from repro_torch.core.isa import Op
 from repro_torch.core.memory import RegionTable
 from repro_torch.core.program import TiaraProgram
 from repro_torch.core.vm import resolve_device
+from repro_torch.models.attention import PagedKV
+from repro_torch.models.blocks import BlockCache
+from repro_torch.models.param import tree_map
 
 
 def pool_from_numpy(mem, device=None) -> torch.Tensor:
@@ -85,3 +89,32 @@ def program_from_code(code, name: str, n_params: int, regions, *,
         regions_written=tuple(regions_written)
         if regions_written is not None else wr,
         region_names=tuple(regions.names()))
+
+
+def params_from_numpy(tree, device=None):
+    """The reference's parameter tree, given as numpy arrays (for example
+    ``jax.tree_util.tree_map(np.asarray, params)``), as the port's tree of
+    tensors on ``device`` — the card unless named.  Names, nesting (dicts
+    and the per-pattern tuple under ``blocks``), shapes and dtypes are
+    kept; bf16 arrays (numpy has no bf16, JAX gives ``ml_dtypes``) cross
+    through f32."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        arr = np.asarray(a)
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.astype(np.float32)).to(
+                dev, torch.bfloat16)
+        return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+    return tree_map(leaf, tree)
+
+
+def caches_from_numpy(caches, device=None):
+    """The reference's decode caches — a tuple of ``BlockCache`` per
+    pattern element whose ``paged`` leaves are ``(n_repeat, P, page, KVH,
+    hd)`` arrays — as the port's caches on ``device``."""
+    out = []
+    for c in caches:
+        k, v = params_from_numpy((c.paged.k_pages, c.paged.v_pages), device)
+        out.append(BlockCache(paged=PagedKV(k, v)))
+    return tuple(out)

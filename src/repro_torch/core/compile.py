@@ -22,8 +22,9 @@ Lowering rules (B = request batch, every value is an int64 ``(B,)`` lane):
     the lane from every later instruction;
   * LOAD/STORE lower to gathers / deterministic scatters, CAS/CAA to a
     serialized loop over the batch (atomics keep pyvm request-order),
-    MEMCPY to a window gather plus a deterministic last-writer-wins
-    scatter in round-robin commit order;
+    MEMCPY to a window gather — the ``tiara_gather`` kernel's window form,
+    one launch per MEMCPY on a card pool — plus a deterministic
+    last-writer-wins scatter in round-robin commit order;
   * the canonical *gather-chain* loop (``load id; load translation;
     memcpy row``) — MoE expert gather and paged-KV block fetch — is
     recognized structurally and fused into one two-level batched gather,
@@ -92,7 +93,8 @@ DEFAULT_UNROLL_LIMIT = 4096
 # the engine must chunk identically.
 DBUF_CHUNK = _costmodel.EngineCost().dbuf_chunk_iters
 
-# The gather-chain row-gather implementations: "cuda" launches the
+# The window-gather implementations (every MEMCPY's read and the gather
+# chain's row gather): "cuda" launches the
 # tiara_gather kernel, "torch" runs its plain version (CPU pools only),
 # "auto" picks "cuda" when the pool lies on a CUDA device and "torch"
 # otherwise.
@@ -857,15 +859,31 @@ class _Tracer:
         else:
             ln = torch.where(p, ln, zero)
         iw = torch.arange(cap, dtype=_I64, device=self.dev)[None, :]
-        soff = self.regs[ins.e & _REG_MASK][:, None]
         doff = self.regs[ins.b & _REG_MASK][:, None]
-        src = sdev[:, None] * self.P + int(self.base[srid]) + \
-            ((soff + iw) & int(self.mask[srid]))
         dst = ddev[:, None] * self.P + int(self.base[drid]) + \
             ((doff + iw) & int(self.mask[drid]))
-        vals = self.memf[src]
+        # word w of lane b's window: memf[sdev*P + base + ((soff + w) &
+        # mask)], read for every lane and word (``live`` picks what lands)
+        vals = self._read_windows(self.regs[ins.e & _REG_MASK],
+                                  sdev * self.P + int(self.base[srid]),
+                                  width=cap, mask=int(self.mask[srid]))
         live = iw < ln[:, None]
         det_scatter(self.memf, dst, vals, live)
+
+    def _read_windows(self, offs, starts, *, width: int, mask: int):
+        """``out[b, w] = memf[starts[b] + ((offs[b] + w) & mask)]`` for
+        ``w < width``: the ``tiara_gather`` kernel's window form on a card
+        pool, its plain version on a CPU pool.  Masking the offsets keeps
+        every index inside the region, the kernel's precondition."""
+        if mask >= 1 << 31:
+            raise NotImplementedError(
+                "MEMCPY regions above 2**31 words do not fit the kernel's "
+                "int32 offsets")
+        n = int(offs.shape[0])
+        return tiara_gather_window(
+            self.memf, (offs & mask).to(torch.int32), starts.contiguous(),
+            torch.arange(n, dtype=torch.int32, device=self.dev),
+            width=width, mask=mask, impl=self.impl)
 
     # -- the gather-chain superoperator ------------------------------------
 
@@ -951,28 +969,19 @@ class _Tracer:
             m_eff = m
         iw = torch.arange(W, dtype=_I64, device=self.dev)
         # The row gather is the tiara_gather kernel's window form (the
-        # plain version on a CPU pool): entry (b, j) of its table pairs
-        # the region's start on the request's home device with the
-        # masked translated offset, and word w of the row is
-        # pool[start + ((offset + w) & pool_mask)] — the interpreter's
-        # MEMCPY, at any alignment.  Masking keeps every index inside the
-        # region, the kernel's precondition.
-        if pool_mask >= 1 << 31:
-            raise NotImplementedError(
-                "gather-chain pool regions above 2**31 words do not fit "
-                "the kernel's int32 offsets")
-        offs = (paddr & pool_mask).reshape(-1).to(torch.int32)
-        starts = (home * P + pool_base).expand(B, cap).reshape(-1)
-        ids_all = torch.arange(B * cap, dtype=torch.int32,
-                               device=self.dev).view(B, cap)
+        # plain version on a CPU pool): word w of row (b, j) is
+        # pool[start + ((paddr + w) & pool_mask)], start the region's
+        # start on the request's home device — the interpreter's MEMCPY,
+        # at any alignment.
+        starts = home * P + pool_base                           # (B, 1)
 
         def gather_rows(lo, hi):
             # every chunk is gathered before the first scatter, so all
             # rows are read from the pre-chain pool
-            return tiara_gather_window(
-                self.memf, offs, starts, ids_all[:, lo:hi].reshape(-1),
-                width=W, mask=pool_mask, impl=self.impl,
-            ).view(B, hi - lo, W)
+            return self._read_windows(
+                paddr[:, lo:hi].reshape(-1),
+                starts.expand(B, hi - lo).reshape(-1), width=W,
+                mask=pool_mask).view(B, hi - lo, W)
 
         dst_addr = home[:, :, None] * P + int(self.base[g.dst_rid]) + \
             ((dst0[:, :, None] + jj[:, :, None] * W + iw)

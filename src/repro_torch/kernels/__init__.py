@@ -1,16 +1,43 @@
 """Hand-written Hopper kernels of the port, one package per TPU kernel
 (``kernel.py`` launch wrapper + ``ref.py`` plain version + ``ops.py``
-entry point + ``csrc/`` CUDA source)."""
+entry point + ``csrc/`` CUDA source).  ``_build.py`` compiles every
+``csrc/*.cu`` into one shared library on first use."""
 
 from typing import Dict
+
+import torch
+
+IMPLS = ("auto", "cuda", "torch")
+
+
+def resolve_impl(impl: str, x: torch.Tensor) -> str:
+    """``impl="auto"`` launches the CUDA kernel when ``x`` lies on a CUDA
+    device and runs the plain version when it lies on the CPU.  The plain
+    version is only for CPU tensors: on the card the kernel runs or the
+    call raises."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    if impl == "auto":
+        return "cuda" if x.is_cuda else "torch"
+    if impl == "torch" and x.is_cuda:
+        raise ValueError("impl='torch' takes CPU tensors; on the card the "
+                         "CUDA kernel runs")
+    return impl
+
+
+def _modules():
+    from repro_torch.kernels.flash_attention import kernel as _fa
+    from repro_torch.kernels.paged_attention import kernel as _pa
+    from repro_torch.kernels.tiara_gather import kernel as _tg
+    return {"tiara_gather": _tg, "paged_attention": _pa,
+            "flash_attention": _fa}
 
 
 def launch_counts() -> Dict[str, int]:
     """Launches of every kernel since the last :func:`reset_launch_counts`."""
-    from repro_torch.kernels.tiara_gather import kernel as _tg
-    return {"tiara_gather": _tg.LAUNCHES}
+    return {name: mod.LAUNCHES for name, mod in _modules().items()}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.tiara_gather import kernel as _tg
-    _tg.LAUNCHES = 0
+    for mod in _modules().values():
+        mod.LAUNCHES = 0

@@ -1,12 +1,14 @@
-"""Build the port's CUDA kernel with ``nvcc`` and load it with ctypes.
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-The kernel source ``tiara_gather/csrc/tiara_gather.cu`` has a plain C
-interface, so it compiles in seconds without PyTorch's headers.  The
-shared library lands in ``build/torch_ext/`` at the repository root
-(listed in ``.gitignore``), named by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is reused.  Nothing is
-compiled at import: the CPU tests import every module, and a machine
-with no CUDA toolkit must still import the package.
+Every kernel source ``kernels/*/csrc/*.cu`` has a plain C interface, so
+it compiles in seconds without PyTorch's headers.  The sources compile in
+parallel, one ``nvcc -c`` each, all started together, and one more
+``nvcc`` links the objects into ONE shared library.  The library lands in
+``build/torch_ext/`` at the repository root (listed in ``.gitignore``),
+named by a hash of every source and the flags, so an edited source
+rebuilds and an unchanged tree is reused.  Nothing is compiled at import:
+the CPU tests import every module, and a machine with no CUDA toolkit
+must still import the package.
 """
 
 from __future__ import annotations
@@ -17,21 +19,27 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent
 _REPO = _PKG.parents[2]
 BUILD_DIR = _REPO / "build" / "torch_ext"
-SOURCE = _PKG / "tiara_gather" / "csrc" / "tiara_gather.cu"
 
-NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+ARCH_FLAG = "-gencode=arch=compute_90a,code=sm_90a"
+COMPILE_FLAGS = [ARCH_FLAG, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-lineinfo", "-Xptxas=-v"]
+LINK_FLAGS = [ARCH_FLAG, "-shared"]
 
 _LIB: Optional[ctypes.CDLL] = None
 
 
 class KernelBuildError(RuntimeError):
     pass
+
+
+def sources() -> List[Path]:
+    """Every CUDA source of the port, in a stable order."""
+    return sorted(_PKG.glob("*/csrc/*.cu"))
 
 
 def nvcc_path() -> str:
@@ -45,32 +53,60 @@ def nvcc_path() -> str:
     if found is None:
         raise KernelBuildError(
             "nvcc not found (looked in $CUDA_HOME, /usr/local/cuda, PATH): "
-            "the CUDA kernel builds only on a machine with the CUDA toolkit")
+            "the CUDA kernels build only on a machine with the CUDA toolkit")
     return found
 
 
 def lib_path() -> Path:
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libtiara_gather_{tag}.so"
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sources():
+        h.update(src.relative_to(_PKG).as_posix().encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtorch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def log_path() -> Path:
+    """The compiler's output of the last build (``-Xptxas=-v``: registers,
+    shared memory and spills of every kernel)."""
+    return lib_path().with_suffix(".log")
 
 
 def build() -> Path:
-    """Compile the kernel unless it is built already; returns the shared
-    library's path.  Raises :class:`KernelBuildError` with the compiler's
-    output when the build fails."""
+    """Compile every kernel unless the library is built already; returns
+    its path.  Raises :class:`KernelBuildError` with the compiler's output
+    when a source or the link fails."""
     lib = lib_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    work = BUILD_DIR / f"{lib.stem}.obj{os.getpid()}"
+    work.mkdir(exist_ok=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = work / f"{src.parent.parent.name}_{src.stem}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    logs, failed = [], []
+    for src, proc in procs:
+        out = proc.communicate()[0].decode(errors="replace")
+        logs.append(f"== {src.relative_to(_PKG)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name}: nvcc exited {proc.returncode}")
+    if failed:
+        raise KernelBuildError("; ".join(failed) + "\n" + "\n".join(logs))
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], stdout=subprocess.PIPE,
+    link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp),
+                           *map(str, objs)], stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc exited {proc.returncode}\n"
-                               f"{proc.stdout.decode(errors='replace')}")
+    if link.returncode != 0:
+        raise KernelBuildError(f"link: nvcc exited {link.returncode}\n"
+                               f"{link.stdout.decode(errors='replace')}")
+    log_path().write_text("\n".join(logs))
     os.replace(tmp, lib)
+    shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

@@ -1,0 +1,43 @@
+"""Public entry point for prefill attention."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import resolve_impl
+from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.ref import (flash_attention_chunked,
+                                                     flash_attention_ref)
+
+#: from this many query rows on, the plain version loops over query chunks
+#: so that it never builds a (B, H, S, S) score tensor
+CHUNKED_FROM = 2048
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lengths: Optional[torch.Tensor] = None, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    block_q: int = 128, block_k: int = 128,
+                    impl: str = "auto") -> torch.Tensor:
+    """Causal (or full) attention, (B, H, S, D) layout, GQA-aware.
+
+    ``block_q`` / ``block_k`` are the reference's tile sizes and are
+    accepted as hints only: the CUDA kernel tiles by 64 and masks ragged
+    edges itself, so S need not be a multiple of any tile.
+
+    impl: ``"auto"`` launches the CUDA kernel on CUDA tensors and runs the
+    plain version on CPU tensors; ``"cuda"`` always launches the kernel;
+    ``"torch"`` takes CPU tensors only (on the card the kernel runs).
+    """
+    del block_q, block_k
+    if resolve_impl(impl, q) == "cuda":
+        return flash_attention_kernel(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            None if lengths is None else lengths.to(torch.int32)
+            .contiguous(), causal=causal, scale=scale)
+    if q.shape[2] >= CHUNKED_FROM:
+        return flash_attention_chunked(q, k, v, lengths, causal=causal,
+                                       scale=scale)
+    return flash_attention_ref(q, k, v, lengths, causal=causal, scale=scale)

@@ -1,0 +1,74 @@
+"""Plain PyTorch versions of tiled causal attention."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def _mask(seq_q: int, seq_k: int, q0: int, lengths, causal: bool,
+          device) -> Optional[torch.Tensor]:
+    """(B or 1, 1, Sq, Sk) keep-mask for query rows ``q0..q0+Sq``, or None
+    when every key is kept."""
+    kpos = torch.arange(seq_k, device=device)[None, :]
+    mask = None
+    if causal:
+        qpos = q0 + torch.arange(seq_q, device=device)[:, None]
+        mask = (kpos <= qpos)[None, None]
+    if lengths is not None:
+        lm = kpos[None, None] < lengths.to(device).long()[:, None, None,
+                                                          None]
+        mask = lm if mask is None else mask & lm
+    return mask
+
+
+def _attend(q, k, v, mask, scale):
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)          # fully-masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: Optional[torch.Tensor] = None, *,
+                        causal: bool = True,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, QH, Sq, D); k/v (B, KVH, Sk, D) with GQA broadcast (head h
+    reads kv head h // group).  A row with no live key gives 0."""
+    batch, qh, seq_q, head_dim = q.shape
+    group = qh // k.shape[1]
+    if scale is None:
+        scale = head_dim ** -0.5
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    mask = _mask(seq_q, k.shape[2], 0, lengths, causal, q.device)
+    return _attend(q, k, v, mask, scale).to(q.dtype)
+
+
+def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor,
+                            lengths: Optional[torch.Tensor] = None, *,
+                            causal: bool = True,
+                            scale: Optional[float] = None,
+                            chunk: int = 1024) -> torch.Tensor:
+    """The same function with O(S * chunk) score memory: a loop over query
+    chunks, so a long prompt never builds a (B, H, S, S) score tensor."""
+    batch, qh, seq_q, head_dim = q.shape
+    group = qh // k.shape[1]
+    if scale is None:
+        scale = head_dim ** -0.5
+    chunk = min(chunk, seq_q)
+    if seq_q % chunk != 0:
+        return flash_attention_ref(q, k, v, lengths, causal=causal,
+                                   scale=scale)
+    kr = k.repeat_interleave(group, dim=1)
+    vr = v.repeat_interleave(group, dim=1)
+    outs = []
+    for q0 in range(0, seq_q, chunk):
+        mask = _mask(chunk, kr.shape[2], q0, lengths, causal, q.device)
+        outs.append(_attend(q[:, :, q0:q0 + chunk], kr, vr, mask,
+                            scale).to(q.dtype))
+    return torch.cat(outs, dim=2)

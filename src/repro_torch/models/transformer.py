@@ -1,0 +1,203 @@
+"""Pattern-stacked transformer (the dense decoder-only path so far).
+
+The reference stacks the repeating layer pattern per pattern element and
+runs one ``lax.scan`` over repetitions.  The port keeps the stacked
+leading layer dimension of every parameter and cache leaf — so weights
+cross between the frameworks by name and shape — and walks the
+repetitions with a Python loop.
+
+Three modes share one code path:
+  train    full-sequence forward, no caches;
+  prefill  full-sequence forward that fills the paged KV pool;
+  decode   one token per sequence against the paged pool (Tiara path).
+
+Parameters are a nested dict of tensors with the reference tree's names
+(``embed/tokens``, ``blocks[j]/mix/wq``, ...).  :class:`Transformer` holds
+them as an ``nn.Module`` for ``.to(device)`` and ``state_dict()``; its
+``forward`` calls :func:`apply_model`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs import ArchConfig
+from repro_torch.models.attention import PagedKV
+from repro_torch.models.blocks import (BlockCache, block_apply, block_defs,
+                                       init_block_cache)
+from repro_torch.models.layers import (apply_norm, embed, embed_defs,
+                                       norm_defs, unembed)
+from repro_torch.models.param import materialize, stack_defs, tree_map
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def model_defs(cfg: ArchConfig):
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            "encoder-decoder models come with the port's slice of the "
+            "other model families")
+    return {
+        "embed": embed_defs(cfg.vocab_padded, cfg.d_model,
+                            cfg.tie_embeddings),
+        "final_norm": norm_defs(cfg.norm, cfg.d_model),
+        "blocks": tuple(stack_defs(block_defs(cfg, spec), cfg.n_repeat)
+                        for spec in cfg.pattern),
+    }
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None):
+    """Random weights from a ``torch.Generator`` seeded with ``seed``,
+    drawn on the CPU (the same values whatever the device) and moved to
+    ``device``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    params = materialize(model_defs(cfg), gen,
+                         dtype or _dtype(cfg.param_dtype))
+    return tree_map(lambda a: a.to(device), params) if device is not None \
+        else params
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_pages: int, *,
+                dtype=None, n_pages: Optional[int] = None, device=None):
+    """One stacked BlockCache per pattern element, each leaf with a
+    leading ``n_repeat`` dim.  The paged pool gives each (layer, sequence)
+    its own pages: ``n_pages`` defaults to ``batch * max_pages`` (the
+    serving engine asks for one scratch page more)."""
+    dtype = dtype or _dtype(cfg.dtype)
+    pool = batch * max_pages if n_pages is None else int(n_pages)
+    caches = []
+    for spec in cfg.pattern:
+        base = init_block_cache(cfg, spec, batch, pool, dtype, device=device)
+        caches.append(BlockCache(paged=PagedKV(
+            base.paged.k_pages.new_zeros((cfg.n_repeat,)
+                                         + base.paged.k_pages.shape),
+            base.paged.v_pages.new_zeros((cfg.n_repeat,)
+                                         + base.paged.v_pages.shape))))
+    return tuple(caches)
+
+
+def default_block_tables(cfg: ArchConfig, batch: int, max_pages: int,
+                         device=None) -> torch.Tensor:
+    """Identity allocation: sequence b owns pages [b*maxp, (b+1)*maxp)."""
+    return (torch.arange(batch, dtype=torch.int32, device=device)[:, None]
+            * max_pages
+            + torch.arange(max_pages, dtype=torch.int32, device=device)[None])
+
+
+def _layer_cache(stacked: BlockCache, r: int) -> BlockCache:
+    """Repetition ``r`` of a stacked cache: views, so in-place writes land
+    in the stacked pools."""
+    return BlockCache(paged=PagedKV(stacked.paged.k_pages[r],
+                                    stacked.paged.v_pages[r]))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+class ModelOutput(NamedTuple):
+    logits: torch.Tensor
+    caches: Optional[Tuple]
+    aux_loss: torch.Tensor
+
+
+def apply_model(params, cfg: ArchConfig, batch: Dict[str, Any], *,
+                mode: str = "train") -> ModelOutput:
+    """batch keys: tokens (B,S) int; optional embeds (B,S,D) added to the
+    token embeddings; positions (B,S); positions3 (3,B,S); caches,
+    block_tables, lengths (prefill/decode).  The caches are updated in
+    place and returned."""
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            "encoder-decoder models come with the port's slice of the "
+            "other model families")
+    dtype = _dtype(cfg.dtype)
+    x = embed(params["embed"], batch["tokens"], dtype)
+    if batch.get("embeds") is not None:
+        x = x + batch["embeds"].to(dtype)
+    ctx: Dict[str, Any] = {
+        "positions": batch.get("positions"),
+        "positions3": batch.get("positions3"),
+        "causal": True,
+        "block_tables": batch.get("block_tables"),
+        "lengths": batch.get("lengths"),
+    }
+    caches = batch.get("caches")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(cfg.n_repeat):
+        for j, spec in enumerate(cfg.pattern):
+            bp = tree_map(lambda a, r=r: a[r], params["blocks"][j])
+            bc = None if caches is None else _layer_cache(caches[j], r)
+            x, _, a = block_apply(bp, x, cfg, spec, mode=mode, ctx=ctx,
+                                  cache=bc)
+            aux = aux + a
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = unembed(params["embed"], x, cfg.vocab)
+    return ModelOutput(logits=logits, caches=caches, aux_loss=aux)
+
+
+def prefill(params, cfg: ArchConfig, batch):
+    return apply_model(params, cfg, batch, mode="prefill")
+
+
+def decode_step(params, cfg: ArchConfig, batch):
+    return apply_model(params, cfg, batch, mode="decode")
+
+
+# ---------------------------------------------------------------------------
+# Module holder
+# ---------------------------------------------------------------------------
+
+
+def _to_module(tree) -> nn.Module:
+    if isinstance(tree, tuple):
+        return nn.ModuleList([_to_module(t) for t in tree])
+    mod = nn.Module()
+    for name, val in tree.items():
+        if isinstance(val, torch.Tensor):
+            mod.register_parameter(name, nn.Parameter(val,
+                                                      requires_grad=False))
+        else:
+            mod.add_module(name, _to_module(val))
+    return mod
+
+
+def _to_tree(mod: nn.Module):
+    if isinstance(mod, nn.ModuleList):
+        return tuple(_to_tree(m) for m in mod)
+    out: Dict[str, Any] = dict(mod.named_parameters(recurse=False))
+    out.update({name: _to_tree(m) for name, m in mod.named_children()})
+    return out
+
+
+class Transformer(nn.Module):
+    """The parameter tree as a module: ``state_dict()`` keys are the tree's
+    paths under ``tree.`` (``tree.blocks.0.mix.wq``), ``.to(device)``
+    moves every weight, and
+    ``forward`` runs :func:`apply_model`."""
+
+    def __init__(self, cfg: ArchConfig, params) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.tree = _to_module(params)
+
+    @property
+    def params(self):
+        """The nested-dict view of the weights, the reference tree's
+        layout."""
+        return _to_tree(self.tree)
+
+    def forward(self, batch: Dict[str, Any], mode: str = "train"
+                ) -> ModelOutput:
+        return apply_model(self.params, self.cfg, batch, mode=mode)

@@ -109,3 +109,173 @@ def test_cuda_gather_chain_unaligned_matches_pyvm(cuda_device,
     assert np.array_equal(got.mem.cpu().numpy(), want)
     assert list(np.asarray(got.ret)) == [r.ret for r in rs]
     assert list(np.asarray(got.steps)) == [r.steps for r in rs]
+
+
+# -- attention kernels -------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 0.05}
+
+
+def _randn(rng, shape, dtype, device):
+    return torch.from_numpy(rng.standard_normal(shape)).to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,qh,kvh,d,pages,page,maxp", [
+    (2, 4, 4, 32, 8, 8, 3),      # MHA
+    (3, 8, 2, 64, 16, 8, 5),     # GQA 4:1
+    (1, 7, 1, 16, 4, 4, 2),      # MQA, G = 7
+    (2, 4, 2, 128, 8, 16, 4),    # head_dim 128
+    (3, 12, 4, 64, 40, 16, 9),   # tiny-lm's heads, lengths past one chunk
+])
+def test_cuda_paged_attention_matches_plain(cuda_device, dtype, b, qh, kvh,
+                                            d, pages, page, maxp):
+    from repro_torch.kernels.paged_attention import paged_attention
+    rng = np.random.default_rng(b * 1000 + qh * 10 + d)
+    q = _randn(rng, (b, qh, d), dtype, cuda_device)
+    k = _randn(rng, (pages, page, kvh, d), dtype, cuda_device)
+    v = _randn(rng, (pages, page, kvh, d), dtype, cuda_device)
+    bt = torch.from_numpy(rng.integers(0, pages, (b, maxp))
+                          .astype(np.int32)).to(cuda_device)
+    ln = rng.integers(1, maxp * page + 1, (b,)).astype(np.int32)
+    ln[0] = 0                                       # a length-0 row
+    if b > 1:
+        ln[1] = maxp * page                         # every page live
+    ln = torch.from_numpy(ln).to(cuda_device)
+    before = kernels.launch_counts()["paged_attention"]
+    out = paged_attention(q, k, v, bt, ln)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["paged_attention"] == before + 1
+    want = paged_attention(q.cpu(), k.cpu(), v.cpu(), bt.cpu(), ln.cpu())
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.cpu().float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,qh,kvh,s,d", [
+    (2, 4, 2, 64, 32),
+    (1, 8, 8, 128, 64),
+    (2, 6, 2, 96, 16),
+    (1, 4, 2, 200, 128),         # ragged: 200 is no multiple of the tile
+    (2, 3, 1, 37, 64),
+])
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype, causal, b,
+                                            qh, kvh, s, d):
+    from repro_torch.kernels.flash_attention import flash_attention
+    rng = np.random.default_rng(b * 1000 + s + d)
+    q = _randn(rng, (b, qh, s, d), dtype, cuda_device)
+    k = _randn(rng, (b, kvh, s, d), dtype, cuda_device)
+    v = _randn(rng, (b, kvh, s, d), dtype, cuda_device)
+    ln = rng.integers(1, s + 1, (b,)).astype(np.int32)
+    if b > 1:
+        ln[1] = 0                                   # every row masked
+    ln = torch.from_numpy(ln).to(cuda_device)
+    before = kernels.launch_counts()["flash_attention"]
+    out = flash_attention(q, k, v, ln, causal=causal)
+    full = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 2
+    tol = ATTN_TOL[dtype]
+    for got, lens in ((out, ln.cpu()), (full, None)):
+        want = flash_attention(q.cpu(), k.cpu(), v.cpu(), lens,
+                               causal=causal)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=tol, rtol=tol)
+    if b > 1:
+        assert torch.all(out[1] == 0)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_impl_torch_raises(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    q = torch.zeros((1, 2, 16, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        flash_attention(q, q, q, impl="torch")
+    pages = torch.zeros((2, 4, 2, 16), device=cuda_device)
+    bt = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
+    ln = torch.ones((1,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        paged_attention(q[:, :, 0], pages, pages, bt, ln, impl="torch")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q[..., :8].contiguous(), q[..., :8].contiguous(),
+                        q[..., :8].contiguous())
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(q[:, :, 0, :8].contiguous(),
+                        pages[..., :8].contiguous(),
+                        pages[..., :8].contiguous(), bt, ln)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_matches_flash_on_same_kv(cuda_device):
+    """Decode over a paged layout == the last row of full attention over
+    the equivalent contiguous KV, both kernels on the card."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_attention import paged_attention
+    rng = np.random.default_rng(5)
+    b, qh, kvh, d, page, maxp = 2, 4, 2, 32, 8, 4
+    s = maxp * page
+    k_lin = _randn(rng, (b, kvh, s, d), torch.float32, cuda_device)
+    v_lin = _randn(rng, (b, kvh, s, d), torch.float32, cuda_device)
+    q1 = _randn(rng, (b, qh, d), torch.float32, cuda_device)
+    bt = (torch.arange(b)[:, None] * maxp + torch.arange(maxp)[None]) \
+        .to(cuda_device, torch.int32)
+    k_pages = k_lin.permute(0, 2, 1, 3).reshape(b * maxp, page, kvh, d) \
+        .contiguous()
+    v_pages = v_lin.permute(0, 2, 1, 3).reshape(b * maxp, page, kvh, d) \
+        .contiguous()
+    ln = torch.tensor([s, s - 5], dtype=torch.int32, device=cuda_device)
+    out_paged = paged_attention(q1, k_pages, v_pages, bt, ln)
+    out_flash = flash_attention(q1[:, :, None, :].contiguous(), k_lin,
+                                v_lin, ln, causal=False)[:, :, 0]
+    torch.testing.assert_close(out_paged, out_flash, atol=3e-5, rtol=3e-5)
+
+
+# -- the serving engine on the card ------------------------------------------
+
+
+@pytest.mark.gpu
+def test_cuda_engine_tiara_matches_host(cuda_device):
+    """Reduced tiny-lm on the card: greedy tokens under resolver="tiara"
+    equal resolver="host"; prefill launches flash_attention once per layer
+    per prompt, every decode step launches paged_attention once per
+    layer, and the tiara resolver's waves launch tiara_gather."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    cfg = reduce_config(get_config("tiny-lm"))
+    params = tf.init_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(3)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, 4 + 9 * i)))
+               for i in range(3)]
+    outs, counts = {}, {}
+    for resolver in ("host", "tiara"):
+        eng = ServingEngine(cfg, params, max_slots=2, max_seq=64, eos_id=-1,
+                            temperature=0.0, resolver=resolver,
+                            device=cuda_device)
+        steps = [0]
+        step = eng.step
+
+        def counted():
+            if any(s is not None for s in eng.active) or eng.waiting:
+                steps[0] += 1
+            return step()
+        eng.step = counted
+        kernels.reset_launch_counts()
+        hs = [eng.submit(p, max_new=5) for p in prompts]
+        outs[resolver] = eng.run_to_completion()
+        torch.cuda.synchronize()
+        counts[resolver] = kernels.launch_counts()
+        assert all(h.ok for h in hs)
+        assert counts[resolver]["flash_attention"] == \
+            cfg.n_layers * len(prompts)
+        assert counts[resolver]["paged_attention"] == \
+            cfg.n_layers * steps[0]
+    assert outs["tiara"] == outs["host"]
+    assert counts["host"]["tiara_gather"] == 0
+    assert counts["tiara"]["tiara_gather"] >= 1

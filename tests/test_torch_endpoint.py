@@ -276,6 +276,12 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    for mod in ("configs/__init__", "models/transformer", "models/attention",
+                "kernels/flash_attention/ops",
+                "kernels/paged_attention/kernel", "serving/engine",
+                "serving/resolver", "launch/serve"):
+        assert f"src/repro_torch/{mod}.py" in scanned, mod
     bad = [(f.name, m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
     assert bad == []

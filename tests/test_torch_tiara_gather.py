@@ -77,7 +77,8 @@ def test_cpu_route_does_not_count_launches():
     t = torch.tensor([3, 2, 1, 0], dtype=torch.int32)
     tiara_gather(pool, t, t)
     tiara_gather_ref(pool, t, t)
-    assert kernels.launch_counts() == {"tiara_gather": 0}
+    assert kernels.launch_counts() == {"tiara_gather": 0, "paged_attention": 0,
+                                       "flash_attention": 0}
 
 
 def test_no_fallback_on_cpu_tensors():
@@ -106,10 +107,14 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_names_follow_source():
+    """One library for every kernel source, named by their hash."""
     a = _build.lib_path()
     assert a == _build.lib_path()
     assert a.parent == _build.BUILD_DIR
-    assert a.name.startswith("libtiara_gather_") and a.suffix == ".so"
+    assert a.name.startswith("libtorch_kernels_") and a.suffix == ".so"
+    names = {p.name for p in _build.sources()}
+    assert {"tiara_gather.cu", "paged_attention.cu",
+            "flash_attention.cu"} <= names
 
 
 @pytest.mark.parametrize("width,mask", [(4, 15), (5, 15), (16, 15), (3, 63)])
