@@ -22,9 +22,13 @@ Phases:
    (``tiara_gather`` exactly, also at unaligned and wrapping windows;
    ``paged_attention`` and ``flash_attention`` within 3e-5 in f32, plus
    small bf16, empty-row, G = 7, head-dim and ragged cases within 0.05 /
-   3e-5), with its time, the plain version's time, the least time the
-   card could take for the same work and, for flash, the time of
-   PyTorch's ``scaled_dot_product_attention`` on the same inputs;
+   3e-5, the sequence split's edge cases, and two calls on the same
+   inputs giving the same bits), with its time, the plain version's time,
+   the least time the card could take for the same work and, for flash,
+   the time of PyTorch's ``scaled_dot_product_attention`` on the same
+   inputs; the attention kernels also at a short shape (flash at S = 256,
+   paged with every length <= 256), paged at partitions of 128 and 256
+   tokens, and flash's error against f64 at larger logits;
 3. the endpoint at real size: a compiled and a double-buffered compiled
    paged-KV wave (which must launch the kernel once and once per chunk),
    a mixed auto wave, a split-phase pair, and a pyvm replay against a
@@ -45,10 +49,18 @@ last line, the card's name and power limit and one JSON object with each
 kernel's numbers; the last line is ``{"ok": true, "device": ...}``.
 Detailed numbers go to ``chiprun_out/chip_smoke.json``.  It needs one
 CUDA card and refuses to run without one.
+
+    python3 chip_smoke.py --attention-only [--src DIR] [--label NAME]
+
+times only the attention kernels at phase 2's timed shapes, with flash's
+error at larger logits, for the ``repro_torch`` under ``DIR`` (default:
+this checkout's), one JSON line per shape: run it on two trees in turns
+(parent, change, change, parent) in one call to compare them on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -64,8 +76,24 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 #                                 (NVIDIA data sheet, dense)
+TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 on the tensor cores
+#                                 (NVIDIA data sheet, dense)
 # tests/test_kernels.py's attention tolerances
 ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 0.05}
+# The attention kernels' timed shapes, tiny-lm's heads (12 q / 4 kv of
+# 64): paged_attention over 8 decode slots with 128-page tables (page 16)
+# out of the engine's 1025 pages, at the decode path's lengths (12043 live
+# tokens, up to the 2048-token context) and at short ones (every length
+# <= 256); flash_attention on one causal prompt at the largest prefill
+# bucket and at a short one.
+ATTN_HEADS = (12, 4, 64)
+PAGED_SLOTS, PAGE, PAGED_MAXP, PAGED_POOL = 8, 16, 128, 1025
+PAGED_LENGTHS = {"path": (686, 1209, 1242, 1314, 1685, 1925, 1934, 2048),
+                 "short": (16, 71, 92, 98, 108, 151, 225, 256)}
+FLASH_SEQ = {"path": 2048, "short": 256}
+# flash's error against f64 is also taken with q scaled so that the
+# logits' standard deviation is each of these (random tiny-lm's is 1)
+LOGIT_STDS = (1, 4, 16)
 # Card against CPU, tiny-lm logits: both f32 (no TF32), but cuBLAS and the
 # CPU BLAS sum in other orders, and the kernels' online softmax against the
 # plain two-pass one, through 12 layers; logits are O(1).
@@ -254,21 +282,121 @@ def _check_close(name, got, want, dtype):
     return err
 
 
+def _check_same_bits(name, fn):
+    """Two calls on the same inputs give the same bits (no atomics, a fixed
+    order of every sum)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two calls differ")
+
+
+def _paged_bytes(lengths, kvh, head_dim, q) -> int:
+    """Bytes paged attention must move: the live tokens' K and V rows, q
+    read and out written once (f32)."""
+    return int(np.sum(lengths)) * kvh * head_dim * 4 * 2 + 2 * q.numel() * 4
+
+
+def _paged_plain(q, k, v, bt, ln):
+    """paged_attention_ref on the serving path's (B, QH, D) layout."""
+    from repro_torch.kernels.paged_attention import paged_attention_ref
+    b, qh, d = q.shape
+    kvh = k.shape[2]
+    return paged_attention_ref(q.view(b, kvh, qh // kvh, d), k, v, bt,
+                               ln).view(b, qh, d)
+
+
+def _causal_f64(q, k, v):
+    """Causal attention in f64, the reference of the error at larger
+    logits."""
+    g = q.shape[1] // k.shape[1]
+    q = q.double()
+    k = k.double().repeat_interleave(g, dim=1)
+    v = v.double().repeat_interleave(g, dim=1)
+    s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device).tril()
+    return torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1) @ v
+
+
+def attention_inputs(dev):
+    """The timed shapes' inputs, from fixed seeds: ``{("paged", shape): (q,
+    k_pages, v_pages, tables, lengths), ("flash", shape): (q, k, v)}``."""
+    qh, kvh, d = ATTN_HEADS
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (PAGED_SLOTS, qh, d), torch.float32, dev)
+    k = _randn(rng, (PAGED_POOL, PAGE, kvh, d), torch.float32, dev)
+    v = _randn(rng, (PAGED_POOL, PAGE, kvh, d), torch.float32, dev)
+    bt = torch.from_numpy(rng.permutation(PAGED_SLOTS * PAGED_MAXP)
+                          .reshape(PAGED_SLOTS, PAGED_MAXP)
+                          .astype(np.int32)).to(dev)
+    inputs = {("paged", name): (q, k, v, bt, torch.tensor(
+        lens, dtype=torch.int32, device=dev))
+        for name, lens in PAGED_LENGTHS.items()}
+    for name, s in FLASH_SEQ.items():
+        rng = np.random.default_rng(s)
+        inputs[("flash", name)] = tuple(
+            _randn(rng, (1, h, s, d), torch.float32, dev)
+            for h in (qh, kvh, kvh))
+    return inputs
+
+
+def measure_attention(dev, scratch):
+    """Both attention ops against their plain versions at the timed shapes
+    (max error, two calls giving the same bits, median times), and
+    flash's error against an f64 reference with q scaled so that the
+    logits' standard deviation is each of LOGIT_STDS, beside the plain f32
+    version's.  Uses whichever ``repro_torch`` is on ``sys.path``."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    inputs = attention_inputs(dev)
+    res = {}
+    for (kernel, shape), args in inputs.items():
+        fn, plain = ((paged_attention, _paged_plain) if kernel == "paged"
+                     else (flash_attention, flash_attention_ref))
+        name = f"{kernel}_attention ({shape} shape)"
+        out, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = _check_close(name, out, ref, torch.float32)
+        _check_same_bits(name, lambda: fn(*args))
+        res[(kernel, shape)] = dict(
+            err=err, ms=time_cuda(lambda: fn(*args), scratch),
+            plain_ms=time_cuda(lambda: plain(*args), scratch))
+    q, k, v = inputs[("flash", "path")]
+    res["flash_logit_err"] = {}
+    for std in LOGIT_STDS:
+        qs = q * std
+        want = _causal_f64(qs, k, v)
+        res["flash_logit_err"][std] = dict(
+            kernel=_max_err(flash_attention(qs, k, v), want),
+            plain=_max_err(flash_attention_ref(qs, k, v), want))
+        del want
+    torch.cuda.empty_cache()
+    return res, inputs
+
+
 def phase_attention(dev, scratch):
     """paged_attention and flash_attention against their plain versions
-    on the card: small edge cases, then the serving path's shapes, with
-    times and bounds."""
+    on the card: small edge cases, then the timed shapes, with times and
+    bounds."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
-    from repro_torch.kernels.paged_attention import (paged_attention,
+    from repro_torch.kernels.paged_attention import (kernel as pk,
+                                                     paged_attention,
+                                                     paged_attention_kernel,
                                                      paged_attention_ref)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_partitioned_ref)
 
-    def paged_plain(q, k, v, bt, ln):
-        b, qh, d = q.shape
-        kvh = k.shape[2]
-        return paged_attention_ref(q.view(b, kvh, qh // kvh, d), k, v, bt,
-                                   ln).view(b, qh, d)
+    def at_partition(T, fn):
+        """fn() with the kernel's partition size set to T tokens."""
+        saved, pk.PARTITION_TOKENS = pk.PARTITION_TOKENS, T
+        try:
+            return fn()
+        finally:
+            pk.PARTITION_TOKENS = saved
 
     rng = np.random.default_rng(7)
     # small cases: bf16, an empty row, lengths that are no multiple of the
@@ -287,7 +415,7 @@ def phase_attention(dev, scratch):
                           dtype=torch.int32, device=dev)
         out = paged_attention(q, k, v, bt, ln)
         torch.cuda.synchronize()
-        _check_close("paged_attention", out, paged_plain(q, k, v, bt, ln),
+        _check_close("paged_attention", out, _paged_plain(q, k, v, bt, ln),
                      dtype)
         if not bool((out[0] == 0).all()):
             raise AssertionError("paged_attention: a length-0 row is not 0")
@@ -311,83 +439,134 @@ def phase_attention(dev, scratch):
         "f32/bf16, empty rows, G = 7, D in {16, 32, 64, 128}, ragged S and "
         "lengths that are no multiple of the page")
 
-    # paged_attention at the decode path's shape: tiny-lm's 12 q / 4 kv
-    # heads of 64, 8 slots, page 16, 128 pages per sequence out of the
-    # engine's 1025, lengths spread to 2048
-    b, qh, kvh, d, page, maxp, n_pages = 8, 12, 4, 64, 16, 128, 1025
-    q = _randn(rng, (b, qh, d), torch.float32, dev)
-    k = _randn(rng, (n_pages, page, kvh, d), torch.float32, dev)
-    v = _randn(rng, (n_pages, page, kvh, d), torch.float32, dev)
-    bt = torch.from_numpy(rng.permutation(b * maxp).reshape(b, maxp)
-                          .astype(np.int32)).to(dev)
-    lens_np = np.sort(rng.integers(1, maxp * page + 1, b)).astype(np.int32)
-    lens_np[-1] = maxp * page
-    ln = torch.from_numpy(lens_np).to(dev)
-    out = paged_attention(q, k, v, bt, ln)
-    ref = paged_plain(q, k, v, bt, ln)
-    torch.cuda.synchronize()
-    pa_err = _check_close("paged_attention (path shape)", out, ref,
-                          torch.float32)
-    pa_ms = time_cuda(lambda: paged_attention(q, k, v, bt, ln), scratch)
-    pa_plain = time_cuda(lambda: paged_plain(q, k, v, bt, ln), scratch)
-    live = int(lens_np.sum())
-    pa_bytes = live * kvh * d * 4 * 2 + 2 * q.numel() * 4
-    pa_bound = pa_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"[kernel] paged_attention, path shape q {tuple(q.shape)} pages "
-        f"{tuple(k.shape)} tables {tuple(bt.shape)} lengths "
-        f"{lens_np.tolist()}: max err {pa_err:.3g}; kernel "
-        f"{pa_ms * 1e3:.2f} us ({pa_bytes / pa_ms / 1e6:.0f} GB/s), plain "
-        f"{pa_plain * 1e3:.2f} us, bound {pa_bound * 1e3:.2f} us (bytes)")
+    # the sequence split's edge cases, at both partition sizes: a length
+    # 0, one shorter than a partition, exact multiples of T, one past a
+    # multiple, and a whole table of 21 pages x 16 = 336 tokens, which is
+    # no multiple of T
+    erng = np.random.default_rng(17)
+    b, kvh, g, d, pages, page, maxp = 6, 4, 3, 64, 160, 16, 21
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _randn(erng, (b, kvh, g, d), dtype, dev)
+        k = _randn(erng, (pages, page, kvh, d), dtype, dev)
+        v = _randn(erng, (pages, page, kvh, d), dtype, dev)
+        bt = torch.from_numpy(erng.permutation(pages)[:b * maxp]
+                              .reshape(b, maxp).astype(np.int32)).to(dev)
+        for T in (128, 256):
+            ln = torch.tensor([0, 5, T, min(2 * T, maxp * page), T + 1,
+                               maxp * page], dtype=torch.int32, device=dev)
+            out = at_partition(T, lambda: paged_attention_kernel(
+                q, k, v, bt, ln))
+            torch.cuda.synchronize()
+            _check_close(f"paged_attention T={T}", out,
+                         paged_attention_ref(q, k, v, bt, ln), dtype)
+            _check_close(f"paged_attention T={T} (split plain)", out,
+                         paged_attention_partitioned_ref(
+                             q, k, v, bt, ln, partition_tokens=T), dtype)
+            if not bool((out[0] == 0).all()):
+                raise AssertionError("paged_attention: a length-0 row is "
+                                     "not 0")
+    log("[kernel] paged_attention's split at T = 128 and 256 == plain "
+        "versions (f32, bf16): length 0, shorter than a partition, exact "
+        "multiples of T, a table of 336 tokens (no multiple of T)")
+
+    res, inputs = measure_attention(dev, scratch)
+    qh, kvh, d = ATTN_HEADS
+    for shape in PAGED_LENGTHS:
+        q, k, v, bt, ln = inputs[("paged", shape)]
+        r = res[("paged", shape)]
+        r["bytes"] = _paged_bytes(PAGED_LENGTHS[shape], kvh, d, q)
+        r["bound"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        qg = q.view(PAGED_SLOTS, kvh, qh // kvh, d)
+        r["ms_by_T"] = {T: at_partition(T, lambda: time_cuda(
+            lambda: paged_attention_kernel(qg, k, v, bt, ln), scratch))
+            for T in (128, 256)}
+        log(f"[kernel] paged_attention, {shape} shape q {tuple(q.shape)} "
+            f"pages {tuple(k.shape)} tables {tuple(bt.shape)} lengths "
+            f"{list(PAGED_LENGTHS[shape])}: max err {r['err']:.3g}, two "
+            f"calls same bits; kernel {r['ms'] * 1e3:.2f} us "
+            f"({r['bytes'] / r['ms'] / 1e6:.0f} GB/s), plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound'] * 1e3:.2f} us "
+            f"(bytes); at T = 128 / 256: {r['ms_by_T'][128] * 1e3:.2f} / "
+            f"{r['ms_by_T'][256] * 1e3:.2f} us")
+    p, sh = res[("paged", "path")], res[("paged", "short")]
+    q, k = inputs[("paged", "path")][:2]
     paged = dict(name="paged_attention", route="cuda",
                  source="src/repro_torch/kernels/paged_attention/csrc/"
                         "paged_attention.cu",
                  replaces="src/repro/kernels/paged_attention/kernel.py:79",
-                 max_abs_err=pa_err, ms=pa_ms, plain_ms=pa_plain,
-                 bound_ms=pa_bound, bound_by="bytes", library_ms=None,
-                 bytes_moved=pa_bytes, shape=list(q.shape) + list(k.shape),
-                 lengths=lens_np.tolist())
-    del q, k, v, out, ref
+                 max_abs_err=p["err"], ms=p["ms"], plain_ms=p["plain_ms"],
+                 bound_ms=p["bound"], bound_by="bytes", library_ms=None,
+                 bytes_moved=p["bytes"], shape=list(q.shape) + list(k.shape),
+                 lengths=list(PAGED_LENGTHS["path"]),
+                 ms_t128=p["ms_by_T"][128], ms_t256=p["ms_by_T"][256],
+                 short_lengths=list(PAGED_LENGTHS["short"]),
+                 short_ms=sh["ms"], short_plain_ms=sh["plain_ms"],
+                 short_bound_ms=sh["bound"], short_max_abs_err=sh["err"],
+                 short_ms_t128=sh["ms_by_T"][128],
+                 short_ms_t256=sh["ms_by_T"][256])
 
-    # flash_attention at the prefill path's largest bucket: 2048 tokens,
-    # tiny-lm's heads, causal
-    b, qh, kvh, s, d = 1, 12, 4, 2048, 64
-    q = _randn(rng, (b, qh, s, d), torch.float32, dev)
-    k = _randn(rng, (b, kvh, s, d), torch.float32, dev)
-    v = _randn(rng, (b, kvh, s, d), torch.float32, dev)
-    out = flash_attention(q, k, v)
-    ref = flash_attention_ref(q, k, v)
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                         enable_gqa=True)
-    torch.cuda.synchronize()
-    fa_err = _check_close("flash_attention (path shape)", out, ref,
-                          torch.float32)
-    lib_err = _max_err(lib, ref)
-    fa_ms = time_cuda(lambda: flash_attention(q, k, v), scratch)
-    fa_plain = time_cuda(lambda: flash_attention_ref(q, k, v), scratch)
-    fa_lib = time_cuda(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), scratch)
-    pairs = s * (s + 1) // 2                # causal (query, key) pairs
-    fa_flops = 2 * 2 * pairs * d * qh       # q.k and p.v, 2 flops per FMA
-    fa_bytes = (2 * q.numel() + 2 * k.numel()) * 4
-    fa_bound = max(fa_flops / F32_FLOPS_PER_S,
-                   fa_bytes / HBM_BYTES_PER_S) * 1e3
-    log(f"[kernel] flash_attention, path shape q {tuple(q.shape)} k/v "
-        f"{tuple(k.shape)} causal: max err {fa_err:.3g} (sdpa "
-        f"{lib_err:.3g}); kernel {fa_ms * 1e3:.1f} us "
-        f"({fa_flops / fa_ms / 1e9:.2f} TFLOP/s), plain "
-        f"{fa_plain * 1e3:.1f} us, sdpa {fa_lib * 1e3:.1f} us, bound "
-        f"{fa_bound * 1e3:.1f} us (operations, f32 outside tensor cores)")
+    for shape, s in FLASH_SEQ.items():
+        q, k, v = inputs[("flash", shape)]
+        r = res[("flash", shape)]
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+        r["lib_err"] = _max_err(lib, flash_attention_ref(q, k, v))
+        del lib
+        r["lib"] = time_cuda(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), scratch)
+        pairs = s * (s + 1) // 2            # causal (query, key) pairs
+        r["flops"] = 2 * 2 * pairs * d * qh  # q.k and p.v, 2 flops per FMA
+        moved = (2 * q.numel() + 2 * k.numel()) * 4
+        # three TF32 passes per product on the tensor cores
+        r["bound"] = max(3 * r["flops"] / TF32_FLOPS_PER_S,
+                         moved / HBM_BYTES_PER_S) * 1e3
+        r["shape"] = list(q.shape) + list(k.shape)
+        log(f"[kernel] flash_attention, {shape} shape q {tuple(q.shape)} "
+            f"k/v {tuple(k.shape)} causal: max err {r['err']:.3g} (sdpa "
+            f"{r['lib_err']:.3g}), two calls same bits; kernel "
+            f"{r['ms'] * 1e3:.1f} us ({r['flops'] / r['ms'] / 1e9:.2f} "
+            f"TFLOP/s), plain {r['plain_ms'] * 1e3:.1f} us, sdpa "
+            f"{r['lib'] * 1e3:.1f} us, bound {r['bound'] * 1e3:.1f} us "
+            f"(operations, 3xTF32 on tensor cores)")
+    le = res["flash_logit_err"]
+    log("[kernel] flash_attention, path shape, max |out - f64| by logit "
+        "std: " + "; ".join(f"{std}: kernel {e['kernel']:.3g}, plain f32 "
+                            f"{e['plain']:.3g}" for std, e in le.items()))
+    p, sh = res[("flash", "path")], res[("flash", "short")]
     flash = dict(name="flash_attention", route="cuda",
                  source="src/repro_torch/kernels/flash_attention/csrc/"
                         "flash_attention.cu",
                  replaces="src/repro/kernels/flash_attention/kernel.py:73",
-                 max_abs_err=fa_err, ms=fa_ms, plain_ms=fa_plain,
-                 bound_ms=fa_bound, bound_by="operations", library_ms=fa_lib,
-                 flops=fa_flops, shape=list(q.shape) + list(k.shape),
-                 library_max_abs_err=lib_err)
-    del q, k, v, out, ref, lib
+                 max_abs_err=p["err"], ms=p["ms"], plain_ms=p["plain_ms"],
+                 bound_ms=p["bound"], bound_by="operations",
+                 bound_rate="3xTF32 on tensor cores, 3 x flops over "
+                            "495 TFLOP/s", library_ms=p["lib"],
+                 flops=p["flops"], shape=p["shape"],
+                 library_max_abs_err=p["lib_err"], short_shape=sh["shape"],
+                 short_ms=sh["ms"], short_plain_ms=sh["plain_ms"],
+                 short_bound_ms=sh["bound"], short_library_ms=sh["lib"],
+                 short_max_abs_err=sh["err"],
+                 f64_err_by_logit_std=le)
+    del inputs, res
     torch.cuda.empty_cache()
     return paged, flash
+
+
+def attention_only(dev, label):
+    """``--attention-only``: the timed attention shapes and flash's error
+    at larger logits, for the kernels of whichever tree ``--src`` named;
+    one JSON line per shape."""
+    card = card_line()
+    phase_build()
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    res, _ = measure_attention(dev, scratch)
+    for key, r in res.items():
+        if key == "flash_logit_err":
+            row = dict(kernel="flash", f64_err_by_logit_std=r)
+        else:
+            row = dict(kernel=key[0], shape=key[1], **r)
+        log(json.dumps(dict(label=label, card=card, **row)))
+    return 0
 
 
 class _Timed:
@@ -731,16 +910,32 @@ def phase_endpoint(dev):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--attention-only", action="store_true",
+                    help="only time the attention kernels at the timed "
+                         "shapes and print one JSON line per shape")
+    ap.add_argument("--src", help="with --attention-only: the src "
+                    "directory whose repro_torch is timed (another tree, "
+                    "e.g. a parent commit unpacked with git archive)")
+    ap.add_argument("--label", default="this tree",
+                    help="with --attention-only: the name of the tree")
+    args = ap.parse_args()
+    if args.src and not args.attention_only:
+        ap.error("--src needs --attention-only")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
+    if args.attention_only:
+        if args.src:
+            sys.path.insert(0, os.path.abspath(args.src))
+        return attention_only(dev, args.label)
     from repro_torch import kernels
 
-    dev = torch.device("cuda")
     card = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
     build_s = phase_build()
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)  # 256 MiB
     kinfo = phase_kernel(dev, scratch)

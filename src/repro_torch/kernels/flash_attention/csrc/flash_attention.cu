@@ -16,36 +16,80 @@
 // block across its k blocks in VMEM scratch, skips k blocks above the
 // diagonal and past lengths[b], and asserts that the blocks divide S.
 //
-// On the H100 prefill attention is bound by arithmetic (2 * 2 * Sq * Sk *
+// On the H100 prefill attention is bound by arithmetic: 2 * 2 * Sq * Sk *
 // D * QH flops, halved by the causal mask, against Sq + 2 Sk rows of
-// bytes): this kernel runs it as f32 FMAs on CUDA cores, whose published
-// rate is 67 TFLOP/s, with no tensor cores yet.  The design:
+// bytes.  f32 FMAs on CUDA cores top out at 67 TFLOP/s; the tensor cores
+// give 495 TFLOP/s dense in TF32, whose 10-bit mantissa alone would break
+// the f32 contract (3e-5).  So both products run as 3xTF32 on the tensor
+// cores: each f32 operand is split as x = big + small, both TF32 (each
+// rounded to nearest, ties away from zero, as cvt.rna.tf32.f32 does), and
 //
-//   * one CTA of 256 threads per (q tile of kBQ = 64 rows, q head, batch);
-//     the kv head is h / group; the k loop inside the CTA takes the place
-//     of the Pallas grid's sequential k dimension;
-//   * the q tile (pre-scaled in f32, as the Pallas kernel scales q) and
-//     each k tile are staged TRANSPOSED in shared memory ([d][row], rows
-//     padded to 68 floats), so a thread's 4 rows and 4 keys are one
-//     float4 each: a 4 x 4 register block of scores costs 2 shared loads
-//     per 16 FMAs.  v is staged [key][d];
-//   * thread (ty, tx) = (tid / 16, tid % 16) owns query rows 4 ty .. 4 ty
-//     + 3 (their running max, sum and an acc slice of D / 16 columns in
-//     registers) and keys 4 tx .. 4 tx + 3 of each tile; a row's max and
-//     sum reduce over the 16 lanes that share ty, with warp shuffles;
+//     a . b ~ small_a . big_b + big_a . small_b + big_a . big_b
+//
+// is summed in the f32 accumulator; the dropped small . small term is
+// about 2^-22 of the product.  The tensor cores' f32 accumulation loses
+// more than an FMA's rounding to nearest at every MMA, at the scale of the
+// accumulator (measured on the card, PERF.md).  So the small products of
+// all of a tile's 8-key steps are issued before any big . big one (the
+// accumulator is still small while two thirds of the MMAs add into it),
+// and each tile's P V is summed in a fresh accumulator and added to the
+// running one in f32; the error against f64 then stays at or below the
+// plain f32 version's.  Three passes are still 7.4x the CUDA-core f32
+// rate.  The
+// instruction is Hopper's warpgroup MMA, `wgmma.mma_async` m64nNk8
+// .f32.tf32.tf32, with the B operands (K, V) read from shared memory
+// through descriptors and the A operands (q, P) from registers.  The
+// design:
+//
+//   * one CTA of one warpgroup (four warps) per (q tile of kBQ = 64 rows,
+//     q head, batch); warp w owns rows 16 w .. 16 w + 15 of every
+//     accumulator.  The kv head is h / group; the k loop inside the CTA
+//     takes the place of the Pallas grid's sequential k dimension.  The
+//     grid is one dimension with the q tile slowest and the LAST q tiles
+//     first, so under the causal mask the longest CTAs start first;
+//   * q is loaded once, pre-scaled in f32 (as the Pallas kernel scales q)
+//     and split: for D <= 64 straight into the warp's A fragments in
+//     registers (Q K^T then reads only K from shared memory; two CTAs of
+//     about 180 registers a thread share an SM), for D = 128 into two
+//     K-major TF32 tiles in shared memory;
+//   * K and V tiles of kBK = 32 keys stream through a two-slot ring of raw
+//     tiles filled by 16-byte `cp.async` copies (keys past Sk zero-filled;
+//     rows padded by 16 bytes so the split pass reads them without bank
+//     conflicts), so two tiles are in flight while one is computed.  Each
+//     landed tile is split once by the whole CTA into big and small TF32
+//     tiles in wgmma's K-major interleaved layout (8-row x 16-byte core
+//     matrices): K as it is ([key][d], d the MMA's k), V transposed
+//     ([d][key], keys the MMA's k);
+//   * S = Q K^T is a 64 x 32 f32 accumulator in registers (m64n32k8 from
+//     shared memory).  Its layout gives each thread the scores of keys 2t
+//     and 2t + 1 of every 8; the A fragment of P V (from registers) wants
+//     keys t and t + 4.  Instead of moving P, the kernel relabels the k
+//     index of P V: k = t stands for key 2t and k = t + 4 for key 2t + 1,
+//     and the split pass stores V^T's keys in that order.  P never leaves
+//     registers;
+//   * the online softmax (running max m, sum l, rescale of acc) stays in
+//     registers in f32; a row's max reduces over the 4 lanes that share
+//     it; l is summed per lane and reduced once at the end; acc = alpha
+//     acc + (the tile's P V) is one FMA per element;
 //   * the k loop stops at min(lengths[b], Sk) and, when causal, after the
 //     tile that holds the diagonal of the q tile's last row;
 //   * ragged edges are masked here, so S need not be a multiple of a tile:
 //     q rows past Sq load 0 and are not stored, keys past Sk load 0 and
 //     are masked.
 //
-// Masking uses -1e30 as the Pallas kernel does.  The running max of every
-// row turns real in the first k tile, which is what keeps a masked score
-// at exp(-1e30 - m) = 0: the k loop starts at key 0, and key 0 is live for
-// every row of every q tile whenever the loop runs at all (the loop runs
-// only when min(lengths[b], Sk) >= 1, and causal keeps j = 0 <= i for
-// every row i).  When no key is live the loop does not run, l stays 0 and
-// the output is acc / max(l, 1e-30) = 0, as the Pallas kernel gives.
+// bf16 runs the same code: bf16 values are exact in TF32, so the small
+// parts of K and V are 0 and their two passes are skipped (q is scaled in
+// f32 and P is f32, so theirs stay).
+//
+// Masking uses -1e30 as the Pallas kernel does (q carries log2(e) in its
+// scale, so scores are in base 2 and the softmax takes exp2; the function
+// is the same).  The running max of every row turns real in the first k
+// tile, which is what keeps a masked score at exp2(-1e30 - m) = 0: the k
+// loop starts at key 0, and key 0 is live for every row of every q tile
+// whenever the loop runs at all (the loop runs only when min(lengths[b],
+// Sk) >= 1, and causal keeps j = 0 <= i for every row i).  When no key
+// is live the loop does not run, l stays 0 and the output is acc / max(l,
+// 1e-30) = 0, as the Pallas kernel gives.
 //
 // Plain C interface, loaded with ctypes: the launch takes raw device
 // pointers and the stream, launches on that stream, does not synchronise,
@@ -55,201 +99,525 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;              // query rows per CTA
-constexpr int kBK = 64;              // keys per tile (== kBQ: see above)
-constexpr int kLdt = kBQ + 4;        // row stride of the transposed tiles
+constexpr int kThreads = 128;        // one warpgroup
+constexpr int kBQ = 64;              // query rows per CTA, 16 per warp
+constexpr int kBK = 32;              // keys per tile
+constexpr int kNT = kBK / 8;         // 8-key steps per tile
 constexpr float kNegInf = -1e30f;    // the Pallas kernel's mask value
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+
+// Four consecutive elements as floats.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// N consecutive floats of shared memory, with the widest aligned loads.
-template <int N>
-__device__ __forceinline__ void load_cols(const float* p, float (&o)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < N; c += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + c);
-      o[c] = t.x;
-      o[c + 1] = t.y;
-      o[c + 2] = t.z;
-      o[c + 3] = t.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    o[0] = t.x;
-    o[1] = t.y;
-  } else {
-#pragma unroll
-    for (int c = 0; c < N; ++c) o[c] = p[c];
-  }
+// Two consecutive outputs.
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// x rounded to the nearest TF32, ties away from zero (cvt.rna.tf32.f32),
+// as integer operations on the bits: the low 13 bits are dropped.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// x = big + small, both TF32 bit patterns.
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+__device__ __forceinline__ void split4(float4 x, uint4& big, uint4& small) {
+  split(x.x, big.x, small.x);
+  split(x.y, big.y, small.y);
+  split(x.z, big.z, small.z);
+  split(x.w, big.w, small.w);
 }
 
+// 16 bytes global -> shared, or 16 zero bytes when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Shared-memory stores of the threads become visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving a register's uses across a wgmma wait.
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+// wgmma's K-major interleaved layout of an R-row tile: element (r, 4 c +
+// e), c the 16-byte chunk along k, lives in 16-byte unit
+//     (r % 8) + 8 (r / 8) + R (c % 2) + 2 R (c / 2)
+// so a descriptor of one k step (8 TF32 = 2 chunks) has leading byte
+// offset 16 R (chunk to chunk), stride byte offset 128 (8 rows to the next
+// 8), and the next k step starts 32 R bytes further.
+template <int R>
+__device__ __forceinline__ int kmajor_unit(int r, int c) {
+  return (r & 7) + 8 * (r >> 3) + R * (c & 1) + 2 * R * (c >> 1);
+}
+
+// For D <= 64 q's split A fragments stay in registers (D regs a thread),
+// so Q K^T reads only K from shared memory; for D = 128 they would not
+// fit, and q stays in shared memory.
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * D * kLdt + kBK * D + kBK * kLdt);
+__host__ __device__ constexpr bool q_in_regs() { return D <= 64; }
+
+template <int R>
+__device__ __forceinline__ uint64_t kmajor_desc(const void* tile, int step) {
+  const uint32_t a =
+      static_cast<uint32_t>(__cvta_generic_to_shared(tile)) + step * 32 * R;
+  return static_cast<uint64_t>((a >> 4) & 0x3fff) |
+         static_cast<uint64_t>((16 * R) >> 4) << 16 |
+         static_cast<uint64_t>(128 >> 4) << 32;
 }
+
+// m64nNk8 TF32 warpgroup MMAs, f32 accumulators (N / 2 per thread): rs
+// for every N of P V (N = D) and of Q K^T with q in registers (N = kBK =
+// 32), ss only where q stays in shared memory (D = 128, N = 32).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d += a b, a from registers (the m64n8 A fragment), b from shared memory
+  __device__ __forceinline__ static void rs(float (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // d += a b, a from shared memory (descriptor), b from shared memory
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a,
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  // d += a b, a from registers (the m64n8 A fragment), b from shared memory
+  __device__ __forceinline__ static void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d += a b, a from registers (the m64n8 A fragment), b from shared memory
+  __device__ __forceinline__ static void rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d += a b, a from registers (the m64n8 A fragment), b from shared memory
+  __device__ __forceinline__ static void rs(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+struct Smem {
+  static constexpr int kRawLd = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int kRaw = kBK * kRawLd;        // T elements, K or V
+  static constexpr int kRawBytes = 2 * 2 * kRaw * static_cast<int>(sizeof(T));
+  static constexpr int kTile = kBK * D;             // words, K or V split
+  static constexpr int kQ = kBQ * D;                // words, q split
+  // byte offsets, each a multiple of 1024
+  static constexpr int kRawOff = 0;
+  static constexpr int kKvOff = (kRawBytes + 1023) / 1024 * 1024;
+  static constexpr int kQOff = kKvOff + 4 * kTile * 4;
+  static constexpr int kBytes = kQOff + (q_in_regs<D>() ? 0 : 2 * kQ * 4);
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, q_in_regs<D>() ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const int32_t* __restrict__ lengths,
-                       T* __restrict__ out, int qh, int kvh, int seq_q,
-                       int seq_k, float scale, int causal) {
-  constexpr int CPT = D / 16;           // acc columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qT = smem;                     // D x kLdt: q tile, transposed
-  float* kT = qT + D * kLdt;            // D x kLdt: k tile, transposed
-  float* vs = kT + D * kLdt;            // kBK x D
-  float* pT = vs + kBK * D;             // kBK x kLdt: p, transposed
+                       T* __restrict__ out, int batch, int qh, int kvh,
+                       int seq_q, int seq_k, int n_qt, float scale,
+                       int causal) {
+  using S = Smem<T, D>;
+  constexpr int KS = D / 8;              // k steps of Q K^T
+  constexpr int CH = D / 4;              // 16-byte chunks of a row of d
+  constexpr int VEC = 16 / sizeof(T);    // elements per 16-byte copy
+  constexpr int LDR = S::kRawLd;
+  constexpr bool kSplitKV = std::is_same<T, float>::value;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  T* raw = reinterpret_cast<T*>(smem + S::kRawOff);  // [slot][K, V][key][LDR]
+  uint32_t* kb = reinterpret_cast<uint32_t*>(smem + S::kKvOff);
+  uint32_t* ks = kb + S::kTile;          // K: kBK rows of d, K-major
+  uint32_t* vb = ks + S::kTile;          // V^T: D rows of keys, K-major
+  uint32_t* vs = vb + S::kTile;
+  uint32_t* qb = reinterpret_cast<uint32_t*>(smem + S::kQOff);
+  uint32_t* qs = qb + S::kQ;             // q: kBQ rows of d, K-major
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int n_bh = batch * qh;
+  const int bh = blockIdx.x % n_bh;
+  const int qt = n_qt - 1 - blockIdx.x / n_bh;   // last (longest) first
+  const int h = bh % qh, b = bh / qh;
   const int hk = h / (qh / kvh);
+  const int q0 = qt * kBQ;
   int klen = seq_k;
   if (lengths != nullptr) klen = max(0, min(klen, lengths[b]));
   const int kend = causal ? min(klen, q0 + kBQ) : klen;
+  const int n_tiles = (kend + kBK - 1) / kBK;
 
   const int64_t qoff = (static_cast<int64_t>(b) * qh + h) * seq_q * D;
   const int64_t koff = (static_cast<int64_t>(b) * kvh + hk) * seq_k * D;
-  const T* qb = q + qoff;
-  const T* kb = k + koff;
-  const T* vb = v + koff;
-  T* ob = out + qoff;
+  const T* qg = q + qoff;
+  const T* kg = k + koff;
+  const T* vg = v + koff;
+  T* og = out + qoff;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, row = q0 + r;
-    qT[d * kLdt + r] =
-        row < seq_q ? to_f32(qb[static_cast<int64_t>(row) * D + d]) * scale
-                    : 0.f;
-  }
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();                    // the previous tile is consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, d = i % D, key = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (key < seq_k) {
-        kv = to_f32(kb[static_cast<int64_t>(key) * D + d]);
-        vv = to_f32(vb[static_cast<int64_t>(key) * D + d]);
+  // Copy tile t's raw K and V into ring slot t % 2; always commit a group
+  // (empty past the last tile) so that wait_group counts stay uniform.
+  auto issue = [&](int t) {
+    if (t < n_tiles) {
+      T* dst = raw + (t % 2) * 2 * S::kRaw;
+      for (int i = tid; i < kBK * D / VEC; i += kThreads) {
+        const int r = i / (D / VEC), e = (i % (D / VEC)) * VEC;
+        const int key = t * kBK + r;
+        const bool ok = key < seq_k;
+        const int64_t src = ok ? static_cast<int64_t>(key) * D + e : 0;
+        cp_async16(dst + r * LDR + e, kg + src, ok);
+        cp_async16(dst + S::kRaw + r * LDR + e, vg + src, ok);
       }
-      kT[d * kLdt + r] = kv;
-      vs[r * D + d] = vv;
     }
-    __syncthreads();
+    cp_async_commit();
+  };
+  issue(0);
+  issue(1);
 
-    float s[4][4];
+  // q, pre-scaled in f32 and split.  The scale carries log2(e): scores
+  // are in base 2 and the softmax uses exp2.
+  const float qscale = scale * 1.4426950408889634f;
+  const int qpos0 = q0 + warp * 16 + g, qpos1 = qpos0 + 8;
+  uint32_t qhi[KS][4], qlo[KS][4];       // A fragments, D <= 64
+  if constexpr (q_in_regs<D>()) {
+    auto qval = [&](int row, int d) {
+      return row < seq_q
+                 ? to_f32(qg[static_cast<int64_t>(row) * D + d]) * qscale
+                 : 0.f;
+    };
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 qa =
-          *reinterpret_cast<const float4*>(qT + d * kLdt + ty * 4);
-      const float4 ka =
-          *reinterpret_cast<const float4*>(kT + d * kLdt + tx * 4);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    for (int s = 0; s < KS; ++s) {
+      const int c = 8 * s + tg;
+      split(qval(qpos0, c), qhi[s][0], qlo[s][0]);
+      split(qval(qpos1, c), qhi[s][1], qlo[s][1]);
+      split(qval(qpos0, c + 4), qhi[s][2], qlo[s][2]);
+      split(qval(qpos1, c + 4), qhi[s][3], qlo[s][3]);
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx * 4 + j;
-        const bool live = kpos < klen && (!causal || kpos <= qpos);
-        s[i][j] = live ? s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+  } else {
+    // 8 neighbouring threads take 8 rows of one 16-byte chunk, so the
+    // stores fill whole 128-byte lines
+    for (int i = tid; i < kBQ * CH; i += kThreads) {
+      const int rest = i >> 3, c = rest % CH;
+      const int r = (rest / CH) * 8 + (i & 7), row = q0 + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < seq_q) {
+        x = ld4(qg + static_cast<int64_t>(row) * D + 4 * c);
+        x = make_float4(x.x * qscale, x.y * qscale, x.z * qscale,
+                        x.w * qscale);
       }
-      const float m_cur = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_cur);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_cur);
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum16(sum);
-      m[i] = m_cur;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pT + (tx * 4 + j) * kLdt + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-    const int nk = min(kBK, kend - k0);  // later keys have p = 0
-    for (int kk = 0; kk < nk; ++kk) {
-      const float4 pa =
-          *reinterpret_cast<const float4*>(pT + kk * kLdt + ty * 4);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      float vv[CPT];
-      load_cols<CPT>(vs + kk * D + tx * CPT, vv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+      uint4 hi, lo;
+      split4(x, hi, lo);
+      const int u = 4 * kmajor_unit<kBQ>(r, c);
+      *reinterpret_cast<uint4*>(qb + u) = hi;
+      *reinterpret_cast<uint4*>(qs + u) = lo;
     }
   }
 
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[D / 2];                      // m64nD accumulator
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= seq_q) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      ob[static_cast<int64_t>(row) * D + tx * CPT + c] =
-          from_f32<T>(acc[i][c] / denom);
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait1();                    // tile t has landed
+    __syncthreads();                     // ... for every thread, and the
+                                         // MMAs of tile t - 1 are done
+    {
+      const T* rk = raw + (t % 2) * 2 * S::kRaw;
+      const T* rv = rk + S::kRaw;
+      // K: 8 neighbouring threads take 8 keys of one chunk
+      for (int i = tid; i < kBK * CH; i += kThreads) {
+        const int rest = i >> 3, c = rest % CH;
+        const int r = (rest / CH) * 8 + (i & 7);
+        uint4 hi, lo;
+        split4(ld4(rk + r * LDR + 4 * c), hi, lo);
+        const int u = 4 * kmajor_unit<kBK>(r, c);
+        *reinterpret_cast<uint4*>(kb + u) = hi;
+        if constexpr (kSplitKV) *reinterpret_cast<uint4*>(ks + u) = lo;
+      }
+      // V^T: a thread takes 4 keys of one d, in the relabelled order:
+      // chunk c of key step j holds keys 8 j + c, + 2, + 4, + 6
+      for (int i = tid; i < D * kBK / 4; i += kThreads) {
+        const int d = i % D, c = (i / D) & 1, j = i / (2 * D);
+        const T* p = rv + (8 * j + c) * LDR + d;
+        const float4 x = make_float4(to_f32(p[0]), to_f32(p[2 * LDR]),
+                                     to_f32(p[4 * LDR]), to_f32(p[6 * LDR]));
+        uint4 hi, lo;
+        split4(x, hi, lo);
+        const int u = 4 * kmajor_unit<D>(d, 2 * j + c);
+        *reinterpret_cast<uint4*>(vb + u) = hi;
+        if constexpr (kSplitKV) *reinterpret_cast<uint4*>(vs + u) = lo;
+      }
     }
+    fence_async_smem();
+    __syncthreads();                     // split tiles ready, slot free
+    issue(t + 2);
+
+    // S = Q K^T, 3xTF32
+    float sc[kBK / 2];
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {      // the small products of every step
+      const uint64_t b_hi = kmajor_desc<kBK>(kb, s);
+      if constexpr (q_in_regs<D>()) {
+        Wgmma<kBK>::rs(sc, qlo[s], b_hi);
+        if constexpr (kSplitKV)
+          Wgmma<kBK>::rs(sc, qhi[s], kmajor_desc<kBK>(ks, s));
+      } else {
+        Wgmma<kBK>::ss(sc, kmajor_desc<kBQ>(qs, s), b_hi);
+        if constexpr (kSplitKV)
+          Wgmma<kBK>::ss(sc, kmajor_desc<kBQ>(qb, s),
+                         kmajor_desc<kBK>(ks, s));
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {      // ... then the big ones
+      const uint64_t b_hi = kmajor_desc<kBK>(kb, s);
+      if constexpr (q_in_regs<D>())
+        Wgmma<kBK>::rs(sc, qhi[s], b_hi);
+      else
+        Wgmma<kBK>::ss(sc, kmajor_desc<kBQ>(qb, s), b_hi);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) reg_fence(sc[i]);
+
+    // mask, online softmax; sc[4 j + e] is row (e < 2 ? g : g + 8) of the
+    // warp's 16, key k0 + 8 j + 2 tg + (e & 1)
+    const int k0 = t * kBK;
+    float mx[2] = {kNegInf, kNegInf};
+    // only the tiles at the length or across the diagonal need the mask
+    if (k0 + kBK > klen || (causal && k0 + kBK - 1 > q0)) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * tg + (e & 1);
+          const int qpos = e < 2 ? qpos0 : qpos1;
+          const bool live = kpos < klen && (!causal || kpos <= qpos);
+          float& x = sc[4 * j + e];
+          x = live ? x : kNegInf;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_cur = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f(m[r] - m_cur);
+      m[r] = m_cur;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      sc[i] = exp2f(sc[i] - m[(i >> 1) & 1]);
+      l[(i >> 1) & 1] += sc[i];
+    }
+
+    // acc = alpha acc + P V, 3xTF32.  The k index of the MMA is relabelled:
+    // k = tg is key 8 j + 2 tg and k = tg + 4 is key 8 j + 2 tg + 1, which
+    // is where the score accumulator holds them.  The tile's P V is summed
+    // in a fresh accumulator and added to acc in f32, so the tensor cores'
+    // own (not round-to-nearest) additions stop at the tile.
+    uint32_t ph[kNT][4], pl[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      split(sc[4 * j + 0], ph[j][0], pl[j][0]);   // row g,     key 2 tg
+      split(sc[4 * j + 2], ph[j][1], pl[j][1]);   // row g + 8, key 2 tg
+      split(sc[4 * j + 1], ph[j][2], pl[j][2]);   // row g,     key 2 tg + 1
+      split(sc[4 * j + 3], ph[j][3], pl[j][3]);   // row g + 8, key 2 tg + 1
+    }
+    float pv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {     // the small products first
+      Wgmma<D>::rs(pv, pl[j], kmajor_desc<D>(vb, j));
+      if constexpr (kSplitKV)
+        Wgmma<D>::rs(pv, ph[j], kmajor_desc<D>(vs, j));
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)      // ... then the big ones
+      Wgmma<D>::rs(pv, ph[j], kmajor_desc<D>(vb, j));
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) {
+      reg_fence(pv[i]);
+      acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        reg_fence(ph[j][e]);
+        reg_fence(pl[j][e]);
+      }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = 8 * n + 2 * tg;
+    if (qpos0 < seq_q)
+      st2(og + static_cast<int64_t>(qpos0) * D + c, acc[4 * n] / l[0],
+          acc[4 * n + 1] / l[0]);
+    if (qpos1 < seq_q)
+      st2(og + static_cast<int64_t>(qpos1) * D + c, acc[4 * n + 2] / l[1],
+          acc[4 * n + 3] / l[1]);
   }
 }
 
@@ -258,18 +626,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int32_t* lengths, void* out, int64_t batch,
                    int64_t qh, int64_t kvh, int64_t seq_q, int64_t seq_k,
                    float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr int smem = Smem<T, D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(static_cast<unsigned>((seq_q + kBQ - 1) / kBQ),
-            static_cast<unsigned>(qh), static_cast<unsigned>(batch));
+  const int64_t n_qt = (seq_q + kBQ - 1) / kBQ;
+  if (n_qt * qh * batch > 2147483647LL) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(n_qt * qh * batch));
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(out),
-      static_cast<int>(qh), static_cast<int>(kvh), static_cast<int>(seq_q),
-      static_cast<int>(seq_k), scale, causal);
+      static_cast<int>(batch), static_cast<int>(qh), static_cast<int>(kvh),
+      static_cast<int>(seq_q), static_cast<int>(seq_k),
+      static_cast<int>(n_qt), scale, causal);
   return cudaGetLastError();
 }
 
@@ -310,8 +680,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (batch <= 0 || qh <= 0 || seq_q <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (kvh <= 0 || qh % kvh != 0 || batch > 65535 || qh > 65535 ||
-      seq_q > 2147483647LL || seq_k > 2147483647LL || seq_k < 0) {
+  if (kvh <= 0 || qh % kvh != 0 || seq_q > 2147483647LL ||
+      seq_k > 2147483647LL || seq_k < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

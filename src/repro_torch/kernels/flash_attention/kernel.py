@@ -5,8 +5,10 @@
 ``h // group``), keys masked past ``lengths[b]``, in f32 or bf16 with
 ``D`` in {16, 32, 64, 128}.  It replaces the Pallas TPU kernel
 ``flash_attention_kernel`` (``src/repro/kernels/flash_attention/
-kernel.py``); see ``csrc/flash_attention.cu`` for its design.  It is built
-with ``nvcc`` for ``sm_90a`` on first use.
+kernel.py``); see ``csrc/flash_attention.cu`` for its design: both
+products run on the tensor cores in 3xTF32 (Hopper's ``wgmma``), their
+sums ordered and cut so that the error against f64 stays at the plain
+f32 version's.  It is built with ``nvcc`` for ``sm_90a`` on first use.
 
 ``LAUNCHES`` counts the kernel's launches — the one place it is
 incremented is right where the kernel is launched.
@@ -62,6 +64,9 @@ def _check(q, k, v, lengths) -> None:
         raise ValueError(f"lengths must be int32 ({b},)")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("flash_attention operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on a 16-byte boundary (the "
+                         "kernel loads 16-byte vectors)")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,3 +72,19 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
         outs.append(_attend(q[:, :, q0:q0 + chunk], kr, vr, mask,
                             scale).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x = big + small`` with both parts TF32 values (f32 with the low 13
+    mantissa bits 0), as the CUDA kernel splits its operands: ``big`` is
+    ``x`` rounded to the nearest TF32, ties away from zero (PTX
+    ``cvt.rna.tf32.f32``), and ``small`` is ``x - big`` rounded the same
+    way.  Returns f32 tensors.  A test helper: the serving path never
+    calls it."""
+    def rna(y: torch.Tensor) -> torch.Tensor:
+        bits = y.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    x = x.float()
+    big = rna(x)
+    return big, rna(x - big)
+

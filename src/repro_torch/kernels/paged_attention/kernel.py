@@ -5,12 +5,15 @@
 D)`` through ``block_tables (B, maxp)`` and ``lengths (B,)``, in f32 or
 bf16 with ``D`` in {16, 32, 64, 128}.  It replaces the Pallas TPU kernel
 ``paged_attention_kernel`` (``src/repro/kernels/paged_attention/
-kernel.py``); see
-``csrc/paged_attention.cu`` for its design.  It is built with ``nvcc``
-for ``sm_90a`` on first use.
+kernel.py``); see ``csrc/paged_attention.cu`` for its design: the
+sequence is split into partitions of ``PARTITION_TOKENS`` tokens, one
+CTA each, and a second kernel on the same stream combines the partitions'
+partial softmax sums in partition order.  It is built with ``nvcc`` for
+``sm_90a`` on first use.
 
-``LAUNCHES`` counts the kernel's launches — the one place it is
-incremented is right where the kernel is launched.
+``LAUNCHES`` counts the op's launches, one per call: the partition kernel
+and its combine kernel are one launch of the op, counted right where the
+C function that launches both returns.
 """
 
 from __future__ import annotations
@@ -26,12 +29,17 @@ LAUNCHES = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+#: the kernel's chunk of tokens; a partition is a multiple of it
+CHUNK_TOKENS = 64
+#: tokens a CTA owns, a multiple of CHUNK_TOKENS: at tiny-lm's decode path
+#: shape about 3 CTAs per SM.  The wrapper reads it at every call.
+PARTITION_TOKENS = 128
 
 
 def _launcher():
     fn = _build.load().paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 7 + [
             ctypes.c_float, ctypes.c_int64, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -68,6 +76,9 @@ def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_attention operands must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("k_pages and v_pages must start on a 16-byte "
+                         "boundary (the kernel copies 16-byte vectors)")
 
 
 def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
@@ -89,13 +100,21 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     if maxp == 0 or page == 0:
         return out.zero_()
+    n_part = -(-maxp * page // PARTITION_TOKENS)
+    part_m = torch.empty((b, kvh, n_part, g), dtype=torch.float32,
+                         device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((b, kvh, n_part, g, d), dtype=torch.float32,
+                           device=q.device)
     launch = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                      block_tables.data_ptr(), lengths.data_ptr(),
-                     out.data_ptr(), b, kvh, g, d, page, maxp, float(scale),
-                     DTYPES[q.dtype], stream)
+                     out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+                     part_acc.data_ptr(), b, kvh, g, d, page, maxp,
+                     PARTITION_TOKENS, float(scale), DTYPES[q.dtype],
+                     stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -236,6 +236,97 @@ def test_cuda_paged_attention_matches_flash_on_same_kv(cuda_device):
     torch.testing.assert_close(out_paged, out_flash, atol=3e-5, rtol=3e-5)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("partition_tokens", [64, 128, 256])
+def test_cuda_paged_attention_partitions(cuda_device, monkeypatch, dtype,
+                                         partition_tokens):
+    """The sequence split at every partition size: a length 0, one shorter
+    than a partition, exact multiples of T, one past a multiple, and the
+    whole table, whose 21 pages x 16 = 336 tokens are no multiple of T;
+    against the plain version and the plain partition-and-combine."""
+    from repro_torch.kernels.paged_attention import (kernel,
+                                                     paged_attention_kernel,
+                                                     paged_attention_ref)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_partitioned_ref)
+    T = partition_tokens
+    monkeypatch.setattr(kernel, "PARTITION_TOKENS", T)
+    rng = np.random.default_rng(T)
+    b, kvh, g, d, pages, page, maxp = 6, 2, 3, 64, 160, 16, 21
+    q = _randn(rng, (b, kvh, g, d), dtype, cuda_device)
+    k = _randn(rng, (pages, page, kvh, d), dtype, cuda_device)
+    v = _randn(rng, (pages, page, kvh, d), dtype, cuda_device)
+    bt = torch.from_numpy(rng.permutation(pages)[:b * maxp]
+                          .reshape(b, maxp).astype(np.int32)).to(cuda_device)
+    n_tok = maxp * page
+    ln = torch.tensor([0, 5, T, min(2 * T, n_tok), T + 1, n_tok],
+                      dtype=torch.int32, device=cuda_device)
+    out = paged_attention_kernel(q, k, v, bt, ln)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(),
+                               paged_attention_ref(q, k, v, bt, ln).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(
+        out.float(), paged_attention_partitioned_ref(
+            q, k, v, bt, ln, partition_tokens=T).float(), atol=tol, rtol=tol)
+    assert torch.all(out[0] == 0)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("partition_tokens", [128, 256])
+def test_cuda_paged_attention_is_deterministic(cuda_device, monkeypatch,
+                                               partition_tokens):
+    """Two calls on the same inputs give the same bits: the partitions are
+    combined in order, with no atomics."""
+    from repro_torch.kernels.paged_attention import (kernel,
+                                                     paged_attention_kernel)
+    monkeypatch.setattr(kernel, "PARTITION_TOKENS", partition_tokens)
+    rng = np.random.default_rng(17)
+    b, kvh, g, d, page, maxp = 8, 4, 3, 64, 16, 128
+    q = _randn(rng, (b, kvh, g, d), torch.float32, cuda_device)
+    k = _randn(rng, (b * maxp, page, kvh, d), torch.float32, cuda_device)
+    v = _randn(rng, (b * maxp, page, kvh, d), torch.float32, cuda_device)
+    bt = torch.from_numpy(rng.permutation(b * maxp).reshape(b, maxp)
+                          .astype(np.int32)).to(cuda_device)
+    ln = torch.from_numpy(rng.integers(0, maxp * page + 1, b)
+                          .astype(np.int32)).to(cuda_device)
+    a = paged_attention_kernel(q, k, v, bt, ln)
+    c = paged_attention_kernel(q, k, v, bt, ln)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (70, 150), (150, 70)])
+def test_cuda_flash_attention_tf32_shapes(cuda_device, dtype, causal, sq,
+                                          sk):
+    """The tensor-core kernel at the short prefill bucket and with Sq != Sk
+    (both ragged), every key live or lengths short of Sk; two calls give
+    the same bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_ref)
+    rng = np.random.default_rng(sq + sk)
+    q = _randn(rng, (2, 6, sq, 64), dtype, cuda_device)
+    k = _randn(rng, (2, 2, sk, 64), dtype, cuda_device)
+    v = _randn(rng, (2, 2, sk, 64), dtype, cuda_device)
+    ln = torch.tensor([sk, sk // 3], dtype=torch.int32, device=cuda_device)
+    tol = ATTN_TOL[dtype]
+    for lens in (None, ln):
+        out = flash_attention_kernel(q, k, v, lens, causal=causal)
+        again = flash_attention_kernel(q, k, v, lens, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out.float(), flash_attention_ref(q, k, v, lens,
+                                             causal=causal).float(),
+            atol=tol, rtol=tol)
+        assert torch.equal(out, again)
+
+
 # -- the serving engine on the card ------------------------------------------
 
 
