@@ -12,7 +12,13 @@ kernel against its plain PyTorch version on the card:
 * paged-KV decode serving of tiny-lm at full width (12 layers, d_model
   768, random weights from a seed): ``ServingEngine`` answers 16 requests
   under ``resolver="host"`` and again under ``resolver="tiara"``, where
-  every decode step resolves the block tables through the endpoint.
+  every decode step resolves the block tables through the endpoint;
+* the same serving of Llama-4 Scout 17B-A16E at its published widths
+  (d_model 5120, 40/8 heads of 128, 16 experts top-1 plus the shared
+  expert, vocab 202048, bf16, page 128) with the depth cut to 4 of 48
+  layers: 21.8 GB of random bf16 weights drawn on the card from seed 0;
+  under ``resolver="tiara"`` every decode step also resolves each slot's
+  expert route through ``MoEExpertGather``.
 
 Phases:
 
@@ -42,7 +48,18 @@ Phases:
    least once in every tiara decode step; prefill time per bucket,
    decode-step time and tokens/s; then the port on the card against the
    port on the CPU, same weights, on a 64-token prompt and 8
-   teacher-forced decode steps.
+   teacher-forced decode steps;
+6. Scout: both attention kernels at its exact bf16 path shapes against
+   their plain versions (within ``SCOUT_ATTN_TOL``, two bf16 ulps, the
+   same bits twice), timed with
+   their bounds and PyTorch's SDPA; 8 requests (prompts 16..1536, the
+   buckets 128..2048) under both resolvers: identical tokens,
+   ``flash_attention`` 4 times per prefill, ``paged_attention`` 4 times
+   per decode step, ``tiara_gather`` in every tiara decode step and never
+   under host, expert gathers executed; the prefill logits of the CUDA
+   kernels against the plain versions on the card, position by position
+   (see ``SCOUT_LOGIT_TOL``); then ``tiara_gather`` timed at the shapes
+   the two serving resolvers gave it.
 
 Any failure raises and the script exits non-zero.  It prints, before the
 last line, the card's name and power limit and one JSON object with each
@@ -78,8 +95,19 @@ F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 #                                 (NVIDIA data sheet, dense)
 TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 on the tensor cores
 #                                 (NVIDIA data sheet, dense)
-# tests/test_kernels.py's attention tolerances
-ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 0.05}
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores
+#                                 (NVIDIA data sheet, dense)
+# tests/test_kernels.py's attention tolerances, as (atol, rtol)
+ATTN_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (0.05, 0.05)}
+# The attention kernels at Scout's bf16 path shapes, whose outputs have an
+# rms of 0.1-0.2, down to about 0.04 in the rows over 1000-2000 keys
+# (random unit-normal q, k and v), so 0.05 would admit a kernel that drops
+# a tile of keys.  Both kernels and their
+# plain versions compute in f32 (errors about 1e-6, PERF.md) and round the
+# output to bf16 once, so they may differ by one bf16 ulp, at most 2**-7
+# of the value: rtol = two ulps, atol for values near 0.  Dropping 32 of
+# 1000 keys moves a row by about a fifth of its size.
+SCOUT_ATTN_TOL = (1e-4, 2 ** -6)
 # The attention kernels' timed shapes, tiny-lm's heads (12 q / 4 kv of
 # 64): paged_attention over 8 decode slots with 128-page tables (page 16)
 # out of the engine's 1025 pages, at the decode path's lengths (12043 live
@@ -94,10 +122,38 @@ FLASH_SEQ = {"path": 2048, "short": 256}
 # flash's error against f64 is also taken with q scaled so that the
 # logits' standard deviation is each of these (random tiny-lm's is 1)
 LOGIT_STDS = (1, 4, 16)
+# Both serving runs: ServingEngine(max_slots=8, max_seq=2048)
+SERVE_SLOTS, SERVE_MAX_SEQ = 8, 2048
 # Card against CPU, tiny-lm logits: both f32 (no TF32), but cuBLAS and the
 # CPU BLAS sum in other orders, and the kernels' online softmax against the
 # plain two-pass one, through 12 layers; logits are O(1).
 CARD_VS_CPU_TOL = 1e-3
+# Llama-4 Scout at its published widths (d_model 5120, 40 q / 8 kv heads of
+# 128, 16 experts top-1 of 8192 plus the shared expert, vocab 202048, bf16,
+# page 128), depth cut to 4 of 48 layers, random weights from seed 0:
+# ServingEngine(max_slots=8, max_seq=2048) answers 8 greedy requests whose
+# prompts cover the buckets 128..2048.
+SCOUT_ARCH, SCOUT_LAYERS, SCOUT_NEW = "llama4-scout-17b-a16e", 4, 16
+SCOUT_PLENS = tuple(int(n) for n in np.round(np.geomspace(16, 1536, 8)))
+# Scout's prefill logits with the CUDA attention kernels against the same
+# model with their plain versions, on the card.  bf16 keeps 8 significant
+# bits: every product and residual add rounds at 2**-9 relative, and the
+# logits (O(1), at most about 6 with random weights) are bf16 values
+# themselves, 2**-5 apart in [4, 8).  The kernels and the plain versions
+# round their f32 sums to bf16 at different points, so the 4 layers carry a
+# few ulps of difference to the logits; and where the router's top two
+# experts of a token are within an ulp, such a difference can flip the
+# top-1 route, which makes that token's FFN a different function.  So the
+# check is per position: a position whose route matched in all 4 layers
+# holds |kernel - plain| <= tol (1 + |plain|) with tol = 2**-3; positions
+# with a flipped route are counted and may be at most 5% of the prompt.
+SCOUT_LOGIT_TOL = 2 ** -3
+SCOUT_MAX_FLIP_SHARE = 0.05
+# flash_attention in bf16 issues two TF32 passes per product (bf16 K and V
+# are exact in TF32, so their small parts are 0 and those passes skipped):
+# the design's own floor, printed beside the function's bound (the bf16
+# tensor-core rate), which it does not replace
+FLASH_BF16_PASSES = 2
 
 
 def log(msg: str) -> None:
@@ -269,17 +325,27 @@ def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max().item())
 
 
-def _check_close(name, got, want, dtype):
-    """max |got - want|, after checking |got - want| <= tol + tol |want|
-    elementwise (``assert_allclose`` with atol = rtol = tol)."""
-    tol = ATTN_TOL[dtype]
+def _check_close(name, got, want, dtype, tol=None):
+    """max |got - want|, after checking |got - want| <= atol + rtol |want|
+    elementwise (``assert_allclose``); ``tol = (atol, rtol)``, by default
+    ``ATTN_TOL[dtype]``."""
+    atol, rtol = ATTN_TOL[dtype] if tol is None else tol
     err = _max_err(got, want)
     ok = ((got.float() - want.float()).abs()
-          <= tol + tol * want.float().abs()).all()
+          <= atol + rtol * want.float().abs()).all()
     if not bool(torch.isfinite(got.float()).all()) or not bool(ok):
         raise AssertionError(f"{name}: max |kernel - plain| {err:.3g} "
-                             f"over the tolerance {tol} ({dtype})")
+                             f"over the tolerance atol {atol:.3g} + rtol "
+                             f"{rtol:.3g} |plain| ({dtype})")
     return err
+
+
+def _limit_share(got, want, tol) -> float:
+    """The largest |got - want| / (atol + rtol |want|): 1 is the limit."""
+    atol, rtol = tol
+    w = want.float()
+    return float(((got.float() - w).abs() / (atol + rtol * w.abs()))
+                 .max().item())
 
 
 def _check_same_bits(name, fn):
@@ -608,13 +674,125 @@ class _Timed:
         eng._prefill, eng.step = timed_prefill, timed_step
 
 
+def serve_both(tag, cfg, params, prompts, max_new, dev, *,
+               profile_prompts=None):
+    """``prompts`` through ServingEngine(max_slots=SERVE_SLOTS,
+    max_seq=SERVE_MAX_SEQ), greedy, under resolver="host" then "tiara".
+    Fails unless every sequence finishes ok with ``max_new`` tokens,
+    ``flash_attention`` launched ``n_layers`` times per prefill and
+    ``paged_attention`` ``n_layers`` times per decode step,
+    ``tiara_gather`` in every tiara decode step and never under host, an
+    MoE model's tiara run executed expert gathers, and both runs gave the
+    same tokens.  The launch counts are set to 0 just before each run and
+    read just after it.  With ``profile_prompts``, one decode step of
+    those prompts is profiled after each run.  Returns the runs and the
+    tiara run's first window gather of each engine."""
+    from repro_torch import kernels
+    from repro_torch.serving import ServingEngine
+    runs, gathers = {}, None
+    for resolver in ("host", "tiara"):
+        eng = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
+                            max_seq=SERVE_MAX_SEQ, eos_id=-1,
+                            temperature=0.0, resolver=resolver, device=dev)
+        timed = _Timed(eng)
+        expert_gathers = [0]
+        if resolver == "tiara" and eng.resolver.moe is not None:
+            resolve = eng.resolver.resolve_step
+
+            def counted(slots, reqs=None, _resolve=resolve):
+                kv, ex = _resolve(slots, reqs)
+                expert_gathers[0] += sum(e is None for e in ex.values())
+                return kv, ex
+            eng.resolver.resolve_step = counted
+        rec = _GatherCalls()
+        with rec:
+            kernels.reset_launch_counts()    # the serving path starts here
+            t = time.perf_counter()
+            handles = [eng.submit(p, max_new=max_new) for p in prompts]
+            out = eng.run_to_completion()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = kernels.launch_counts()  # ... and ends here
+        if not all(h.ok for h in handles) \
+                or any(len(out[h.sid]) != max_new for h in handles):
+            raise AssertionError(f"{tag} {resolver}: a sequence did not "
+                                 f"finish ok")
+        n_prefill = sum(len(v) for v in timed.prefill_ms.values())
+        n_steps = len(timed.step_ms)
+        if n_prefill != len(prompts) \
+                or counts["flash_attention"] != cfg.n_layers * n_prefill:
+            raise AssertionError(
+                f"{tag} {resolver}: flash_attention launched "
+                f"{counts['flash_attention']} times for {n_prefill} "
+                f"prefills, expected {cfg.n_layers} per prefill")
+        if counts["paged_attention"] != cfg.n_layers * n_steps:
+            raise AssertionError(
+                f"{tag} {resolver}: paged_attention launched "
+                f"{counts['paged_attention']} times in {n_steps} decode "
+                f"steps, expected {cfg.n_layers} per step")
+        if resolver == "host" and counts["tiara_gather"] != 0:
+            raise AssertionError(f"{tag} host: tiara_gather launched")
+        # copies: a profiled step below would add to the live lists
+        run = dict(out=out, counts=counts, wall_s=wall,
+                   tokens=sum(len(v) for v in out.values()),
+                   prefill_ms={int(k): list(v)
+                               for k, v in sorted(timed.prefill_ms.items())},
+                   step_ms=list(timed.step_ms),
+                   step_gathers=list(timed.step_gathers))
+        plens = [len(p) for p in prompts]
+        log(f"[{tag}] resolver={resolver}: {len(prompts)} requests "
+            f"(prompts {min(plens)}-{max(plens)} tokens), {run['tokens']} "
+            f"tokens in {wall:.2f} s = {run['tokens'] / wall:.1f} tokens/s; "
+            f"{n_prefill} prefills, {n_steps} decode steps; launches "
+            f"{counts}")
+        log(f"[{tag}] resolver={resolver}: prefill ms by bucket "
+            + ", ".join(f"{k}: {np.median(v):.1f} (x{len(v)})"
+                        for k, v in sorted(timed.prefill_ms.items()))
+            + f"; decode step ms median {np.median(timed.step_ms):.2f}, "
+            f"min {min(timed.step_ms):.2f}, max {max(timed.step_ms):.2f}")
+        if resolver == "tiara":
+            st = eng.resolver.loop.stats
+            if min(timed.step_gathers) < 1:
+                raise AssertionError(f"{tag} tiara: a decode step launched "
+                                     f"no tiara_gather")
+            if eng.resolver.moe is not None and expert_gathers[0] < 1:
+                raise AssertionError(f"{tag} tiara: no expert gather")
+            run.update(executed=st.executed, expert_gathers=expert_gathers[0],
+                       gather_calls=rec.counts)
+            gathers = rec.first
+            log(f"[{tag}] resolver=tiara: tiara_gather launches per decode "
+                f"step median {int(np.median(timed.step_gathers))} (by "
+                f"engine: {rec.counts}); resolver.loop.stats.executed "
+                f"{st.executed}, expert gathers checked {expert_gathers[0]}")
+        if profile_prompts is not None:
+            prof = run["profile"] = profile_step(eng, profile_prompts)
+            # the profiled step's wall carries the profiler's host cost
+            prof["busy_share_of_median_step"] = \
+                prof["device_busy_ms"] / float(np.median(run["step_ms"]))
+            log(f"[{tag}] resolver={resolver}: one profiled decode step of "
+                f"{len(profile_prompts)} slots: {prof['wall_ms']:.2f} ms "
+                f"wall, device busy {prof['device_busy_ms']:.2f} ms "
+                f"({prof['busy_share']:.1%}; "
+                f"{prof['busy_share_of_median_step']:.1%} of the run's "
+                f"median step) in {prof['kernel_launches']} kernels; top: "
+                + "; ".join(f"{r['kernel']} {r['ms']:.3f} ms x{r['count']}"
+                            for r in prof["top"]))
+        runs[resolver] = run
+        del eng
+        torch.cuda.empty_cache()
+    if runs["tiara"]["out"] != runs["host"]["out"]:
+        raise AssertionError(f"{tag}: resolver='tiara' tokens differ from "
+                             f"'host'")
+    log(f"[{tag}] tiara tokens == host tokens for all {len(prompts)} "
+        f"requests")
+    return runs, gathers
+
+
 def phase_serving(dev):
     """tiny-lm at full width through ServingEngine, host then tiara."""
-    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.models.param import count_params
-    from repro_torch.serving import ServingEngine
 
     cfg = get_config("tiny-lm")
     t = time.perf_counter()
@@ -629,69 +807,9 @@ def phase_serving(dev):
     plens = rng.permutation(np.round(np.geomspace(16, 1536, 16))
                             .astype(int))
     prompts = [list(map(int, rng.integers(1, cfg.vocab, n))) for n in plens]
-    runs = {}
-    for resolver in ("host", "tiara"):
-        eng = ServingEngine(cfg, params, max_slots=8, max_seq=2048,
-                            eos_id=-1, temperature=0.0, resolver=resolver,
-                            device=dev)
-        timed = _Timed(eng)
-        kernels.reset_launch_counts()        # the serving path starts here
-        t = time.perf_counter()
-        handles = [eng.submit(p, max_new=32) for p in prompts]
-        out = eng.run_to_completion()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts = kernels.launch_counts()     # ... and ends here
-        if not all(h.ok for h in handles):
-            raise AssertionError(f"{resolver}: a sequence did not finish ok")
-        if any(len(out[h.sid]) != 32 for h in handles):
-            raise AssertionError(f"{resolver}: a sequence is short")
-        n_prefill = sum(len(v) for v in timed.prefill_ms.values())
-        n_steps = len(timed.step_ms)
-        if n_prefill != len(prompts):
-            raise AssertionError(f"{resolver}: {n_prefill} prefills")
-        if counts["flash_attention"] != cfg.n_layers * n_prefill:
-            raise AssertionError(
-                f"{resolver}: flash_attention launched "
-                f"{counts['flash_attention']} times, expected "
-                f"{cfg.n_layers} x {n_prefill} prefills")
-        if counts["paged_attention"] != cfg.n_layers * n_steps:
-            raise AssertionError(
-                f"{resolver}: paged_attention launched "
-                f"{counts['paged_attention']} times, expected "
-                f"{cfg.n_layers} x {n_steps} decode steps")
-        if resolver == "tiara" and min(timed.step_gathers) < 1:
-            raise AssertionError("tiara: a decode step launched no "
-                                 "tiara_gather")
-        if resolver == "host" and counts["tiara_gather"] != 0:
-            raise AssertionError("host: tiara_gather launched")
-        tokens = sum(len(v) for v in out.values())
-        runs[resolver] = dict(
-            out=out, counts=counts, wall_s=wall, tokens=tokens,
-            prefill_ms={int(k): v
-                        for k, v in sorted(timed.prefill_ms.items())},
-            step_ms=timed.step_ms, step_gathers=timed.step_gathers)
-        log(f"[serving] resolver={resolver}: 16 requests (prompts "
-            f"{int(plens.min())}-{int(plens.max())} tokens), {tokens} tokens "
-            f"in {wall:.2f} s = {tokens / wall:.1f} tokens/s; "
-            f"{n_prefill} prefills, {n_steps} decode steps; launches "
-            f"{counts}")
-        log(f"[serving] resolver={resolver}: prefill ms by bucket "
-            + ", ".join(f"{k}: {np.median(v):.1f} (x{len(v)})"
-                        for k, v in sorted(timed.prefill_ms.items())))
-        log(f"[serving] resolver={resolver}: decode step ms median "
-            f"{np.median(timed.step_ms):.2f}, min {min(timed.step_ms):.2f}, "
-            f"max {max(timed.step_ms):.2f}"
-            + (f"; tiara_gather launches per step median "
-               f"{int(np.median(timed.step_gathers))}"
-               if resolver == "tiara" else ""))
-        del eng
-        torch.cuda.empty_cache()
-    if runs["tiara"]["out"] != runs["host"]["out"]:
-        raise AssertionError("resolver='tiara' tokens differ from 'host'")
-    log("[serving] tiara tokens == host tokens for all 16 requests")
+    runs, gathers = serve_both("serving", cfg, params, prompts, 32, dev)
     cpu_err = card_vs_cpu(cfg, params, dev)
-    return runs, cpu_err
+    return runs, cpu_err, gathers
 
 
 def card_vs_cpu(cfg, params, dev) -> float:
@@ -733,6 +851,331 @@ def card_vs_cpu(cfg, params, dev) -> float:
         f"steps: max |logit diff| {err:.3g} (tolerance {CARD_VS_CPU_TOL}, "
         f"max |logit| {float(logits['cpu'].abs().max()):.2f})")
     return err
+
+
+class _GatherCalls:
+    """Records the window gathers a run issues through the lockstep engine
+    (``core.vm``) and the compiled trace (``core.compile``): how many, and
+    the arguments of the first of each, to time the kernel afterwards at
+    exactly the shape the serving resolver gives it.  Every call is
+    forwarded unchanged."""
+
+    def __init__(self):
+        self.first, self.counts = {}, {}
+
+    def __enter__(self):
+        from repro_torch.core import compile as tc
+        from repro_torch.core import vm
+        self._saved = []
+        for name, mod in (("lockstep", vm), ("compiled", tc)):
+            fn = mod.tiara_gather_window
+            self._saved.append((mod, fn))
+
+            def rec(pool, table, bases, ids, *, width, mask, impl="auto",
+                    _fn=fn, _name=name):
+                self.counts[_name] = self.counts.get(_name, 0) + 1
+                if _name not in self.first:
+                    self.first[_name] = dict(
+                        pool=pool.clone(), table=table.clone(),
+                        bases=bases.clone(), ids=ids.clone(), width=width,
+                        mask=mask.clone() if isinstance(mask, torch.Tensor)
+                        else mask)
+                return _fn(pool, table, bases, ids, width=width, mask=mask,
+                           impl=impl)
+            mod.tiara_gather_window = rec
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self._saved:
+            mod.tiara_gather_window = fn
+
+
+def time_gather_call(call, scratch, reps: int = 200):
+    """``tiara_gather``'s window form at one recorded serving call: equal
+    to its plain version; device time (CUDA events, L2 flushed); the host
+    wall of one call, launch included (``reps`` calls back to back, then
+    one sync); and the byte bound."""
+    from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
+    from repro_torch.kernels.tiara_gather.ref import tiara_gather_window_ref
+    args = (call["pool"], call["table"], call["bases"], call["ids"])
+    kw = dict(width=call["width"], mask=call["mask"])
+
+    def fn():
+        return tiara_gather_window(*args, **kw)
+    out, ref = fn(), tiara_gather_window_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, ref):
+        raise AssertionError("tiara_gather_window != plain at a serving "
+                             "shape")
+    ms = time_cuda(fn, scratch)
+    plain_ms = time_cuda(lambda: tiara_gather_window_ref(*args, **kw),
+                         scratch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) / reps * 1e3
+    n, width = int(call["ids"].numel()), int(call["width"])
+    # each window word read once and written once; ids, offsets, bases
+    # (and per-lane masks) read once
+    per_id = 4 + 4 + 8 + (8 if isinstance(call["mask"], torch.Tensor) else 0)
+    moved = 2 * n * width * 8 + n * per_id
+    return dict(n=n, width=width, pool_words=int(call["pool"].numel()),
+                per_lane_masks=isinstance(call["mask"], torch.Tensor),
+                ms=ms, plain_ms=plain_ms, host_ms_per_call=host_ms,
+                bytes_moved=moved,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+
+
+def profile_step(eng, prompts, top: int = 6):
+    """Device time by kernel over one decode step of ``eng`` with every
+    slot busy, from ``torch.profiler``: the step's host wall, the device
+    time of every kernel it ran (busy share = their sum over the wall)
+    and the ``top`` kernels by time.  The requests are admitted and
+    prefilled by an unprofiled step first and drained afterwards."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts:
+        eng.submit(p, max_new=3)
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    eng.run_to_completion()
+    kern = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in kern)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                busy_share=busy_ms / wall_ms,
+                kernel_launches=sum(n for _, _, n in kern),
+                top=[dict(kernel=k[:90], ms=ms, count=n)
+                     for k, ms, n in kern[:top]])
+
+
+def scout_kernels(cfg, dev, scratch):
+    """paged_attention and flash_attention at Scout's exact path shapes in
+    bf16 (8 decode slots of 16 pages of 128 tokens out of the engine's 129
+    pages; one 2048-token causal prefill), against their plain versions:
+    within SCOUT_ATTN_TOL, two calls giving the same bits; times and
+    bounds."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_attention import paged_attention
+    bf = torch.bfloat16
+    qh, kvh, d, page = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.page_size
+    maxp = SERVE_MAX_SEQ // page
+    pool = SERVE_SLOTS * maxp + 1
+    rng = np.random.default_rng(31)
+    # each request at its last decode step: prompt + SCOUT_NEW - 1 tokens
+    lens = [n + SCOUT_NEW - 1 for n in SCOUT_PLENS]
+    q = _randn(rng, (SERVE_SLOTS, qh, d), bf, dev)
+    k = _randn(rng, (pool, page, kvh, d), bf, dev)
+    v = _randn(rng, (pool, page, kvh, d), bf, dev)
+    bt = torch.from_numpy(rng.permutation(SERVE_SLOTS * maxp)
+                          .reshape(SERVE_SLOTS, maxp).astype(np.int32)) \
+        .to(dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    res = {}
+    for kernel, fn, plain, args in (
+            ("paged", paged_attention, _paged_plain, (q, k, v, bt, ln)),
+            ("flash", flash_attention, flash_attention_ref, tuple(
+                _randn(rng, (1, h, SERVE_MAX_SEQ, d), bf, dev)
+                for h in (qh, kvh, kvh)))):
+        name = f"{kernel}_attention (Scout path shape, bf16)"
+        out, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = _check_close(name, out, ref, bf, SCOUT_ATTN_TOL)
+        share = _limit_share(out, ref, SCOUT_ATTN_TOL)
+        _check_same_bits(name, lambda: fn(*args))
+        r = dict(max_abs_err=err, limit_share=share,
+                 tol=dict(zip(("atol", "rtol"), SCOUT_ATTN_TOL)),
+                 out_rms=float(ref.float().pow(2).mean().sqrt().item()),
+                 ms=time_cuda(lambda: fn(*args), scratch),
+                 plain_ms=time_cuda(lambda: plain(*args), scratch))
+        checked = (f"max err {err:.3g} = {share:.3f} of the limit "
+                   f"{SCOUT_ATTN_TOL[0]:g} + {SCOUT_ATTN_TOL[1]:g} |plain| "
+                   f"(output rms {r['out_rms']:.3g}), two calls same bits")
+        if kernel == "paged":
+            r["bytes_moved"] = sum(lens) * kvh * d * 2 * 2 \
+                + 2 * q.numel() * 2
+            r["bound_ms"] = r["bytes_moved"] / HBM_BYTES_PER_S * 1e3
+            r["bound_by"], r["library_ms"] = "bytes", None
+            r.update(shape=list(q.shape) + list(k.shape), lengths=lens)
+            log(f"[scout] paged_attention, q {tuple(q.shape)} pages "
+                f"{tuple(k.shape)} tables {tuple(bt.shape)} lengths {lens} "
+                f"bf16: {checked}; kernel "
+                f"{r['ms'] * 1e3:.2f} us "
+                f"({r['bytes_moved'] / r['ms'] / 1e6:.0f} GB/s), plain "
+                f"{r['plain_ms'] * 1e3:.2f} us, bound "
+                f"{r['bound_ms'] * 1e3:.2f} us (bytes)")
+        else:
+            fq, fk, fv = args
+            r["library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(
+                fq, fk, fv, is_causal=True, enable_gqa=True), scratch)
+            s = SERVE_MAX_SEQ
+            r["flops"] = 2 * 2 * (s * (s + 1) // 2) * d * qh
+            moved = (2 * fq.numel() + 2 * fk.numel()) * 2
+            # the function's bound: its bf16 products at the card's bf16
+            # tensor-core rate; the design's TF32 passes only beside it
+            r["bound_ms"] = max(r["flops"] / BF16_FLOPS_PER_S,
+                                moved / HBM_BYTES_PER_S) * 1e3
+            r["tf32_design_floor_ms"] = \
+                FLASH_BF16_PASSES * r["flops"] / TF32_FLOPS_PER_S * 1e3
+            r["bound_by"] = "operations"
+            r["shape"] = list(fq.shape) + list(fk.shape)
+            log(f"[scout] flash_attention, q {tuple(fq.shape)} k/v "
+                f"{tuple(fk.shape)} causal bf16: {checked}; kernel "
+                f"{r['ms'] * 1e3:.1f} us "
+                f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+                f"{r['plain_ms'] * 1e3:.1f} us, sdpa "
+                f"{r['library_ms'] * 1e3:.1f} us, bound "
+                f"{r['bound_ms'] * 1e3:.1f} us (operations, "
+                f"{r['flops'] / 1e9:.2f} GFLOP at the bf16 tensor-core "
+                f"rate; the design's {FLASH_BF16_PASSES} TF32 passes per "
+                f"product alone take {r['tf32_design_floor_ms'] * 1e3:.1f} "
+                f"us)")
+        res[kernel] = r
+        del out, ref, args
+    torch.cuda.empty_cache()
+    return res
+
+
+def scout_logits(cfg, params, dev):
+    """Scout's prefill logits with the CUDA attention kernels
+    (``attn_impl="cuda"``) against the same model with the plain versions
+    on the card, with every token's top-1 route recorded in every layer;
+    see SCOUT_LOGIT_TOL.  ``attn_impl="torch"`` takes CPU tensors only, so
+    the plain run swaps the attention module's kernel entry point for the
+    plain function."""
+    from repro_torch.kernels.flash_attention import (flash_attention_chunked,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.ops import CHUNKED_FROM
+    from repro_torch.models import attention as am
+    from repro_torch.models import blocks as bm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.moe import moe_route
+
+    def plain_flash(q, k, v, lengths=None, *, causal=True, impl="auto"):
+        fn = flash_attention_chunked if q.shape[2] >= CHUNKED_FROM \
+            else flash_attention_ref
+        return fn(q, k, v, lengths, causal=causal)
+
+    routes = []
+    moe_apply = bm.moe_apply
+
+    def recorded(p, h, spec, *, hints=False):
+        routes.append(moe_route(p, h.reshape(-1, h.shape[-1]), spec)
+                      .eidx[:, 0])
+        return moe_apply(p, h, spec, hints=hints)
+
+    kcfg = cfg.replace(attn_impl="cuda")
+    rng = np.random.default_rng(14)
+    res = []
+    saved_flash = am.flash_attention
+    bm.moe_apply = recorded
+    try:
+        for plen in (100, 1536):
+            bucket = max(cfg.page_size, 1 << int(np.ceil(np.log2(plen))))
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :plen] = rng.integers(1, cfg.vocab, plen)
+            maxp = bucket // cfg.page_size
+            got = {}
+            for name in ("cuda", "plain"):
+                am.flash_attention = saved_flash if name == "cuda" \
+                    else plain_flash
+                routes.clear()
+                with torch.no_grad():
+                    out = tf.apply_model(params, kcfg, {
+                        "tokens": torch.from_numpy(toks).to(dev),
+                        "caches": tf.init_caches(cfg, 1, maxp, device=dev),
+                        "block_tables": tf.default_block_tables(
+                            cfg, 1, maxp, device=dev),
+                        "lengths": torch.tensor([plen], dtype=torch.int32,
+                                                device=dev)},
+                        mode="prefill")
+                got[name] = (out.logits[0, :plen, :cfg.vocab],
+                             torch.stack(routes)[:, :plen])
+            (a, ra), (b, rb) = got["cuda"], got["plain"]
+            flip = (ra != rb).any(0)
+            diff = (a - b).abs()
+            ok = (diff <= SCOUT_LOGIT_TOL * (1 + b.abs())).all(-1)
+            n_flip, n_bad = int(flip.sum()), int((~ok & ~flip).sum())
+            clean = diff[~flip]
+            r = dict(prompt=plen, bucket=bucket, flipped=n_flip,
+                     max_abs_err_unflipped=float(clean.max())
+                     if clean.numel() else 0.0,
+                     rel_l2_all=float((a - b).norm() / b.norm()),
+                     max_abs_logit=float(b.abs().max()))
+            res.append(r)
+            log(f"[scout] prefill logits, {plen}-token prompt (bucket "
+                f"{bucket}), CUDA kernels vs plain versions on the card: "
+                f"{n_flip} of {plen} positions routed differently in some "
+                f"layer; the others max |diff| "
+                f"{r['max_abs_err_unflipped']:.4g} (tolerance "
+                f"{SCOUT_LOGIT_TOL} (1 + |plain|), max |logit| "
+                f"{r['max_abs_logit']:.2f}); relative L2 over all "
+                f"{r['rel_l2_all']:.3g}")
+            if not bool(torch.isfinite(a).all()) or n_bad \
+                    or n_flip > SCOUT_MAX_FLIP_SHARE * plen:
+                raise AssertionError(
+                    f"scout logits, {plen}-token prompt: {n_bad} unflipped "
+                    f"positions over the tolerance, {n_flip} flipped "
+                    f"routes (at most {SCOUT_MAX_FLIP_SHARE:.0%})")
+            del got, a, b
+    finally:
+        am.flash_attention = saved_flash
+        bm.moe_apply = moe_apply
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_scout(dev):
+    """Llama-4 Scout at full width, 4 of 48 layers: the attention kernels
+    at its shapes, serving under both resolvers, prefill logits of the
+    kernels against the plain versions, and tiara_gather at the serving
+    resolvers' own shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import count_params, tree_leaves
+    full = get_config(SCOUT_ARCH)
+    cfg = full.replace(n_layers=SCOUT_LAYERS)
+    moe = cfg.pattern[0].moe
+    log(f"[scout] reduction: {cfg.n_layers} of {full.n_layers} layers "
+        f"(depth only, every width published), random weights from seed 0")
+    t = time.perf_counter()
+    params = tf.init_params(cfg, device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    n_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    log(f"[scout] {cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {moe.n_experts} experts "
+        f"top-{moe.top_k} of {moe.d_ff_expert} + shared, vocab {cfg.vocab} "
+        f"(padded {cfg.vocab_padded}), {cfg.dtype}, page {cfg.page_size}: "
+        f"{n_params / 1e9:.3f} G params = {n_bytes / 1e9:.2f} GB on the "
+        f"card, drawn there in {time.perf_counter() - t:.1f} s")
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    kern = scout_kernels(cfg, dev, scratch)
+    del scratch
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(13)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, n)))
+               for n in rng.permutation(SCOUT_PLENS)]
+    runs, gathers = serve_both("scout", cfg, params, prompts, SCOUT_NEW,
+                               dev, profile_prompts=[p[:100]
+                                                     for p in prompts])
+    logits = scout_logits(cfg, params, dev)
+    return dict(n_params=n_params, weight_bytes=n_bytes, kernels=kern,
+                runs=runs, logits=logits), gathers
 
 
 def check_kv_slots(kvs, kv, host0, table, blocks, slots, slot_words):
@@ -949,18 +1392,45 @@ def main() -> int:
     if counts["tiara_gather"] < 1:
         raise AssertionError("the endpoint path never launched tiara_gather")
     log(f"[launches] endpoint path: {counts}")
-    # the serving path resets and reads the counts around each resolver's
-    # run; its host run launches no tiara_gather
-    runs, cpu_err = phase_serving(dev)
+    # the serving paths reset and read the counts around each resolver's
+    # run; their host runs launch no tiara_gather
+    runs, cpu_err, tiny_gathers = phase_serving(dev)
+    scout, scout_gathers = phase_scout(dev)
     serving = {k: sum(r["counts"][k] for r in runs.values())
                for k in counts}
-    log(f"[launches] serving path (host + tiara): {serving}")
-    for k in ("paged_attention", "flash_attention"):
-        if serving[k] < 1:
-            raise AssertionError(f"the serving path never launched {k}")
-    kinfo["launches"] = counts["tiara_gather"] + serving["tiara_gather"]
-    paged["launches"] = serving["paged_attention"]
-    flash["launches"] = serving["flash_attention"]
+    scout_counts = {k: sum(r["counts"][k] for r in scout["runs"].values())
+                    for k in counts}
+    log(f"[launches] tiny-lm serving path (host + tiara): {serving}")
+    log(f"[launches] Scout serving path (host + tiara): {scout_counts}")
+    for path in (serving, scout_counts):
+        for k in counts:
+            if path[k] < 1:
+                raise AssertionError(f"a serving path never launched {k}")
+    kinfo["launches"] = counts["tiara_gather"] + serving["tiara_gather"] \
+        + scout_counts["tiara_gather"]
+    paged["launches"] = serving["paged_attention"] \
+        + scout_counts["paged_attention"]
+    flash["launches"] = serving["flash_attention"] \
+        + scout_counts["flash_attention"]
+
+    # tiara_gather at the serving resolvers' own shapes, as recorded
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    shapes = {}
+    for model, rec in (("tiny-lm", tiny_gathers), ("scout", scout_gathers)):
+        for engine, call in sorted(rec.items()):
+            r = shapes[f"{model}, {engine}"] = time_gather_call(call, scratch)
+            log(f"[kernel] tiara_gather at the {model} resolver's shape "
+                f"({engine} engine): {r['n']} window(s) of {r['width']} "
+                f"word(s) over a {r['pool_words']}-word pool"
+                + (", one mask per lane" if r["per_lane_masks"] else "")
+                + f": equal; kernel {r['ms'] * 1e3:.2f} us on the card, "
+                f"{r['host_ms_per_call'] * 1e3:.2f} us of host wall per "
+                f"call, plain {r['plain_ms'] * 1e3:.2f} us, bound "
+                f"{r['bound_ms'] * 1e6:.3f} ns (bytes)")
+    del scratch
+    kinfo["serving_shapes"] = shapes
+    for name, ki in (("paged", paged), ("flash", flash)):
+        ki["scout"] = scout["kernels"][name]
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -970,7 +1440,14 @@ def main() -> int:
                    "wave_engine": ran, "endpoint_launches": counts,
                    "serving": {r: {k: v for k, v in run.items() if k != "out"}
                                for r, run in runs.items()},
-                   "card_vs_cpu_max_abs_err": cpu_err}, f, indent=1)
+                   "card_vs_cpu_max_abs_err": cpu_err,
+                   "scout": {
+                       "n_params": scout["n_params"],
+                       "weight_bytes": scout["weight_bytes"],
+                       "serving": {r: {k: v for k, v in run.items()
+                                       if k != "out"}
+                                   for r, run in scout["runs"].items()},
+                       "logits": scout["logits"]}}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: ki[k] for k in keys}

@@ -1,16 +1,20 @@
 """Architecture configs of the port.
 
 ``get_config(name)`` resolves an ``--arch`` id; each architecture lives in
-its own module with the published numbers.  Only ``tiny-lm`` is ported so
-far: it is the dense attention model the serving engine runs.  The other
-families join with their layers.
+its own module with the published numbers.  Ported so far: the
+decoder-only attention architectures the serving engine runs — ``tiny-lm``,
+the dense models (InternLM2, Granite-3, StableLM-2, Nemotron-4) and the
+Llama-4 MoE models (Scout, Maverick).  The recurrent, hybrid,
+encoder-decoder and vision families join with their layers.
 
-The JAX reference's mesh and compiler knobs (``dp_spec``, ``moe_fn``,
-``moe_hints``, ``remat``, ``remat_unit``, ``scan_layers``) have no
-counterpart here: PyTorch runs eagerly and the port has no mesh yet.
-``paged_attn_fn`` stays as a field because the distributed decode plugs
-in through it; until that slice lands, a value other than ``None`` makes
-the decode raise.
+The JAX reference's mesh and compiler knobs (``dp_spec``, ``remat``,
+``remat_unit``, ``scan_layers``) have no counterpart here: PyTorch runs
+eagerly and the port has no mesh yet.  ``paged_attn_fn`` and ``moe_fn``
+stay as fields because the distributed decode and the expert-parallel MoE
+plug in through them; until that slice lands, a value other than ``None``
+makes the decode or the MoE block raise.  ``moe_hints`` (the reference's
+dispatch sharding constraints) is accepted and has nothing to shard on
+one device.
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ class ArchConfig:
     param_dtype: str = "bfloat16"
     page_size: int = 128          # paged-KV page (tokens)
     paged_attn_fn: Optional[Any] = None   # distributed decode (not ported)
+    moe_hints: bool = False       # dispatch-buffer shardings (no-op here)
+    moe_fn: Optional[Any] = None  # distributed EP MoE (not ported)
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -89,6 +95,12 @@ class ArchConfig:
 
 
 _MODULES = {
+    "internlm2-1.8b": "internlm2_1_8b",
+    "granite-3-8b": "granite_3_8b",
+    "stablelm-1.6b": "stablelm_1_6b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "tiny-lm": "tiny_lm",
 }
 

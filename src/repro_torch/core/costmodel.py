@@ -400,19 +400,22 @@ class EngineCost:
                                + batch * (self.serial_lane_us + coll)))
 
     @classmethod
-    def measured(cls, reps: int = 20, device="cpu") -> "EngineCost":
+    def measured(cls, reps: int = 20, device=None) -> "EngineCost":
         """Measure this host's actual dispatch overhead — one trivial
-        torch launch on ``device`` (the pool's device), synchronized —
-        and replace only ``launch_us`` with it.  The launch-vs-step
-        tradeoff is what the dispatch decisions hinge on (a slow-dispatch
-        host should batch harder and segment less), so only that
-        constant adapts; the step constants keep their calibrated
-        values."""
+        torch launch on ``device`` (the pool's device; the CUDA card
+        unless named, raising with no card and no device named, as every
+        entry point of the port does), synchronized — and replace only
+        ``launch_us`` with it.  The launch-vs-step tradeoff is what the
+        dispatch decisions hinge on (a slow-dispatch host should batch
+        harder and segment less), so only that constant adapts; the step
+        constants keep their calibrated values."""
         import time
 
         import torch
 
-        dev = torch.device(device)
+        from repro_torch.core.vm import resolve_device
+
+        dev = resolve_device(device)
         x = torch.zeros((), device=dev)
 
         def launch():

@@ -42,6 +42,11 @@ shared BRAM — and each request carries an ``op_sel`` slot index; request
 program end and its own verified step bound.  ``build_batched_vm`` is the
 one-program specialization (``op_sel`` pinned to slot 0).
 
+**MEMCPY** reads every lane's source window through the ``tiara_gather``
+kernel's window form (one mask per lane) on a card pool, and through its
+plain version on a CPU pool: one launch per macro-step in which some
+lane copies.
+
 **Memory ownership**: an engine run never mutates its input pool.  It
 copies the pool once into a private flat buffer with one spare *sink*
 word at the end (dead lanes scatter there — torch has no ``mode="drop"``
@@ -78,6 +83,7 @@ from repro_torch.core.isa import (Alu, Op, FLAG_ASYNC, FLAG_DEV_REG,
                                   DEV_LOCAL, ERR_REG)
 from repro_torch.core.memory import RegionTable
 from repro_torch.core.verifier import VerifiedOperator
+from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
 
 _REG_MASK = isa.NUM_REGS - 1
 _I64 = torch.int64
@@ -202,9 +208,20 @@ class _DenseOps:
                           torch.full_like(addr, self.sink))
         memx.index_put_((tgt,), val)
 
-    def readv_win(self, memx, dev, phys):
-        return memx[dev.clamp(0, self.n_dev - 1)[:, None] * self.P
-                    + phys.clamp(0, self.P - 1)]
+    def readv_win(self, memx, dev, base, off, mask, width: int):
+        """Word ``w < width`` of lane ``b``'s window: ``memx[dev[b] * P +
+        base[b] + ((off[b] + w) & mask[b])]`` — the ``tiara_gather``
+        kernel's window form with one mask per lane (each lane copies
+        from its own region) on a card pool, its plain version on a CPU
+        pool.  Masking the offsets keeps every index inside its region,
+        the kernel's precondition; they stay int64, as a region may hold
+        2**31 words or more."""
+        n = int(dev.shape[0])
+        return tiara_gather_window(
+            memx, (off & mask).contiguous(),
+            dev.clamp(0, self.n_dev - 1) * self.P + base,
+            torch.arange(n, dtype=torch.int32, device=memx.device),
+            width=width, mask=mask.contiguous())
 
     def writev_win(self, memx, dev, phys, val, live):
         tgt = torch.where(live, dev[:, None] * self.P + phys,
@@ -464,14 +481,13 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
         # skipped on the (frequent) macro-steps where no live lane is
         # copying: the window machinery materializes (B, max_window)
         if g_mcpy:
-            sphys = base_c[d["m_srid"]][:, None] + \
-                ((d["m_soff"][:, None] + iw_full)
-                 & mask_c[d["m_srid"]][:, None])
             dphys = base_c[d["m_drid"]][:, None] + \
                 ((d["m_doff"][:, None] + iw_full)
                  & mask_c[d["m_drid"]][:, None])
             live = is_mcpy[:, None] & (iw_full < d["ln"][:, None])
-            svals = ops.readv_win(memx, d["m_sdev"], sphys)
+            svals = ops.readv_win(memx, d["m_sdev"], base_c[d["m_srid"]],
+                                  d["m_soff"], mask_c[d["m_srid"]],
+                                  max_window)
             ops.writev_win(memx, d["m_ddev"], dphys, svals, live)
 
         # --- inflight ------------------------------------------------

@@ -4,11 +4,13 @@ One kernel (``csrc/tiara_gather.cu``) serves two forms of the
 double-indirection gather:
 
 * :func:`tiara_gather_kernel` — ``out[i] = pool[table[ids[i]]]`` for
-  ``pool (N, R)``, ``table (T,)`` int32 and ``ids (n,)`` int32;
+  ``pool (N, R)``, ``table (T,)`` int32 or int64 and ``ids (n,)`` int32;
 * :func:`tiara_gather_window_kernel` — ``out[i, w] = pool[bases[id] +
   ((table[id] + w) & mask)]`` with ``id = ids[i]`` over a flat pool, the
-  compiled gather chain's memcpy (any word alignment, wrapping inside the
-  region as the interpreter does).
+  memcpy of the compiled gather chain and of the lockstep engine (any
+  word alignment, wrapping inside the region as the interpreter does);
+  ``mask`` is one int, or a tensor shaped like ``table`` with one mask
+  per entry (the lockstep engine's lanes copy from different regions).
 
 The kernel replaces the Pallas TPU kernel ``tiara_gather_kernel``
 (``src/repro/kernels/tiara_gather/kernel.py``); see the source for its
@@ -22,7 +24,7 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -36,17 +38,19 @@ _DTYPES = (torch.int64, torch.float32, torch.bfloat16, torch.int32)
 def _launcher():
     fn = _build.load().tiara_gather_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_int64, ctypes.c_void_p]
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check(pool: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
-           bases: Optional[torch.Tensor]) -> None:
-    ts = [pool, table, ids] + ([] if bases is None else [bases])
+           bases: Optional[torch.Tensor],
+           masks: Optional[torch.Tensor] = None) -> None:
+    ts = [pool, table, ids] + [t for t in (bases, masks) if t is not None]
     if not all(t.is_cuda for t in ts):
         raise ValueError("tiara_gather_kernel needs CUDA tensors")
     if any(t.device != pool.device for t in ts):
@@ -56,16 +60,20 @@ def _check(pool: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
     if table.dim() != 1 or ids.dim() != 1:
         raise ValueError(f"expected table (T,) and ids (n,); got "
                          f"{tuple(table.shape)}, {tuple(ids.shape)}")
-    if table.dtype != torch.int32 or ids.dtype != torch.int32:
-        raise ValueError("table and ids must be int32")
+    if table.dtype not in (torch.int32, torch.int64) \
+            or ids.dtype != torch.int32:
+        raise ValueError("table must be int32 or int64 and ids int32")
     if bases is not None and (bases.dtype != torch.int64
                               or bases.shape != table.shape):
         raise ValueError("bases must be int64 and shaped like table")
+    if masks is not None and (masks.dtype != torch.int64
+                              or masks.shape != table.shape):
+        raise ValueError("masks must be int64 and shaped like table")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("tiara_gather operands must be contiguous")
 
 
-def _launch(pool, table, ids, bases, *, width: int, stride: int,
+def _launch(pool, table, ids, bases, masks, *, width: int, stride: int,
             mask: int) -> torch.Tensor:
     global LAUNCHES
     n = int(ids.shape[0])
@@ -75,8 +83,10 @@ def _launch(pool, table, ids, bases, *, width: int, stride: int,
     launch = _launcher()
     with torch.cuda.device(pool.device):
         stream = torch.cuda.current_stream(pool.device).cuda_stream
-        err = launch(pool.data_ptr(), table.data_ptr(), ids.data_ptr(),
+        err = launch(pool.data_ptr(), table.data_ptr(),
+                     table.element_size(), ids.data_ptr(),
                      None if bases is None else bases.data_ptr(),
+                     None if masks is None else masks.data_ptr(),
                      out.data_ptr(), n, width, stride, mask,
                      pool.element_size(), stream)
     if err != 0:
@@ -94,19 +104,24 @@ def tiara_gather_kernel(pool: torch.Tensor, table: torch.Tensor,
     if pool.dim() != 2:
         raise ValueError(f"expected pool (N, R); got {tuple(pool.shape)}")
     R = int(pool.shape[1])
-    return _launch(pool, table, ids, None, width=R, stride=R, mask=-1)
+    return _launch(pool, table, ids, None, None, width=R, stride=R,
+                   mask=-1)
 
 
 def tiara_gather_window_kernel(pool: torch.Tensor, table: torch.Tensor,
                                bases: torch.Tensor, ids: torch.Tensor, *,
-                               width: int, mask: int) -> torch.Tensor:
+                               width: int, mask: Union[int, torch.Tensor]
+                               ) -> torch.Tensor:
     """Window gather on CUDA tensors: ``out[i, w] = pool[bases[id] +
-    ((table[id] + w) & mask)]``, ``id = ids[i]``, ``w < width``; returns
-    ``(n, width)``.  ``pool`` is flat; every index must lie in it."""
-    _check(pool, table, ids, bases)
+    ((table[id] + w) & mask)]``, ``id = ids[i]``, ``w < width``, with
+    ``mask`` one int or ``mask[id]`` from an int64 tensor shaped like
+    ``table``; returns ``(n, width)``.  ``pool`` is flat; every index must
+    lie in it, and every mask must be non-negative."""
+    masks = mask if isinstance(mask, torch.Tensor) else None
+    _check(pool, table, ids, bases, masks)
     if pool.dim() != 1:
         raise ValueError(f"expected a flat pool; got {tuple(pool.shape)}")
-    if width < 0 or mask < 0:
+    if width < 0 or (masks is None and mask < 0):
         raise ValueError("width and mask must be non-negative")
-    return _launch(pool, table, ids, bases, width=int(width), stride=1,
-                   mask=int(mask))
+    return _launch(pool, table, ids, bases, masks, width=int(width),
+                   stride=1, mask=0 if masks is not None else int(mask))

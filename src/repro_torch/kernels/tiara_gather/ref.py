@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 
@@ -12,7 +14,10 @@ def tiara_gather_ref(pool: torch.Tensor, table: torch.Tensor,
 
 def tiara_gather_window_ref(pool: torch.Tensor, table: torch.Tensor,
                             bases: torch.Tensor, ids: torch.Tensor, *,
-                            width: int, mask: int) -> torch.Tensor:
+                            width: int, mask: Union[int, torch.Tensor]
+                            ) -> torch.Tensor:
     i = ids.long()
     w = torch.arange(width, dtype=torch.int64, device=pool.device)
+    if isinstance(mask, torch.Tensor):
+        mask = mask[i][:, None]
     return pool[bases[i][:, None] + ((table.long()[i][:, None] + w) & mask)]

@@ -1,10 +1,11 @@
 """Layer blocks: norm + mixer + norm + FFN.
 
 The reference's ``block_defs``/``block_apply`` pair covers every assigned
-architecture.  The port has the attention mixer with a dense MLP so far —
-what ``tiny-lm`` runs; the other branches raise until the slice that
-ports the other model families (mamba, rwkv, moe) or the encoder-decoder
-path (cross attention).
+architecture.  The port has the attention mixer with a dense MLP or a
+mixture of experts so far — what ``tiny-lm``, the dense decoder-only
+configs and the Llama-4 MoE models run; the other branches raise until the
+slice that ports the recurrent families (mamba, rwkv) or the
+encoder-decoder path (cross attention).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from repro_torch.configs import ArchConfig, LayerSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import PagedKV
 from repro_torch.models.layers import apply_norm, mlp, mlp_defs, norm_defs
+from repro_torch.models.moe import moe_apply, moe_defs
 
 _LATER = "comes with the port's slice of the other model families"
 
@@ -31,13 +33,14 @@ def block_defs(cfg: ArchConfig, spec: LayerSpec, *, cross: bool = False):
         raise _unported(f"the {spec.kind!r} mixer")
     if cross:
         raise _unported("cross attention (encoder-decoder)")
-    if spec.mlp in ("moe", "rwkv_cm"):
+    if spec.mlp == "rwkv_cm":
         raise _unported(f"the {spec.mlp!r} FFN")
     return {"norm1": norm_defs(cfg.norm, d),
             "mix": attn_mod.attn_defs(d, cfg.n_heads, cfg.n_kv_heads,
                                       cfg.head_dim),
             "norm2": norm_defs(cfg.norm, d),
-            "ffn": mlp_defs(d, cfg.d_ff, spec.mlp)}
+            "ffn": moe_defs(d, spec.moe) if spec.mlp == "moe"
+            else mlp_defs(d, cfg.d_ff, spec.mlp)}
 
 
 class BlockCache(NamedTuple):
@@ -68,8 +71,12 @@ def block_apply(params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
         raise _unported(f"the {spec.kind!r} mixer")
     if "cross" in params:
         raise _unported("cross attention (encoder-decoder)")
-    if spec.mlp in ("moe", "rwkv_cm"):
+    if spec.mlp == "rwkv_cm":
         raise _unported(f"the {spec.mlp!r} FFN")
+    if spec.mlp == "moe" and cfg.moe_fn is not None:
+        raise NotImplementedError(
+            "the distributed expert-parallel MoE (cfg.moe_fn) comes with "
+            "the port's distributed slice")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = cache
     h = apply_norm(cfg.norm, params["norm1"], x)
@@ -88,5 +95,10 @@ def block_apply(params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
                 cache.paged, k, v, ctx["block_tables"]))
     x = x + out
     h = apply_norm(cfg.norm, params["norm2"], x)
-    x = x + mlp(params["ffn"], h, spec.mlp)
+    if spec.mlp == "moe":
+        out, aux = moe_apply(params["ffn"], h, spec.moe,
+                             hints=cfg.moe_hints)
+    else:
+        out = mlp(params["ffn"], h, spec.mlp)
+    x = x + out
     return x, new_cache, aux

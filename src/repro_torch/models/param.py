@@ -37,9 +37,11 @@ class ParamDef:
             fan = self.fan_in if self.fan_in is not None else (
                 self.shape[-2] if len(self.shape) >= 2 else self.shape[-1])
             scale = fan ** -0.5
-        return (torch.randn(self.shape, generator=generator,
-                            dtype=torch.float32, device=dev)
-                * scale).to(dtype)
+        # scaled in place: one f32 buffer at a time (a full-width
+        # expert stack is gigabytes)
+        return torch.randn(self.shape, generator=generator,
+                           dtype=torch.float32, device=dev) \
+            .mul_(scale).to(dtype)
 
 
 def is_def(x) -> bool:

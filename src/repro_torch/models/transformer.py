@@ -1,4 +1,4 @@
-"""Pattern-stacked transformer (the dense decoder-only path so far).
+"""Pattern-stacked transformer (the decoder-only path: dense and MoE).
 
 The reference stacks the repeating layer pattern per pattern element and
 runs one ``lax.scan`` over repetitions.  The port keeps the stacked
@@ -33,7 +33,9 @@ from repro_torch.models.layers import (apply_norm, embed, embed_defs,
 from repro_torch.models.param import materialize, stack_defs, tree_map
 
 
-def _dtype(name: str) -> torch.dtype:
+def model_dtype(name: str) -> torch.dtype:
+    """A config's dtype name (``cfg.dtype``, ``cfg.param_dtype``) as a
+    torch dtype."""
     return getattr(torch, name)
 
 
@@ -51,13 +53,19 @@ def model_defs(cfg: ArchConfig):
     }
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None):
-    """Random weights from a ``torch.Generator`` seeded with ``seed``,
-    drawn on the CPU (the same values whatever the device) and moved to
-    ``device``."""
-    gen = torch.Generator().manual_seed(int(seed))
+def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
+                generator: Optional[torch.Generator] = None):
+    """Random weights, drawn leaf by leaf in tree order and moved to
+    ``device``.  By default they come from a CPU ``torch.Generator``
+    seeded with ``seed``: the same values whatever the device.  A caller
+    may pass its own seeded ``generator`` instead (``seed`` is then
+    unused), for example one on the card, which draws a full-width model
+    there without a pass through host memory; its values are that
+    generator's."""
+    gen = generator if generator is not None \
+        else torch.Generator().manual_seed(int(seed))
     params = materialize(model_defs(cfg), gen,
-                         dtype or _dtype(cfg.param_dtype))
+                         dtype or model_dtype(cfg.param_dtype))
     return tree_map(lambda a: a.to(device), params) if device is not None \
         else params
 
@@ -73,7 +81,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_pages: int, *,
     leading ``n_repeat`` dim.  The paged pool gives each (layer, sequence)
     its own pages: ``n_pages`` defaults to ``batch * max_pages`` (the
     serving engine asks for one scratch page more)."""
-    dtype = dtype or _dtype(cfg.dtype)
+    dtype = dtype or model_dtype(cfg.dtype)
     pool = batch * max_pages if n_pages is None else int(n_pages)
     caches = []
     for spec in cfg.pattern:
@@ -122,7 +130,7 @@ def apply_model(params, cfg: ArchConfig, batch: Dict[str, Any], *,
         raise NotImplementedError(
             "encoder-decoder models come with the port's slice of the "
             "other model families")
-    dtype = _dtype(cfg.dtype)
+    dtype = model_dtype(cfg.dtype)
     x = embed(params["embed"], batch["tokens"], dtype)
     if batch.get("embeds") is not None:
         x = x + batch["embeds"].to(dtype)

@@ -30,9 +30,10 @@ once per layer, and under ``resolver="tiara"`` every step's block-table
 resolution runs an endpoint wave whose MEMCPYs read through
 ``tiara_gather``.
 The KV pools are updated in place.  f32 matmuls on the card must stay
-full f32, as on the reference's CPU: the engine refuses to run on a card
-with ``torch.backends.cuda.matmul.allow_tf32`` set (PyTorch's default is
-off).
+full f32, as on the reference's CPU: the engine refuses to run an f32
+model on a card with ``torch.backends.cuda.matmul.allow_tf32`` set
+(PyTorch's default is off); the flag does not touch a bf16 model's
+products.
 """
 
 from __future__ import annotations
@@ -153,7 +154,9 @@ class ServingEngine:
             "engine serves decoder-only attention archs"
         self.device = resolve_device(device)
         if self.device.type == "cuda" and \
-                torch.backends.cuda.matmul.allow_tf32:
+                torch.backends.cuda.matmul.allow_tf32 and \
+                torch.float32 in (tf.model_dtype(cfg.dtype),
+                                  tf.model_dtype(cfg.param_dtype)):
             raise ValueError(
                 "torch.backends.cuda.matmul.allow_tf32 is set: f32 matmuls "
                 "would round to TF32; the engine keeps them full f32")

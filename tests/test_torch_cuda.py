@@ -79,6 +79,52 @@ def test_cuda_window_kernel_matches_plain(cuda_device, dtype, width, mask):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float32])
+def test_cuda_window_kernel_per_entry_masks_matches_plain(cuda_device,
+                                                          dtype):
+    """The lockstep engine's form: one mask per entry."""
+    rng = np.random.default_rng(21)
+    pool = torch.from_numpy(rng.integers(0, 1 << 30, 200)) \
+        .to(cuda_device, dtype)
+    masks = torch.tensor([15, 3, 63, 7, 0, 31], device=cuda_device)
+    bases = torch.tensor([0, 16, 20, 84, 92, 100], device=cuda_device)
+    table = (torch.from_numpy(rng.integers(0, 1 << 20, 6))
+             .to(cuda_device) & masks).to(torch.int32)
+    table[0] = 14                           # wraps in its region
+    ids = torch.tensor([0, 5, 1, 2, 4, 3, 0], dtype=torch.int32,
+                       device=cuda_device)
+    for width in (1, 5):
+        out = tiara_gather_window(pool, table, bases, ids, width=width,
+                                  mask=masks)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tiara_gather_window_ref(
+            pool, table, bases, ids, width=width, mask=masks))
+
+
+@pytest.mark.gpu
+def test_cuda_window_kernel_int64_offsets_past_2_31(cuda_device):
+    """int64 offsets in a region of 2**32 words (a bf16 pool of 8 GiB):
+    one window past word 2**31 and one that wraps at the region's end."""
+    n = 1 << 32
+    pool = torch.zeros(n, dtype=torch.bfloat16, device=cuda_device)
+    pool[:4] = torch.arange(1, 5, device=cuda_device)
+    pool[n - 4:] = torch.arange(5, 9, device=cuda_device)
+    pool[(1 << 31) + 5:(1 << 31) + 9] = torch.arange(9, 13,
+                                                     device=cuda_device)
+    table = torch.tensor([(1 << 31) + 5, n - 2], device=cuda_device)
+    masks = torch.full((2,), n - 1, device=cuda_device)
+    bases = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    ids = torch.tensor([0, 1], dtype=torch.int32, device=cuda_device)
+    for mask in (masks, n - 1):
+        out = tiara_gather_window(pool, table, bases, ids, width=4,
+                                  mask=mask)
+        torch.cuda.synchronize()
+        assert out.float().tolist() == [[9, 10, 11, 12], [7, 8, 1, 2]]
+    del pool
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("double_buffer", [False, True])
 def test_cuda_gather_chain_unaligned_matches_pyvm(cuda_device,
                                                   double_buffer):
@@ -128,6 +174,7 @@ def _randn(rng, shape, dtype, device):
     (1, 7, 1, 16, 4, 4, 2),      # MQA, G = 7
     (2, 4, 2, 128, 8, 16, 4),    # head_dim 128
     (3, 12, 4, 64, 40, 16, 9),   # tiny-lm's heads, lengths past one chunk
+    (3, 10, 2, 128, 8, 128, 3),  # Llama-4 Scout's G = 5, D = 128, page 128
 ])
 def test_cuda_paged_attention_matches_plain(cuda_device, dtype, b, qh, kvh,
                                             d, pages, page, maxp):
@@ -163,6 +210,7 @@ def test_cuda_paged_attention_matches_plain(cuda_device, dtype, b, qh, kvh,
     (2, 6, 2, 96, 16),
     (1, 4, 2, 200, 128),         # ragged: 200 is no multiple of the tile
     (2, 3, 1, 37, 64),
+    (1, 10, 2, 150, 128),        # Llama-4 Scout's G = 5, D = 128
 ])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype, causal, b,
                                             qh, kvh, s, d):
@@ -370,3 +418,69 @@ def test_cuda_engine_tiara_matches_host(cuda_device):
     assert outs["tiara"] == outs["host"]
     assert counts["host"]["tiara_gather"] == 0
     assert counts["tiara"]["tiara_gather"] >= 1
+
+
+@pytest.mark.gpu
+def test_cuda_moe_engine_tiara_matches_host(cuda_device):
+    """Reduced Llama-4 Scout on the card: greedy tokens under
+    resolver="tiara" equal resolver="host"; the tiara resolver's waves,
+    which also resolve expert routes, launch tiara_gather."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    cfg = reduce_config(get_config("llama4-scout-17b-a16e"))
+    params = tf.init_params(cfg, seed=0, device=cuda_device)
+    rng = np.random.default_rng(4)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, 4 + 9 * i)))
+               for i in range(3)]
+    outs, counts = {}, {}
+    for resolver in ("host", "tiara"):
+        eng = ServingEngine(cfg, params, max_slots=2, max_seq=64, eos_id=-1,
+                            temperature=0.0, resolver=resolver,
+                            device=cuda_device)
+        kernels.reset_launch_counts()
+        hs = [eng.submit(p, max_new=4) for p in prompts]
+        outs[resolver] = eng.run_to_completion()
+        torch.cuda.synchronize()
+        counts[resolver] = kernels.launch_counts()
+        assert all(h.ok for h in hs)
+    assert outs["tiara"] == outs["host"]
+    assert counts["host"]["tiara_gather"] == 0
+    assert counts["tiara"]["tiara_gather"] >= 1
+    assert eng.resolver.moe is not None
+    assert eng.resolver.loop.stats.executed > 0
+
+
+@pytest.mark.gpu
+def test_cuda_engine_cost_measured_defaults_to_the_card(cuda_device,
+                                                        monkeypatch):
+    """With no device named, EngineCost.measured times a launch on the
+    card (it synchronizes the card after every launch)."""
+    from repro_torch.core.costmodel import EngineCost
+    synced = []
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: synced.append(d) or sync(d))
+    cost = EngineCost.measured(reps=3)
+    assert cost.launch_us >= 1.0
+    assert len(synced) == 4 and all(torch.device(d).type == "cuda"
+                                    for d in synced)
+
+
+@pytest.mark.gpu
+def test_cuda_engine_tf32_guard_applies_to_f32_only(cuda_device,
+                                                    monkeypatch):
+    """With TF32 matmuls allowed, the engine refuses an f32 model (its
+    products would round to TF32) and serves a bf16 one, whose products
+    the flag does not touch."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    cfg = reduce_config(get_config("llama4-scout-17b-a16e"))
+    with pytest.raises(ValueError, match="allow_tf32"):
+        ServingEngine(cfg, tf.init_params(cfg, seed=0), device=cuda_device)
+    cfg = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+    eng = ServingEngine(cfg, tf.init_params(cfg, seed=0), max_slots=2,
+                        max_seq=64, eos_id=-1, device=cuda_device)
+    assert len(eng.submit([1, 2, 3], max_new=2).result()) == 2

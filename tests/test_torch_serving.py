@@ -148,6 +148,17 @@ def test_engine_needs_a_device(tiny, monkeypatch):
         ServingEngine(cfg, params)
 
 
+def test_engine_cost_measured_needs_a_device(monkeypatch):
+    """EngineCost.measured times a launch on the card unless a device is
+    named: with no card and no device named it raises, as every entry
+    point of the port does; named, it runs there."""
+    from repro_torch.core.costmodel import EngineCost
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineCost.measured()
+    assert EngineCost.measured(reps=2, device="cpu").launch_us >= 1.0
+
+
 def test_finished_slot_parks_on_scratch_page(tiny):
     """A finished sequence's slot goes back to length 0 and the scratch
     page, where the batched decode's inactive writes land."""

@@ -136,6 +136,41 @@ def test_window_gather_matches_word_loop(width, mask):
     assert np.array_equal(out.numpy(), want)
 
 
+def test_window_gather_per_entry_masks_match_word_loop():
+    """The lockstep engine's form: each entry in its own region, so each
+    has its own mask (wrapping lanes included)."""
+    rng = np.random.default_rng(4)
+    pool = rng.integers(-(1 << 62), 1 << 62, 200)
+    masks = np.array([15, 3, 63, 7, 0, 31])
+    bases = np.array([0, 16, 20, 84, 92, 100])
+    table = (rng.integers(0, 1 << 20, 6) & masks).astype(np.int32)
+    table[0] = 14                            # wraps in its 16-word region
+    ids = np.array([0, 5, 1, 2, 4, 3, 0], np.int32)
+    width = 5
+    want = np.array([[pool[bases[i] + ((table[i] + w) & masks[i])]
+                      for w in range(width)] for i in ids])
+    out = tiara_gather_window(torch.from_numpy(pool),
+                              torch.from_numpy(table),
+                              torch.from_numpy(bases), torch.from_numpy(ids),
+                              width=width, mask=torch.from_numpy(masks))
+    assert np.array_equal(out.numpy(), want)
+
+
+def test_lockstep_memcpy_keeps_offsets_past_2_31():
+    """The lockstep engine's MEMCPY read keeps its masked offsets int64,
+    so a region of 2**31 words or more reads the right words.  A base
+    below 0 lets a 64-word pool stand for a region of 2**32 words: only
+    the index arithmetic is under test."""
+    from repro_torch.core.vm import _DenseOps
+    memx = torch.arange(100, 164, dtype=torch.int64)
+    ops = _DenseOps(1, 64)
+    out = ops.readv_win(memx, torch.tensor([0, 0]),
+                        torch.tensor([-(1 << 31), 0]),
+                        torch.tensor([(1 << 32) + (1 << 31) + 3, 61]),
+                        torch.tensor([(1 << 32) - 1, 63]), 4)
+    assert out.tolist() == [[103, 104, 105, 106], [161, 162, 163, 100]]
+
+
 def test_window_gather_row_form_agrees():
     """With aligned offsets and no wrap the window form is the row form."""
     rng = np.random.default_rng(9)
