@@ -18,7 +18,14 @@ kernel against its plain PyTorch version on the card:
   expert, vocab 202048, bf16, page 128) with the depth cut to 4 of 48
   layers: 21.8 GB of random bf16 weights drawn on the card from seed 0;
   under ``resolver="tiara"`` every decode step also resolves each slot's
-  expert route through ``MoEExpertGather``.
+  expert route through ``MoEExpertGather``;
+* the recurrent families through the model's own entry points
+  (``tf.init_caches``, ``tf.prefill``, ``tf.decode_step``; the serving
+  engine, like the reference's, serves attention-only decoders): Jamba
+  v0.1 at its published widths (d_model 4096, 32/8 heads of 128, no RoPE,
+  Mamba d_inner 8192, 16 experts top-2 of 14336 at capacity factor 1.25,
+  vocab 65536, bf16, page 128) cut to one period, 8 of 32 layers (26.6 GB
+  of weights drawn on the card from seed 0), and RWKV-6 1.6B whole.
 
 Phases:
 
@@ -59,7 +66,25 @@ Phases:
    under host, expert gathers executed; the prefill logits of the CUDA
    kernels against the plain versions on the card, position by position
    (see ``SCOUT_LOGIT_TOL``); then ``tiara_gather`` timed at the shapes
-   the two serving resolvers gave it.
+   the two serving resolvers gave it;
+7. Jamba, after Scout's weights are freed: both attention kernels at its
+   bf16 path shapes against their plain versions (within
+   ``SCOUT_ATTN_TOL``), timed with their bounds and SDPA; 8 greedy
+   requests (prompts 16..1024) right-padded into one ``tf.prefill`` with
+   ``lengths``, then 16 ``tf.decode_step``s: prefill wall, decode-step
+   times, tokens/s, ``flash_attention`` once per prefill and
+   ``paged_attention`` once per decode step (one attention layer in
+   eight), the real tokens the capacity factor dropped, one profiled
+   decode step, peak memory; check (a), the decode logits against the
+   full forward over prompt plus token, and check (b), the prefill
+   logits of the CUDA kernels against the plain versions, both per
+   position within ``RECURRENT_LOGIT_TOL`` with the MoE's expert choices
+   pinned from one run into the other;
+8. RWKV-6 1.6B whole, the same requests and steps (no kernel on this
+   path) and check (a);
+9. the cycle simulator over ``Session.trace`` of a depth-10 graph walk
+   registered on a card endpoint: simulated cycles of the paper's machine
+   model, not card numbers.
 
 Any failure raises and the script exits non-zero.  It prints, before the
 last line, the card's name and power limit and one JSON object with each
@@ -78,6 +103,8 @@ this checkout's), one JSON line per shape: run it on two trees in turns
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -149,6 +176,46 @@ SCOUT_PLENS = tuple(int(n) for n in np.round(np.geomspace(16, 1536, 8)))
 # with a flipped route are counted and may be at most 5% of the prompt.
 SCOUT_LOGIT_TOL = 2 ** -3
 SCOUT_MAX_FLIP_SHARE = 0.05
+# Jamba v0.1 at its published widths (d_model 4096, 32/8 heads of 128, no
+# RoPE, Mamba d_inner 8192 / d_state 16 / d_conv 4, 16 experts top-2 of
+# 14336 at capacity factor 1.25 on every second layer, vocab 65536, bf16,
+# page 128), depth cut to one period, 8 of 32 layers (13.295 G params,
+# 26.59 GB); RWKV-6 1.6B whole (24 layers, d_model 2048, 32 heads of 64,
+# d_ff 7168, vocab 65536, bf16; 1.584 G params).  Each runs 8 greedy
+# requests with prompts of 16..1024 tokens, right-padded in one tf.prefill
+# with lengths, then RECURRENT_STEPS tf.decode_steps.
+JAMBA_ARCH, JAMBA_LAYERS, RWKV_ARCH = "jamba-v0.1-52b", 8, "rwkv6-1.6b"
+RECURRENT_PLENS = tuple(int(n) for n in np.round(np.geomspace(16, 1024, 8)))
+RECURRENT_STEPS = 16
+# Checks (a) and (b) of both models hold each position's logit vector in
+# norm: ||got - want|| <= RECURRENT_LOGIT_TOL ||want||.  bf16 keeps 8
+# significant bits: every product, cast and residual add rounds at 2**-9
+# relative, and once two correct runs differ anywhere (cuBLAS picks its
+# algorithm by shape; a kernel and its plain version differ by an ulp of
+# their bf16 output) each later rounding may differ by an ulp too — a
+# random walk over the twenty-odd rounding points of each of 8 (Jamba) or
+# 24 (RWKV-6) layers, which the Mamba and RWKV states then mix across
+# positions.  Its size was 2.3% of the logits' norm over Jamba's 2266
+# prefill positions (PERF.md, PR 15).  An elementwise bound like
+# SCOUT_LOGIT_TOL's would sit in the tail of that noise: over 148 M
+# logits its largest value, 0.21 at a logit of 0.17, is six standard
+# deviations out.  The norm averages a position's 65536 logits, and a
+# lost state, a misplaced cache row or a dropped key tile moves the
+# positions it touches by O(1) of it.  Where a token's second and third
+# router logits are within such a difference its top-2 route may differ,
+# which makes its FFN another function: the MoE checks pin one run's
+# expert choices in the other (see ``_Routes``) and count how many it
+# changed, so no position is excused.
+RECURRENT_LOGIT_TOL = 2 ** -3
+# Check (a) compares a prefill of 8 x 1024 tokens (padding included) with a
+# full forward of 8 x 1025: at capacity factor 1.25 the two batches fill
+# the experts' capacity in another flat order and drop other tokens, so a
+# dropped prompt token would differ for that reason alone.  The check
+# runs, as the reference's test_prefill_decode_matches_full_forward does
+# (its reduce_config sets capacity factor 8), at capacity factor
+# n_experts / top_k = 8, where the capacity is every token; the timed run
+# and check (b) keep the published 1.25.
+JAMBA_CHECK_CF = 8.0
 # flash_attention in bf16 issues two TF32 passes per product (bf16 K and V
 # are exact in TF32, so their small parts are 0 and those passes skipped):
 # the design's own floor, printed beside the function's bound (the bf16
@@ -928,25 +995,20 @@ def time_gather_call(call, scratch, reps: int = 200):
                 bound_ms=moved / HBM_BYTES_PER_S * 1e3)
 
 
-def profile_step(eng, prompts, top: int = 6):
-    """Device time by kernel over one decode step of ``eng`` with every
-    slot busy, from ``torch.profiler``: the step's host wall, the device
-    time of every kernel it ran (busy share = their sum over the wall)
-    and the ``top`` kernels by time.  The requests are admitted and
-    prefilled by an unprofiled step first and drained afterwards."""
+def _profiled(fn, top: int = 6):
+    """Device time by kernel over one call of ``fn`` from
+    ``torch.profiler``: the call's host wall, the device time of every
+    kernel it ran (busy share = their sum over the wall) and the ``top``
+    kernels by time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for p in prompts:
-        eng.submit(p, max_new=3)
-    eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        eng.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    eng.run_to_completion()
     kern = sorted(((e.key, e.device_time_total / 1e3, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
@@ -957,6 +1019,18 @@ def profile_step(eng, prompts, top: int = 6):
                 kernel_launches=sum(n for _, _, n in kern),
                 top=[dict(kernel=k[:90], ms=ms, count=n)
                      for k, ms, n in kern[:top]])
+
+
+def profile_step(eng, prompts):
+    """One decode step of ``eng`` with every slot busy, under
+    ``_profiled``.  The requests are admitted and prefilled by an
+    unprofiled step first and drained afterwards."""
+    for p in prompts:
+        eng.submit(p, max_new=3)
+    eng.step()
+    prof = _profiled(eng.step)
+    eng.run_to_completion()
+    return prof
 
 
 def scout_kernels(cfg, dev, scratch):
@@ -1178,6 +1252,585 @@ def phase_scout(dev):
                 runs=runs, logits=logits), gathers
 
 
+class _Routes:
+    """Records the expert choice (``moe_route``'s ``eidx``) of every MoE
+    call in order; with ``pin`` set — ``pin(call index, own eidx) ->
+    eidx`` — each call takes the given experts instead, its gates the
+    router's own probabilities at them renormalised, as ``moe_route``
+    computes them.  In bf16 two correct runs may round a token's second
+    and third router logits into another order; pinning one run's choices
+    in the other makes the two compute the same function, so their
+    logits differ by rounding only.  The calls a pinned run would have
+    routed otherwise are counted (``flipped``)."""
+
+    def __init__(self):
+        self.own, self.pin = [], None
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._orig = moe, moe.moe_route
+        orig = self._orig
+
+        def route(params, xf, spec):
+            r = orig(params, xf, spec)
+            self.own.append(r.eidx)
+            if self.pin is not None:
+                e = self.pin(len(self.own) - 1, r.eidx)
+                g = r.probs.gather(1, e)
+                g = g / g.sum(-1, keepdim=True).clamp_min(1e-9)
+                r = moe.Route(r.logits, r.probs, g, e)
+            return r
+        moe.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_route = self._orig
+
+
+def _route_sets(eidx):
+    """(T, K) expert ids as sorted rows: the same experts in another
+    order are the same choice."""
+    return eidx.sort(-1).values
+
+
+def _dropped_real(eidx, cap, real):
+    """Assignments past ``cap`` in the reference's flat (token, k) order
+    (``models/moe.py``), counted at the real (unpadded) tokens."""
+    e = eidx.reshape(-1)
+    oh = torch.nn.functional.one_hot(e, int(e.max()) + 1)
+    pos = ((oh.cumsum(0) - oh) * oh).sum(-1).reshape(eidx.shape)
+    return int(((pos >= cap) & real[:, None]).sum())
+
+
+def _pad(prompts, width, dev):
+    toks = np.zeros((len(prompts), width), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    return torch.from_numpy(toks).to(dev)
+
+
+class _ScanTimer:
+    """Device time of the recurrent scans (``models/mamba.py`` and
+    ``models/rwkv.py``'s ``_scan``): CUDA events around every call, read
+    after the run, so the timing adds no sync inside it."""
+
+    def __enter__(self):
+        from repro_torch.models import mamba, rwkv
+        self.events, self._saved = [], []
+        for mod in (mamba, rwkv):
+            fn = mod._scan
+            self._saved.append((mod, fn))
+
+            def timed(*args, _fn=fn):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = _fn(*args)
+                b.record()
+                self.events.append((a, b))
+                return out
+            mod._scan = timed
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self._saved:
+            mod._scan = fn
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def scan_cost(cfg, params, prompts, dev):
+    """The scans' share of one more prefill and decode step (outside the
+    counted main path): their device time from ``_ScanTimer`` beside the
+    wall of the same prefill and step."""
+    from repro_torch.models import transformer as tf
+    b, plens = len(prompts), [len(p) for p in prompts]
+    s = max(plens)
+    maxp = -(-(s + 1) // cfg.page_size)
+    caches = tf.init_caches(cfg, b, maxp, device=dev)
+    bt = tf.default_block_tables(cfg, b, maxp, device=dev)
+    lengths = torch.tensor(plens, dtype=torch.int32, device=dev)
+    r = {}
+    with torch.no_grad():
+        for mode, batch in (
+                ("prefill", dict(tokens=_pad(prompts, s, dev))),
+                ("decode", dict(tokens=torch.tensor(
+                    [[p[-1]] for p in prompts], device=dev)))):
+            torch.cuda.synchronize()
+            with _ScanTimer() as timer:
+                t = time.perf_counter()
+                tf.apply_model(params, cfg, dict(
+                    batch, caches=caches, block_tables=bt, lengths=lengths),
+                    mode=mode)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+            r[mode] = dict(wall_ms=wall, scan_ms=timer.ms(),
+                           scan_calls=len(timer.events))
+    return r
+
+
+def recurrent_run(tag, cfg, params, prompts, dev):
+    """The model's main path as a user drives it: ``tf.init_caches``, the
+    prompts right-padded into one ``tf.prefill`` with ``lengths``, then
+    RECURRENT_STEPS greedy ``tf.decode_step``s, each ended by
+    ``torch.cuda.synchronize()``.  Fails unless every logit is finite,
+    ``flash_attention`` launched once per attention layer in the prefill
+    and ``paged_attention`` once per attention layer in every decode step
+    (the counts set to 0 just before the prefill and read after the last
+    step).  Then one more decode step under ``torch.profiler``, and the
+    scans' share of one more prefill and step (``scan_cost``)."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.moe import _capacity
+    n_attn = sum(s.kind == "attn" for s in cfg.pattern) * cfg.n_repeat
+    b, plens = len(prompts), [len(p) for p in prompts]
+    s = max(plens)
+    maxp = -(-(s + RECURRENT_STEPS + 1) // cfg.page_size)
+    caches = tf.init_caches(cfg, b, maxp, device=dev)
+    bt = tf.default_block_tables(cfg, b, maxp, device=dev)
+    lengths = torch.tensor(plens, dtype=torch.int32, device=dev)
+    toks = _pad(prompts, s, dev)
+    rows = torch.arange(b, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_counts, finite = [], [], []
+    with torch.no_grad(), _Routes() as routes:
+        kernels.reset_launch_counts()         # the main path starts here
+        t = time.perf_counter()
+        out = tf.prefill(params, cfg, dict(tokens=toks, caches=caches,
+                                           block_tables=bt, lengths=lengths))
+        logits = out.logits[rows, lengths.long() - 1, :cfg.vocab]
+        nxt = logits.argmax(-1)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        prefill_counts = kernels.launch_counts()
+        finite.append(bool(torch.isfinite(out.logits[:, :, :cfg.vocab])
+                           .all()))
+        n_prefill_routes = len(routes.own)
+        del out
+        for i in range(RECURRENT_STEPS):
+            c0 = kernels.launch_counts()
+            t = time.perf_counter()
+            out = tf.decode_step(params, cfg, dict(
+                tokens=nxt[:, None], caches=caches, block_tables=bt,
+                lengths=lengths + i))
+            nxt = out.logits[:, 0, :cfg.vocab].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            c1 = kernels.launch_counts()
+            step_counts.append({k: c1[k] - c0[k] for k in c1})
+            finite.append(bool(torch.isfinite(out.logits).all()))
+        counts = kernels.launch_counts()       # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    if not all(finite):
+        raise AssertionError(f"{tag}: non-finite logits")
+    if prefill_counts["flash_attention"] != n_attn \
+            or any(c["paged_attention"] != n_attn
+                   or c["flash_attention"] for c in step_counts) \
+            or counts["tiara_gather"]:
+        raise AssertionError(
+            f"{tag}: launches prefill {prefill_counts}, decode steps "
+            f"{step_counts}; expected flash_attention {n_attn} per prefill "
+            f"and paged_attention {n_attn} per decode step")
+    dropped = 0
+    moe = [sp.moe for sp in cfg.pattern if sp.moe is not None]
+    if moe:
+        real = (torch.arange(s, device=dev)[None] < lengths[:, None]) \
+            .reshape(-1)
+        cap = _capacity(b * s, moe[0])
+        dropped = sum(_dropped_real(e, cap, real)
+                      for e in routes.own[:n_prefill_routes])
+    total_s = prefill_s + sum(step_ms) / 1e3
+    tokens = b * (1 + RECURRENT_STEPS)
+    with torch.no_grad():
+        prof = _profiled(lambda: tf.decode_step(params, cfg, dict(
+            tokens=nxt[:, None], caches=caches, block_tables=bt,
+            lengths=lengths + RECURRENT_STEPS)))
+    prof["busy_share_of_median_step"] = \
+        prof["device_busy_ms"] / float(np.median(step_ms))
+    scans = scan_cost(cfg, params, prompts, dev)
+    run = dict(prompts=plens, prefill_ms=prefill_s * 1e3, step_ms=step_ms,
+               tokens=tokens, tokens_per_s=tokens / total_s,
+               decode_tokens_per_s=b / (float(np.median(step_ms)) / 1e3),
+               prefill_counts=prefill_counts,
+               step_counts=step_counts[0], counts=counts,
+               max_memory_allocated=peak, profile=prof, scans=scans)
+    if moe:
+        run.update(moe_capacity=cap, dropped_real_assignments=dropped,
+                   real_assignments=int(real.sum()) * moe[0].top_k
+                   * len(routes.own[:n_prefill_routes]))
+    log(f"[{tag}] {b} requests (prompts {min(plens)}-{s} tokens, "
+        f"right-padded to {s} in one prefill), {RECURRENT_STEPS} decode "
+        f"steps: prefill {prefill_s * 1e3:.1f} ms; decode step ms median "
+        f"{np.median(step_ms):.2f}, min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}; {tokens} tokens in {total_s:.2f} s = "
+        f"{run['tokens_per_s']:.1f} tokens/s (decode "
+        f"{run['decode_tokens_per_s']:.1f} tokens/s); peak "
+        f"max_memory_allocated {peak / 1e9:.2f} GB")
+    log(f"[{tag}] launches: prefill {prefill_counts}, each decode step "
+        f"{step_counts[0]}")
+    if moe:
+        log(f"[{tag}] MoE at capacity factor {moe[0].capacity_factor} "
+            f"(capacity {cap} of {b * s} prefill tokens, padding included): "
+            f"{dropped} of {run['real_assignments']} expert assignments of "
+            f"real tokens dropped in the prefill's {n_prefill_routes} MoE "
+            f"layers")
+    log(f"[{tag}] the recurrent scans (one more prefill and decode step, "
+        f"CUDA events around each of {scans['prefill']['scan_calls']} scan "
+        f"calls): prefill {scans['prefill']['scan_ms']:.1f} of "
+        f"{scans['prefill']['wall_ms']:.1f} ms, decode step "
+        f"{scans['decode']['scan_ms']:.2f} of "
+        f"{scans['decode']['wall_ms']:.2f} ms")
+    log(f"[{tag}] one profiled decode step: {prof['wall_ms']:.2f} ms wall, "
+        f"device busy {prof['device_busy_ms']:.2f} ms "
+        f"({prof['busy_share']:.1%}; {prof['busy_share_of_median_step']:.1%} "
+        f"of the run's median step) in {prof['kernel_launches']} kernels; "
+        f"top: " + "; ".join(f"{r['kernel']} {r['ms']:.3f} ms x{r['count']}"
+                             for r in prof["top"]))
+    return run
+
+
+def hold_logits(tag, check, got, want):
+    """``got`` against ``want`` ((positions, vocab) f32 logits), each
+    position's vector within RECURRENT_LOGIT_TOL of ``want``'s norm;
+    returns the per-position relative errors and the elementwise
+    differences, for the record."""
+    diff = (got - want).float()
+    rel = diff.norm(dim=-1) / want.float().norm(dim=-1)
+    r = dict(positions=int(want.shape[0]),
+             max_rel_l2=float(rel.max()), mean_rel_l2=float(rel.mean()),
+             rel_l2_all=float(diff.norm() / want.float().norm()),
+             limit_share=float(rel.max()) / RECURRENT_LOGIT_TOL,
+             max_abs_err=float(diff.abs().max()),
+             max_abs_logit=float(want.abs().max()),
+             same_argmax=int((got.argmax(-1) == want.argmax(-1)).sum()))
+    log(f"[{tag}] {check}: {r['positions']} positions, per-position "
+        f"||diff|| / ||logits|| max {r['max_rel_l2']:.4g} = "
+        f"{r['limit_share']:.3f} of the limit {RECURRENT_LOGIT_TOL}, mean "
+        f"{r['mean_rel_l2']:.4g} (over all {r['rel_l2_all']:.4g}); max "
+        f"|diff| {r['max_abs_err']:.4g} (max |logit| "
+        f"{r['max_abs_logit']:.2f}); same argmax {r['same_argmax']}/"
+        f"{r['positions']}")
+    if not bool(torch.isfinite(got).all()) \
+            or r["max_rel_l2"] > RECURRENT_LOGIT_TOL:
+        raise AssertionError(f"{tag} {check}: a position's logits differ "
+                             f"by {r['max_rel_l2']:.4g} of their norm")
+    return r
+
+
+def check_full_forward(tag, cfg, params, prompts, dev):
+    """Check (a), the chip's analogue of
+    ``test_prefill_decode_matches_full_forward``: prefill (right-padded,
+    ``lengths``) then one decode step of each prompt's greedy token; the
+    decode logits equal the full forward (``mode="train"``) over prompt
+    plus token at that token's position (``hold_logits``).  In a MoE
+    model the full forward
+    takes the prefill's and the decode step's expert choices (see
+    ``_Routes``); the positions it would have routed otherwise are
+    counted."""
+    from repro_torch.models import transformer as tf
+    b, plens = len(prompts), [len(p) for p in prompts]
+    s = max(plens)
+    maxp = -(-(s + 1) // cfg.page_size)
+    caches = tf.init_caches(cfg, b, maxp, device=dev)
+    bt = tf.default_block_tables(cfg, b, maxp, device=dev)
+    lengths = torch.tensor(plens, dtype=torch.int32, device=dev)
+    toks = _pad(prompts, s + 1, dev)
+    rows = torch.arange(b, device=dev)
+    with torch.no_grad(), _Routes() as routes:
+        out = tf.prefill(params, cfg, dict(tokens=toks[:, :s], caches=caches,
+                                           block_tables=bt, lengths=lengths))
+        nxt = out.logits[rows, lengths.long() - 1, :cfg.vocab].argmax(-1)
+        del out
+        n_moe = len(routes.own)               # MoE calls per forward
+        dec = tf.decode_step(params, cfg, dict(
+            tokens=nxt[:, None], caches=caches, block_tables=bt,
+            lengths=lengths)).logits[:, 0, :cfg.vocab]
+        # the full forward's expert choices: the prefill's at the prompt,
+        # the decode step's at the token (its own past the token)
+        pinned = []
+        for i in range(n_moe):
+            e = routes.own[i].reshape(b, s, -1)
+            e = torch.cat([e, e[:, -1:]], dim=1)
+            e[rows, lengths.long()] = routes.own[n_moe + i]
+            pinned.append(e.reshape(b * (s + 1), -1))
+        real = _real_mask(b, s + 1, lengths + 1, dev)
+        routes.pin = lambda i, own: torch.where(
+            real[:, None], pinned[i - 2 * n_moe], own)
+        toks[rows, lengths.long()] = nxt
+        full = tf.apply_model(params, cfg, {"tokens": toks}, mode="train") \
+            .logits[rows, lengths.long(), :cfg.vocab]
+        flipped = sum(
+            int(((_route_sets(routes.own[2 * n_moe + i])
+                  != _route_sets(pinned[i])).any(-1) & real).sum())
+            for i in range(n_moe))
+    del caches
+    r = hold_logits(tag, "check (a), decode logits after prefill vs the "
+                    "full forward over prompt + token", dec, full)
+    r["routes_pinned"] = flipped
+    if routes.own:
+        log(f"[{tag}] check (a): {flipped} token-layer routes of the full "
+            f"forward pinned to the prefill's and decode step's where its "
+            f"own differed")
+    return r
+
+
+def _real_mask(b, s, lengths, dev):
+    """(b * s,) True at the positions before each row's length."""
+    return (torch.arange(s, device=dev)[None] < lengths.to(dev)[:, None]) \
+        .reshape(-1)
+
+
+def jamba_logits(cfg, params, prompts, dev):
+    """Check (b): the prefill logits with the CUDA attention kernels
+    against the same model with the plain versions, on the card, at every
+    real position of the 8 right-padded prompts; the plain run takes the
+    kernel run's expert choices (``_Routes``; the positions whose own
+    route differed are counted), so every position is held
+    (``hold_logits``)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models import attention as am
+    from repro_torch.models import transformer as tf
+
+    def plain_flash(q, k, v, lengths=None, *, causal=True, impl="auto"):
+        return flash_attention_ref(q, k, v, lengths, causal=causal)
+
+    b, plens = len(prompts), [len(p) for p in prompts]
+    s = max(plens)
+    maxp = -(-s // cfg.page_size)
+    lengths = torch.tensor(plens, dtype=torch.int32, device=dev)
+    real = _real_mask(b, s, lengths, dev)
+    kcfg = cfg.replace(attn_impl="cuda")
+    saved = am.flash_attention
+    got = {}
+    try:
+        with torch.no_grad(), _Routes() as routes:
+            for name in ("cuda", "plain"):
+                am.flash_attention = saved if name == "cuda" else plain_flash
+                if name == "plain":
+                    n = len(routes.own)
+                    routes.pin = lambda i, own: routes.own[i - n]
+                got[name] = tf.prefill(params, kcfg, dict(
+                    tokens=_pad(prompts, s, dev),
+                    caches=tf.init_caches(cfg, b, maxp, device=dev),
+                    block_tables=tf.default_block_tables(cfg, b, maxp,
+                                                         device=dev),
+                    lengths=lengths)).logits[..., :cfg.vocab] \
+                    .reshape(b * s, -1)[real]
+            n = len(routes.own) // 2
+            flipped = torch.zeros_like(real)
+            for i in range(n):
+                flipped |= (_route_sets(routes.own[i])
+                            != _route_sets(routes.own[n + i])).any(-1)
+            n_flip = int((flipped & real).sum())
+    finally:
+        am.flash_attention = saved
+    r = hold_logits("jamba", "check (b), prefill logits with the CUDA "
+                    "kernels vs the plain versions on the card",
+                    got["cuda"], got["plain"])
+    r["routes_pinned"] = n_flip
+    log(f"[jamba] check (b): {n_flip} positions whose own route in the "
+        f"plain run differed in some layer (pinned to the kernel run's)")
+    del got
+    torch.cuda.empty_cache()
+    return r
+
+
+def jamba_kernels(cfg, plens, dev, scratch):
+    """paged_attention and flash_attention at Jamba's path shapes in bf16
+    (the last decode step of the 8 requests over pages of 128; the
+    8-request causal prefill at the longest prompt) against their plain
+    versions within SCOUT_ATTN_TOL (the same two-ulp bound, for the same
+    reason), two calls giving the same bits; times, bounds and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.paged_attention import paged_attention
+    bf = torch.bfloat16
+    qh, kvh, d, page = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.page_size
+    b, s = len(plens), max(plens)
+    maxp = -(-(s + RECURRENT_STEPS + 1) // page)
+    rng = np.random.default_rng(32)
+    lens = [n + RECURRENT_STEPS for n in plens]  # the last decode step's
+    q = _randn(rng, (b, qh, d), bf, dev)
+    k = _randn(rng, (b * maxp, page, kvh, d), bf, dev)
+    v = _randn(rng, (b * maxp, page, kvh, d), bf, dev)
+    bt = torch.from_numpy(rng.permutation(b * maxp).reshape(b, maxp)
+                          .astype(np.int32)).to(dev)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    res = {}
+    for kernel, fn, plain, args in (
+            ("paged", paged_attention, _paged_plain, (q, k, v, bt, ln)),
+            ("flash", flash_attention, flash_attention_ref, tuple(
+                _randn(rng, (b, h, s, d), bf, dev)
+                for h in (qh, kvh, kvh)))):
+        name = f"{kernel}_attention (Jamba path shape, bf16)"
+        out, ref = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = _check_close(name, out, ref, bf, SCOUT_ATTN_TOL)
+        share = _limit_share(out, ref, SCOUT_ATTN_TOL)
+        _check_same_bits(name, lambda: fn(*args))
+        r = dict(max_abs_err=err, limit_share=share,
+                 ms=time_cuda(lambda: fn(*args), scratch),
+                 plain_ms=time_cuda(lambda: plain(*args), scratch))
+        if kernel == "paged":
+            r["bytes_moved"] = sum(lens) * kvh * d * 2 * 2 \
+                + 2 * q.numel() * 2
+            r["bound_ms"] = r["bytes_moved"] / HBM_BYTES_PER_S * 1e3
+            r["bound_by"], r["library_ms"] = "bytes", None
+            r.update(shape=list(q.shape) + list(k.shape), lengths=lens)
+            log(f"[jamba] paged_attention, q {tuple(q.shape)} pages "
+                f"{tuple(k.shape)} lengths {lens} bf16: max err {err:.3g} = "
+                f"{share:.3f} of the limit, two calls same bits; kernel "
+                f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} "
+                f"us, bound {r['bound_ms'] * 1e3:.2f} us (bytes)")
+        else:
+            fq, fk, fv = args
+            r["library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(
+                fq, fk, fv, is_causal=True, enable_gqa=True), scratch)
+            r["flops"] = 2 * 2 * b * (s * (s + 1) // 2) * d * qh
+            moved = (2 * fq.numel() + 2 * fk.numel()) * 2
+            r["bound_ms"] = max(r["flops"] / BF16_FLOPS_PER_S,
+                                moved / HBM_BYTES_PER_S) * 1e3
+            r["bound_by"] = "operations"
+            r["shape"] = list(fq.shape) + list(fk.shape)
+            log(f"[jamba] flash_attention, q {tuple(fq.shape)} k/v "
+                f"{tuple(fk.shape)} causal bf16: max err {err:.3g} = "
+                f"{share:.3f} of the limit, two calls same bits; kernel "
+                f"{r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} "
+                f"us, sdpa {r['library_ms'] * 1e3:.1f} us, bound "
+                f"{r['bound_ms'] * 1e3:.1f} us (operations, "
+                f"{r['flops'] / 1e9:.2f} GFLOP at the bf16 rate)")
+        res[kernel] = r
+        del out, ref, args
+    torch.cuda.empty_cache()
+    return res
+
+
+def _draw_model(tag, cfg, full, dev):
+    """Random bf16 weights from seed 0, drawn on the card."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import count_params, tree_leaves
+    t = time.perf_counter()
+    params = tf.init_params(cfg, device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = count_params(params)
+    n_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}: "
+        f"{n_params / 1e9:.3f} G params = {n_bytes / 1e9:.2f} GB on the "
+        f"card, drawn there in {time.perf_counter() - t:.1f} s")
+    return params, n_params, n_bytes
+
+
+def _recurrent_prompts(cfg, seed):
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(1, cfg.vocab, n)))
+            for n in rng.permutation(RECURRENT_PLENS)]
+
+
+def phase_jamba(dev):
+    """Jamba v0.1 at its published widths, one period (8 of 32 layers):
+    the attention kernels at its shapes, the main path (prefill + decode),
+    check (a) and check (b)."""
+    from repro_torch.configs import get_config
+    full = get_config(JAMBA_ARCH)
+    cfg = full.replace(n_layers=JAMBA_LAYERS)
+    moe = cfg.pattern[1].moe
+    log(f"[jamba] reduction: {cfg.n_layers} of {full.n_layers} layers (one "
+        f"period: 1 attention + 7 Mamba layers, MoE on 4; depth only, every "
+        f"width published: {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, no RoPE, Mamba d_inner "
+        f"{cfg.mamba.dims(cfg.d_model)[0]} d_state {cfg.mamba.d_state} "
+        f"d_conv {cfg.mamba.d_conv}, {moe.n_experts} experts top-"
+        f"{moe.top_k} of {moe.d_ff_expert} at capacity factor "
+        f"{moe.capacity_factor}, page {cfg.page_size})")
+    params, n_params, n_bytes = _draw_model("jamba", cfg, full, dev)
+    prompts = _recurrent_prompts(cfg, 15)
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    kern = jamba_kernels(cfg, [len(p) for p in prompts], dev, scratch)
+    del scratch
+    torch.cuda.empty_cache()
+    run = recurrent_run("jamba", cfg, params, prompts, dev)
+    torch.cuda.empty_cache()
+    check_cfg = cfg.replace(pattern=tuple(
+        sp if sp.moe is None else dataclasses.replace(
+            sp, moe=dataclasses.replace(sp.moe,
+                                        capacity_factor=JAMBA_CHECK_CF))
+        for sp in cfg.pattern))
+    full_fwd = check_full_forward("jamba", check_cfg, params, prompts, dev)
+    torch.cuda.empty_cache()
+    logits = jamba_logits(cfg, params, prompts, dev)
+    return dict(n_params=n_params, weight_bytes=n_bytes, kernels=kern,
+                run=run, check_a=full_fwd, check_b=logits)
+
+
+def phase_rwkv(dev):
+    """RWKV-6 1.6B whole: the main path and check (a).  Attention-free: no
+    kernel of the port runs on this path (``recurrent_run`` checks that
+    neither attention kernel launched)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(RWKV_ARCH)
+    log(f"[rwkv] {cfg.name} whole: {cfg.n_layers} layers, "
+        f"{cfg.d_model // cfg.rwkv.head_size} heads of "
+        f"{cfg.rwkv.head_size}, decay LoRA {cfg.rwkv.decay_lora}, d_ff "
+        f"{cfg.d_ff}, {cfg.norm}; no reduction")
+    params, n_params, n_bytes = _draw_model("rwkv", cfg, cfg, dev)
+    prompts = _recurrent_prompts(cfg, 16)
+    run = recurrent_run("rwkv", cfg, params, prompts, dev)
+    torch.cuda.empty_cache()
+    full_fwd = check_full_forward("rwkv", cfg, params, prompts, dev)
+    return dict(n_params=n_params, weight_bytes=n_bytes, run=run,
+                check_a=full_fwd)
+
+
+def phase_simulator(dev):
+    """The paper's cycle simulator over the port's endpoint: the stock graph
+    walk at depth 10, registered on a card-resident endpoint, traced on
+    the pyvm oracle by ``Session.trace`` and replayed by
+    ``simulate_task``.  Simulated cycles of the paper's machine model (a
+    5 ns clock, PCIe DMA and RDMA round trips), not card numbers."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import operators as ops
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.endpoint import TiaraEndpoint
+    gw = ops.GraphWalk(n_nodes=4096, max_depth=16)
+    ep, ss = TiaraEndpoint.for_tenants([("gw", gw.regions())], device=dev)
+    sess = ss["gw"]
+    order = gw.populate(sess.pool, sess.view, seed=5)
+    op = sess.register(gw.build(sess.view))
+    depth, start = 10, int(order[0])
+    res = sess.trace("graph_walk", [start * 8, depth])
+    if res.ret != gw.reference(order, start, depth):
+        raise AssertionError("simulator: traced walk returned the wrong node")
+    ts = sim.simulate_task(ep.registry[op].verified, res.trace)
+    rdma = cm.rdma_chain_latency_us(depth)
+    r = dict(depth=depth, latency_us=ts.latency_us,
+             nic_resident_cycles=ts.nic_resident_us * 1e3
+             / cm.DEFAULT_HW.clk_ns,
+             mp_cycles=ts.mp_cycles, dma_channel_cycles=ts.dma_channel_cycles,
+             instructions=ts.n_instr_executed,
+             saturated_mops=sim.saturated_throughput_mops(ts),
+             bottleneck=sim.bottleneck(ts), rdma_chain_us=rdma,
+             speedup_over_rdma=rdma / ts.latency_us,
+             pool_device=str(ep.mem.device))
+    log(f"[simulator] graph walk, depth {depth}, on the port's endpoint "
+        f"(pool on {r['pool_device']}), traced by Session.trace: SIMULATED "
+        f"on the paper's machine model, not measured on the card: "
+        f"{r['nic_resident_cycles']:.0f} NIC cycles "
+        f"({ts.mp_cycles} MP cycles, {ts.dma_channel_cycles} DMA-channel "
+        f"cycles, {ts.n_instr_executed} instructions), latency "
+        f"{ts.latency_us:.2f} us against {rdma:.2f} us for {depth} "
+        f"dependent RDMA round trips ({r['speedup_over_rdma']:.2f}x; the "
+        f"paper: 2.85x at depth 10), saturated throughput "
+        f"{r['saturated_mops']:.2f} Mops, bottleneck {r['bottleneck']}")
+    return r
+
+
 def check_kv_slots(kvs, kv, host0, table, blocks, slots, slot_words):
     expect = kv.reference(host0, kvs.view, table, blocks)
     got = kvs.read_region("reply", count=slots * slot_words) \
@@ -1396,6 +2049,16 @@ def main() -> int:
     # run; their host runs launch no tiara_gather
     runs, cpu_err, tiny_gathers = phase_serving(dev)
     scout, scout_gathers = phase_scout(dev)
+    gc.collect()                             # Scout's weights go here
+    torch.cuda.empty_cache()
+    log(f"[memory] after the Scout phase: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    # the recurrent paths reset and read the counts around their own runs
+    jamba = phase_jamba(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rwkv = phase_rwkv(dev)
+    simulated = phase_simulator(dev)
     serving = {k: sum(r["counts"][k] for r in runs.values())
                for k in counts}
     scout_counts = {k: sum(r["counts"][k] for r in scout["runs"].values())
@@ -1408,10 +2071,13 @@ def main() -> int:
                 raise AssertionError(f"a serving path never launched {k}")
     kinfo["launches"] = counts["tiara_gather"] + serving["tiara_gather"] \
         + scout_counts["tiara_gather"]
+    jamba_counts = jamba["run"]["counts"]
+    log(f"[launches] Jamba path (prefill + {RECURRENT_STEPS} decode steps): "
+        f"{jamba_counts}")
     paged["launches"] = serving["paged_attention"] \
-        + scout_counts["paged_attention"]
+        + scout_counts["paged_attention"] + jamba_counts["paged_attention"]
     flash["launches"] = serving["flash_attention"] \
-        + scout_counts["flash_attention"]
+        + scout_counts["flash_attention"] + jamba_counts["flash_attention"]
 
     # tiara_gather at the serving resolvers' own shapes, as recorded
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
@@ -1431,6 +2097,7 @@ def main() -> int:
     kinfo["serving_shapes"] = shapes
     for name, ki in (("paged", paged), ("flash", flash)):
         ki["scout"] = scout["kernels"][name]
+        ki["jamba"] = jamba["kernels"][name]
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1447,7 +2114,9 @@ def main() -> int:
                        "serving": {r: {k: v for k, v in run.items()
                                        if k != "out"}
                                    for r, run in scout["runs"].items()},
-                       "logits": scout["logits"]}}, f, indent=1)
+                       "logits": scout["logits"]},
+                   "jamba": jamba, "rwkv": rwkv, "simulator": simulated},
+                  f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: ki[k] for k in keys}

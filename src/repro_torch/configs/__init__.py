@@ -4,7 +4,9 @@
 its own module with the published numbers.  Ported so far: the
 decoder-only attention architectures the serving engine runs — ``tiny-lm``,
 the dense models (InternLM2, Granite-3, StableLM-2, Nemotron-4) and the
-Llama-4 MoE models (Scout, Maverick).  The recurrent, hybrid,
+Llama-4 MoE models (Scout, Maverick) — and the recurrent families, which
+run through the model's entry points (``init_caches``, ``prefill``,
+``decode_step``): the hybrid Jamba and the attention-free RWKV-6.  The
 encoder-decoder and vision families join with their layers.
 
 The JAX reference's mesh and compiler knobs (``dp_spec``, ``remat``,
@@ -101,6 +103,8 @@ _MODULES = {
     "nemotron-4-15b": "nemotron_4_15b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
     "tiny-lm": "tiny_lm",
 }
 

@@ -1,7 +1,8 @@
 """Carry the reference's state into the port.
 
 The Tiara state is the memory pool and the encoded operator programs;
-the serving stack adds model weights and paged KV caches.  The reference
+the serving stack adds model weights and the decode caches (paged KV
+and the recurrent states).  The reference
 keeps pools and programs as plain numpy
 (``int64[n_devices, pool_words]`` pools, ``int64[n, INSTR_WIDTH]``
 instruction words), so carrying them across needs no import of the
@@ -24,6 +25,8 @@ from repro_torch.core.program import TiaraProgram
 from repro_torch.core.vm import resolve_device
 from repro_torch.models.attention import PagedKV
 from repro_torch.models.blocks import BlockCache
+from repro_torch.models.mamba import MambaCache
+from repro_torch.models.rwkv import RWKVCache
 from repro_torch.models.param import tree_map
 
 
@@ -111,10 +114,22 @@ def params_from_numpy(tree, device=None):
 
 def caches_from_numpy(caches, device=None):
     """The reference's decode caches — a tuple of ``BlockCache`` per
-    pattern element whose ``paged`` leaves are ``(n_repeat, P, page, KVH,
-    hd)`` arrays — as the port's caches on ``device``."""
+    pattern element, each leaf stacked ``(n_repeat, ...)``: the ``paged``
+    pools, the ``mamba`` (h, conv) and the ``rwkv`` (state, x_time,
+    x_chan) states, whichever the layer has — as the port's caches on
+    ``device``.  Numpy leaves or JAX arrays (read through
+    ``np.asarray``) both cross."""
+    fields = (("paged", PagedKV), ("mamba", MambaCache), ("rwkv", RWKVCache))
     out = []
     for c in caches:
-        k, v = params_from_numpy((c.paged.k_pages, c.paged.v_pages), device)
-        out.append(BlockCache(paged=PagedKV(k, v)))
+        if getattr(c, "cross_k", None) is not None:
+            raise NotImplementedError(
+                "cross-attention caches come with the port's slice of the "
+                "encoder-decoder models")
+        kw = {}
+        for name, kind in fields:
+            f = getattr(c, name)
+            if f is not None:
+                kw[name] = kind(*params_from_numpy(tuple(f), device))
+        out.append(BlockCache(**kw))
     return tuple(out)

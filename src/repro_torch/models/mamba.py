@@ -1,13 +1,35 @@
-"""Mamba layer spec.
+"""Mamba (S6) block — Jamba's attention-free layer.
 
-Only the frozen spec dataclass so far: configs name it.  The selective
-scan itself comes with the port's other model families.
+The reference's ``models/mamba.py`` in PyTorch: a selective SSM with
+input-dependent (dt, B, C), a linear recurrence over time on the state
+``h`` (B, d_inner, d_state) in f32.  The reference has no kernel for it
+(a ``lax.scan``; its docstring names a chunked selective-scan kernel as
+future work), so the port's scan is plain PyTorch too.
+
+The reference forms the (B, C, d_inner, d_state) f32 coefficients
+``a = exp(dt A)`` and ``bx = dt x B`` for chunks of 256 tokens, or for the
+whole sequence when its length is no multiple of 256: 4.3 GB each at
+Jamba's width for 8 sequences of 1024 tokens.  The port forms them for
+chunks of at most ``SCAN_CHUNK_BYTES`` and runs the recurrence in place
+on ``bx``, one fused multiply-add per step (``bx[t] += a[t] * h``), so the
+chunk's ``bx`` ends up holding the states and the outputs ``y = h . C``
+are one batched product per chunk.  The arithmetic per step is the
+reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.param import ParamDef
+
+# Bytes of each f32 chunk coefficient (a, bx): the scan runs in chunks of
+# as many steps as fit (at least one).
+SCAN_CHUNK_BYTES = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,3 +43,137 @@ class MambaSpec:
         d_inner = self.expand * d_model
         dt_rank = self.dt_rank or max(1, d_model // 16)
         return d_inner, dt_rank
+
+
+def mamba_defs(d_model: int, spec: MambaSpec):
+    d_inner, dt_rank = spec.dims(d_model)
+    return {
+        "in_proj": ParamDef((d_model, 2 * d_inner)),
+        "conv_w": ParamDef((spec.d_conv, d_inner)),
+        "conv_b": ParamDef((d_inner,), init="zeros"),
+        "x_proj": ParamDef((d_inner, dt_rank + 2 * spec.d_state)),
+        "dt_proj": ParamDef((dt_rank, d_inner)),
+        "dt_bias": ParamDef((d_inner,), init="zeros"),
+        "A_log": ParamDef((d_inner, spec.d_state), init="zeros"),
+        "D_skip": ParamDef((d_inner,), init="ones"),
+        "out_proj": ParamDef((d_inner, d_model)),
+    }
+
+
+class MambaCache(NamedTuple):
+    h: torch.Tensor         # (B, d_inner, d_state) SSM state, f32
+    conv: torch.Tensor      # (B, d_conv - 1, d_inner) rolling conv window
+
+
+def init_mamba_cache(batch: int, d_model: int, spec: MambaSpec,
+                     dtype=torch.float32, device=None) -> MambaCache:
+    d_inner, _ = spec.dims(d_model)
+    return MambaCache(
+        h=torch.zeros((batch, d_inner, spec.d_state), dtype=torch.float32,
+                      device=device),
+        conv=torch.zeros((batch, spec.d_conv - 1, d_inner), dtype=dtype,
+                         device=device))
+
+
+def _ssm_inputs(params, x_conv, spec: MambaSpec, dt_rank: int):
+    """x_conv (B, S, d_inner) -> (dt, bm, cm), the small per-step inputs:
+    ``dt`` is softplus in f32, ``bm`` and ``cm`` are cast to f32."""
+    d_state = spec.d_state
+    xdb = x_conv @ params["x_proj"]
+    dt_r = xdb[..., :dt_rank]
+    bm = xdb[..., dt_rank:dt_rank + d_state].float()
+    cm = xdb[..., dt_rank + d_state:].float()
+    dt = F.softplus((dt_r @ params["dt_proj"] + params["dt_bias"]).float())
+    return dt, bm, cm
+
+
+def _conv_causal(params, x, spec: MambaSpec,
+                 prefix: Optional[torch.Tensor]):
+    """Depthwise causal conv over time. prefix: (B, d_conv-1, d_inner).
+    Returns (silu(conv), the last d_conv - 1 inputs)."""
+    if prefix is None:
+        prefix = x.new_zeros((x.shape[0], spec.d_conv - 1, x.shape[-1]))
+    xp = torch.cat([prefix, x], dim=1)
+    acc = torch.zeros_like(x) + params["conv_b"].to(x.dtype)
+    s = x.shape[1]
+    for j in range(spec.d_conv):
+        acc = acc + xp[:, j:j + s] * params["conv_w"][j].to(x.dtype)
+    return F.silu(acc), xp[:, -(spec.d_conv - 1):] \
+        if spec.d_conv > 1 else prefix
+
+
+def _chunk_steps(b: int, d_inner: int, d_state: int) -> int:
+    return max(1, SCAN_CHUNK_BYTES // (4 * b * d_inner * d_state))
+
+
+def _scan(h, dt, xcf, bm, cm, a_mat, valid):
+    """The recurrence ``h = exp(dt A) h + dt x B``, ``y = h . C`` over the
+    S steps of (B, S, ...) inputs from the state ``h`` (B, d, N); steps
+    where ``valid`` (B, S) is false leave the state as it was.  Returns
+    (the last state, y (B, S, d) f32)."""
+    b, s, d = dt.shape
+    ys = dt.new_empty((b, s, d))
+    step = _chunk_steps(b, d, a_mat.shape[-1])
+    for c0 in range(0, s, step):
+        c1 = min(s, c0 + step)
+        dt_c = dt[:, c0:c1].transpose(0, 1)                 # (C, B, d)
+        a = torch.exp(dt_c[..., None] * a_mat)              # (C, B, d, N)
+        bx = (dt_c * xcf[:, c0:c1].transpose(0, 1))[..., None] \
+            * bm[:, c0:c1].transpose(0, 1)[:, :, None, :]
+        if valid is not None:
+            vm = valid[:, c0:c1].transpose(0, 1)[..., None, None]
+            a = torch.where(vm, a, 1.0)
+            bx = torch.where(vm, bx, 0.0)
+        for t in range(c1 - c0):       # bx[t] becomes the state after t
+            h = bx[t].addcmul_(a[t], h)
+        ys[:, c0:c1] = torch.einsum("cbdn,cbn->bcd", bx,
+                                    cm[:, c0:c1].transpose(0, 1))
+        del a, bx                   # freed before the next chunk's
+    return h.clone(), ys
+
+
+def mamba_forward(params, x: torch.Tensor, spec: MambaSpec,
+                  cache: Optional[MambaCache] = None,
+                  lengths: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
+    """x (B, S, D); returns (out, new_cache if cache given).
+
+    ``lengths`` (prefill with right-padding): positions >= length take an
+    identity recurrence step so padding never pollutes the carried state,
+    and the conv tail is gathered at the true sequence end (with the
+    reference's clip)."""
+    b, s, d_model = x.shape
+    d_inner, dt_rank = spec.dims(d_model)
+    xz = x @ params["in_proj"]
+    x_in, z = xz[..., :d_inner], xz[..., d_inner:]
+    prefix = cache.conv if cache is not None else None
+    x_conv, conv_tail = _conv_causal(params, x_in, spec, prefix)
+    dt, bm, cm = _ssm_inputs(params, x_conv, spec, dt_rank)
+    xcf = x_conv.float()
+    a_mat = -torch.exp(params["A_log"].float())             # (d_inner, N)
+
+    valid = None
+    if lengths is not None:
+        lengths = lengths.to(x.device).long()
+        valid = torch.arange(s, device=x.device)[None, :] < lengths[:, None]
+        if spec.d_conv > 1:
+            # the conv window ending at the true last token; xp coords are
+            # offset by (d_conv - 1), so window index = length + j
+            xp = torch.cat([prefix if prefix is not None else
+                            x_in.new_zeros((b, spec.d_conv - 1, d_inner)),
+                            x_in], dim=1)
+            idx = (lengths[:, None]
+                   + torch.arange(spec.d_conv - 1, device=x.device)[None]) \
+                .clamp(0, xp.shape[1] - 1)
+            conv_tail = torch.gather(
+                xp, 1, idx[..., None].expand(-1, -1, d_inner))
+
+    h0 = cache.h if cache is not None else x.new_zeros(
+        (b, d_inner, spec.d_state), dtype=torch.float32)
+    h_t, y = _scan(h0, dt, xcf, bm, cm, a_mat, valid)
+    y = y + params["D_skip"].float() * xcf
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ params["out_proj"]
+    new_cache = MambaCache(h=h_t, conv=conv_tail) \
+        if cache is not None else None
+    return out, new_cache

@@ -1,4 +1,5 @@
-"""Pattern-stacked transformer (the decoder-only path: dense and MoE).
+"""Pattern-stacked transformer (the decoder-only path: dense, MoE, hybrid
+Mamba + attention and attention-free RWKV).
 
 The reference stacks the repeating layer pattern per pattern element and
 runs one ``lax.scan`` over repetitions.  The port keeps the stacked
@@ -8,8 +9,10 @@ repetitions with a Python loop.
 
 Three modes share one code path:
   train    full-sequence forward, no caches;
-  prefill  full-sequence forward that fills the paged KV pool;
-  decode   one token per sequence against the paged pool (Tiara path).
+  prefill  full-sequence forward that fills the paged KV pool and the
+           recurrent states (``lengths`` marks right-padding);
+  decode   one token per sequence against the paged pool (Tiara path)
+           and the recurrent states.
 
 Parameters are a nested dict of tensors with the reference tree's names
 (``embed/tokens``, ``blocks[j]/mix/wq``, ...).  :class:`Transformer` holds
@@ -25,7 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs import ArchConfig
-from repro_torch.models.attention import PagedKV
+from repro_torch.core.vm import resolve_device
 from repro_torch.models.blocks import (BlockCache, block_apply, block_defs,
                                        init_block_cache)
 from repro_torch.models.layers import (apply_norm, embed, embed_defs,
@@ -75,23 +78,27 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
 # ---------------------------------------------------------------------------
 
 
+def _map_cache(fn, cache: BlockCache) -> BlockCache:
+    """``fn`` over every tensor of a layer cache, keeping its structure."""
+    return BlockCache(*(None if f is None else type(f)(*map(fn, f))
+                        for f in cache))
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_pages: int, *,
                 dtype=None, n_pages: Optional[int] = None, device=None):
     """One stacked BlockCache per pattern element, each leaf with a
-    leading ``n_repeat`` dim.  The paged pool gives each (layer, sequence)
-    its own pages: ``n_pages`` defaults to ``batch * max_pages`` (the
-    serving engine asks for one scratch page more)."""
+    leading ``n_repeat`` dim, on ``device`` (the card unless named).  The
+    paged pool gives each (layer, sequence) its own pages: ``n_pages``
+    defaults to ``batch * max_pages`` (the serving engine asks for one
+    scratch page more); the recurrent layers keep ``batch`` states."""
     dtype = dtype or model_dtype(cfg.dtype)
+    device = resolve_device(device)
     pool = batch * max_pages if n_pages is None else int(n_pages)
-    caches = []
-    for spec in cfg.pattern:
-        base = init_block_cache(cfg, spec, batch, pool, dtype, device=device)
-        caches.append(BlockCache(paged=PagedKV(
-            base.paged.k_pages.new_zeros((cfg.n_repeat,)
-                                         + base.paged.k_pages.shape),
-            base.paged.v_pages.new_zeros((cfg.n_repeat,)
-                                         + base.paged.v_pages.shape))))
-    return tuple(caches)
+    return tuple(
+        _map_cache(lambda a: a.new_zeros((cfg.n_repeat,) + a.shape),
+                   init_block_cache(cfg, spec, batch, pool, dtype,
+                                    device=device))
+        for spec in cfg.pattern)
 
 
 def default_block_tables(cfg: ArchConfig, batch: int, max_pages: int,
@@ -104,9 +111,8 @@ def default_block_tables(cfg: ArchConfig, batch: int, max_pages: int,
 
 def _layer_cache(stacked: BlockCache, r: int) -> BlockCache:
     """Repetition ``r`` of a stacked cache: views, so in-place writes land
-    in the stacked pools."""
-    return BlockCache(paged=PagedKV(stacked.paged.k_pages[r],
-                                    stacked.paged.v_pages[r]))
+    in the stacked caches."""
+    return _map_cache(lambda a: a[r], stacked)
 
 
 # ---------------------------------------------------------------------------

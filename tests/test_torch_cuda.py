@@ -484,3 +484,103 @@ def test_cuda_engine_tf32_guard_applies_to_f32_only(cuda_device,
     eng = ServingEngine(cfg, tf.init_params(cfg, seed=0), max_slots=2,
                         max_seq=64, eos_id=-1, device=cuda_device)
     assert len(eng.submit([1, 2, 3], max_new=2).result()) == 2
+
+
+# -- the recurrent families on the card --------------------------------------
+
+# The card against the port on the CPU, both f32 (no TF32): cuBLAS and the
+# CPU BLAS sum in other orders, the kernels' online softmax against the
+# plain two-pass one; the recurrences do not amplify it (decays in (0, 1)).
+RECURRENT_CARD_TOL = 1e-4
+
+
+def _recurrent_leaves(caches):
+    return [t for c in caches for f in c if f is not None for t in f]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-1.6b"])
+def test_cuda_recurrent_model_matches_cpu(cuda_device, arch):
+    """Reduced Jamba (one period: 1 attention + 7 Mamba layers, top-2 MoE)
+    and RWKV-6 on the card, through init_caches, prefill with ragged
+    lengths and two decode steps: logits and every carried state equal
+    the port on the CPU with the same weights.  Jamba's prefill launches
+    flash_attention once per attention layer, each decode step
+    paged_attention once per attention layer; RWKV-6 launches neither."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import tree_map
+    cfg = reduce_config(get_config(arch))
+    cfg = cfg.replace(n_layers=len(cfg.pattern))
+    n_attn = sum(s.kind == "attn" for s in cfg.pattern)
+    params = tf.init_params(cfg, seed=0)
+    b, maxp = 3, 4
+    rng = np.random.default_rng(8)
+    toks = [rng.integers(1, cfg.vocab, (b, 20))] + \
+        [rng.integers(1, cfg.vocab, (b, 1)) for _ in range(2)]
+    lengths = np.array([20, 13, 1])
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        p = tree_map(lambda a: a.to(dev), params)
+        caches = tf.init_caches(cfg, b, maxp, device=dev)
+        bt = tf.default_block_tables(cfg, b, maxp, device=dev)
+        kernels.reset_launch_counts()
+        logits = []
+        for step in range(3):
+            fn = tf.prefill if step == 0 else tf.decode_step
+            out = fn(p, cfg, dict(
+                tokens=torch.from_numpy(toks[step]).to(dev), caches=caches,
+                block_tables=bt,
+                lengths=torch.from_numpy(lengths + max(step - 1, 0))
+                .to(dev, torch.int32)))
+            logits.append(out.logits.cpu())
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                assert counts["flash_attention"] == n_attn
+                assert counts["paged_attention"] == n_attn * step
+        got[dev.type] = (logits,
+                         [t.cpu() for t in _recurrent_leaves(caches)])
+    (lc, sc), (lh, sh) = got["cuda"], got["cpu"]
+    for a, c in zip(lc + sc, lh + sh):
+        assert torch.allclose(a, c, atol=RECURRENT_CARD_TOL,
+                              rtol=RECURRENT_CARD_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_recurrent_functions_match_cpu(cuda_device):
+    """mamba_forward, rwkv_time_mix and rwkv_channel_mix on the card
+    against the CPU at a width of 256 with a 300-token ragged prefill from
+    a cache; also in bf16, within 2**-6 relative (two bf16 ulps: both
+    round the same f32 recurrence to bf16 at the same points)."""
+    from repro_torch.models import mamba, rwkv
+    from repro_torch.models.param import materialize, tree_map
+    d = 256
+    mspec = mamba.MambaSpec(d_state=16, d_conv=4, expand=2)
+    rspec = rwkv.RWKVSpec(head_size=64, decay_lora=32)
+    gen = torch.Generator().manual_seed(9)
+    for dtype, tol in ((torch.float32, RECURRENT_CARD_TOL),
+                       (torch.bfloat16, 2 ** -6)):
+        mw = materialize(mamba.mamba_defs(d, mspec), gen, dtype)
+        tw = materialize(rwkv.rwkv_time_defs(d, rspec), gen, dtype)
+        cw = materialize(rwkv.rwkv_channel_defs(d, 3 * d), gen, dtype)
+        x = torch.randn((2, 300, d), generator=gen).to(dtype)
+        ln = torch.tensor([300, 117])
+        mc = mamba.init_mamba_cache(2, d, mspec, dtype)
+        rc = rwkv.init_rwkv_cache(2, d, rspec, dtype)
+        outs = {}
+        for dev in (cuda_device, torch.device("cpu")):
+            def on(t):
+                return tree_map(lambda a: a.to(dev), t)
+            m = mamba.mamba_forward(on(mw), x.to(dev), mspec,
+                                    mamba.MambaCache(*on(tuple(mc))),
+                                    lengths=ln.to(dev))
+            r = rwkv.rwkv_time_mix(on(tw), x.to(dev), rspec,
+                                   rwkv.RWKVCache(*on(tuple(rc))),
+                                   lengths=ln.to(dev))
+            c = rwkv.rwkv_channel_mix(on(cw), x.to(dev), None,
+                                      lengths=ln.to(dev))
+            outs[dev.type] = [t.float().cpu() for t in
+                              (m[0], *m[1], r[0], *r[1], *c)]
+        for a, c in zip(outs["cuda"], outs["cpu"]):
+            assert torch.allclose(a, c, atol=tol, rtol=tol), dtype

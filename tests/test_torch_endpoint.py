@@ -9,6 +9,7 @@ own tests.
 """
 
 import ast
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -16,11 +17,16 @@ import pytest
 import torch
 
 from repro.core import memory as jmemory
+from repro.core import pyvm as jpyvm
 from repro.core import serving_loop as jsl
+from repro.core import simulator as jsim
 from repro.core.endpoint import TiaraEndpoint as JEndpoint
 from repro.core.frontend import compile_source as jcompile_source
+from repro.core.memory import Grant as JGrant
 from repro.core.program import OperatorBuilder as JBuilder
-from repro_torch.core import faults, isa, memory, pyvm
+from repro.core.verifier import verify as jverify
+from repro_torch.core import (costmodel, faults, isa, memory, pyvm,
+                              simulator)
 from repro_torch.core import serving_loop as psl
 from repro_torch.core.endpoint import EndpointError, TiaraEndpoint
 from repro_torch.core.frontend import compile_source
@@ -229,9 +235,12 @@ def test_endpoint_needs_a_device(monkeypatch):
 
 
 def test_quickstart_flow_matches_jax_frontend():
-    """quickstart steps 1-4 and 7-8: write an operator in the frontend,
+    """quickstart steps 1-5 and 7-8: write an operator in the frontend,
     verify and register it, post, ring, poll — same code words as the
-    reference frontend, same answer as pyvm."""
+    reference frontend, same answer as pyvm — then time it with the
+    port's cycle simulator over ``Session.trace``: the reference
+    simulator's ``TaskSim`` on the reference pyvm's trace, exactly, and
+    below the dependent RDMA chain (quickstart step 5)."""
     src = '''
 def walk(start, depth):
     cur = start
@@ -256,6 +265,18 @@ def walk(start, depth):
     c = sess.post("walk", [int(order[0]) * 8, 5])
     assert c.result() == ref.ret == w.reference(order, int(order[0]), 5)
     assert sess.poll_cq() == []
+
+    params = [int(order[0]) * 8, 5]
+    ts = simulator.simulate_task(ep.registry[op_id].verified,
+                                 sess.trace("walk", params).trace)
+    jrt, jviews = jmemory.merge_tables([("q", w.regions())])
+    jvop = jverify(jprog, grant=JGrant.all_of(jviews["q"], "q"),
+                   regions=jrt)
+    jres = jpyvm.run(jvop, jrt, ep.host_mem().copy(), params,
+                     record_trace=True)
+    assert dataclasses.asdict(ts) == \
+        dataclasses.asdict(jsim.simulate_task(jvop, jres.trace))
+    assert 0 < ts.latency_us < costmodel.rdma_chain_latency_us(5)
 
 
 # ---------------------------------------------------------------------------
