@@ -25,7 +25,13 @@ kernel against its plain PyTorch version on the card:
   v0.1 at its published widths (d_model 4096, 32/8 heads of 128, no RoPE,
   Mamba d_inner 8192, 16 experts top-2 of 14336 at capacity factor 1.25,
   vocab 65536, bf16, page 128) cut to one period, 8 of 32 layers (26.6 GB
-  of weights drawn on the card from seed 0), and RWKV-6 1.6B whole.
+  of weights drawn on the card from seed 0), and RWKV-6 1.6B whole;
+* the multimodal families whole at their published widths, through the
+  same entry points: Qwen2-VL-7B (28 layers, d_model 3584, 28/4 heads of
+  128, M-RoPE over distinct t/h/w streams, an image prefix of 256 vision
+  tokens through the ``embeds`` stub; 15.23 GB) and SeamlessM4T-medium
+  (12 encoder and 12 decoder layers, d_model 1024, 16/16 heads of 64, an
+  encoder over ragged frames and the decoder's cross attention; 1.75 GB).
 
 Phases:
 
@@ -82,7 +88,21 @@ Phases:
    pinned from one run into the other;
 8. RWKV-6 1.6B whole, the same requests and steps (no kernel on this
    path) and check (a);
-9. the cycle simulator over ``Session.trace`` of a depth-10 graph walk
+9. Qwen2-VL-7B whole: both attention kernels at its bf16 path shapes (G =
+   7, D = 128) against their plain versions within ``SCOUT_ATTN_TOL``,
+   the same bits twice, timed with their bounds and SDPA; 8 requests of
+   an image of 16 x 16 patches then text (prompts 300..1024) with their
+   M-RoPE ids, right-padded into one ``tf.prefill``, then 16
+   ``tf.decode_step``s: the numbers and checks of phase 7 (28
+   ``flash_attention`` per prefill, 28 ``paged_attention`` per step);
+10. SeamlessM4T-medium whole, the same for an encoder-decoder: encoder
+   frames (8, 1024, 1024) with ragged ``enc_lengths`` 256..1024, decoder
+   prompts 16..1024; the kernels at G = 1, D = 64: paged decode, flash
+   non-causal over the encoder, causal over the decoder, and cross
+   attention at Sq != Sk in prefill and at Sq = 1 in decode (also with an
+   encoder length of 0); 36 ``flash_attention`` per prefill, then 12
+   ``paged_attention`` and 12 ``flash_attention`` per step;
+11. the cycle simulator over ``Session.trace`` of a depth-10 graph walk
    registered on a card endpoint: simulated cycles of the paper's machine
    model, not card numbers.
 
@@ -98,6 +118,12 @@ times only the attention kernels at phase 2's timed shapes, with flash's
 error at larger logits, for the ``repro_torch`` under ``DIR`` (default:
 this checkout's), one JSON line per shape: run it on two trees in turns
 (parent, change, change, parent) in one call to compare them on one card.
+
+    python3 chip_smoke.py --decode-only [--src DIR] [--label NAME]
+
+does the same for the decode steps that run no tiara: tiny-lm's
+host-resolved serving run and Jamba's ``tf.decode_step``s, one JSON line
+each.
 """
 
 from __future__ import annotations
@@ -151,6 +177,7 @@ FLASH_SEQ = {"path": 2048, "short": 256}
 LOGIT_STDS = (1, 4, 16)
 # Both serving runs: ServingEngine(max_slots=8, max_seq=2048)
 SERVE_SLOTS, SERVE_MAX_SEQ = 8, 2048
+SERVE_NEW = 32                  # tiny-lm's new tokens per request
 # Card against CPU, tiny-lm logits: both f32 (no TF32), but cuBLAS and the
 # CPU BLAS sum in other orders, and the kernels' online softmax against the
 # plain two-pass one, through 12 layers; logits are O(1).
@@ -216,6 +243,25 @@ RECURRENT_LOGIT_TOL = 2 ** -3
 # n_experts / top_k = 8, where the capacity is every token; the timed run
 # and check (b) keep the published 1.25.
 JAMBA_CHECK_CF = 8.0
+# The multimodal families whole, at their published widths, through the
+# model's entry points like Jamba's (the reference's ServingEngine refuses
+# an encoder-decoder and passes no M-RoPE ids), with RECURRENT_STEPS decode
+# steps.  Qwen2-VL-7B (arXiv:2409.12191; 28 layers, d_model 3584, 28/4
+# heads of 128, d_ff 18944, vocab 152064, M-RoPE, bf16, page 128): 8
+# requests, each an image of 16 x 16 patches (256 vision tokens at
+# Qwen2-VL's <|image_pad|> id, the embeds stub) then text, prompts of
+# 300..1024 tokens.  SeamlessM4T-medium (arXiv:2308.11596; 12 encoder and
+# 12 decoder layers, d_model 1024, 16/16 heads of 64, d_ff 4096 gelu,
+# layernorm, vocab 256206, bf16): encoder frames (8, 1024, 1024) with
+# ragged enc_lengths 256..1024, decoder prompts of 16..1024 tokens.  Each
+# model's parameter count is held to the published configuration's.
+QWEN_ARCH, SEAMLESS_ARCH = "qwen2-vl-7b", "seamless-m4t-medium"
+QWEN_PARAMS, SEAMLESS_PARAMS = 7_615_487_488, 877_260_800
+QWEN_GRID, QWEN_IMAGE_PAD = (16, 16), 151655
+QWEN_PLENS = tuple(int(n) for n in np.round(np.geomspace(300, 1024, 8)))
+SEAMLESS_S_ENC = 1024
+SEAMLESS_ENC_LENS = tuple(int(n) for n in
+                          np.round(np.geomspace(256, 1024, 8)))
 # flash_attention in bf16 issues two TF32 passes per product (bf16 K and V
 # are exact in TF32, so their small parts are 0 and those passes skipped):
 # the design's own floor, printed beside the function's bound (the bf16
@@ -702,6 +748,49 @@ def attention_only(dev, label):
     return 0
 
 
+def decode_only(dev, label):
+    """``--decode-only``: the decode steps that run no tiara, for the
+    ``repro_torch`` that ``--src`` named: tiny-lm's host-resolved serving
+    run (phase 5's weights and requests) and Jamba's ``tf.decode_step``s
+    (phase 7's, through ``model_run``); one JSON line each."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    card = card_line()
+    phase_build()
+    cfg = get_config("tiny-lm")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    eng = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
+                        max_seq=SERVE_MAX_SEQ, eos_id=-1, temperature=0.0,
+                        resolver="host", device=dev)
+    timed = _Timed(eng)
+    t = time.perf_counter()
+    for p in _tiny_prompts(cfg):
+        eng.submit(p, max_new=SERVE_NEW)
+    out = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    tokens = sum(len(v) for v in out.values())
+    log(json.dumps(dict(
+        label=label, card=card, path="tiny-lm, host-resolved serving",
+        step_ms_median=float(np.median(timed.step_ms)),
+        step_ms=timed.step_ms, prefill_ms=sum(
+            sum(v) for v in timed.prefill_ms.values()),
+        wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall)))
+    del eng, params
+    torch.cuda.empty_cache()
+    full = get_config(JAMBA_ARCH)
+    cfg = full.replace(n_layers=JAMBA_LAYERS)
+    params, _, _ = _draw_model("jamba", cfg, full, dev)
+    run = model_run("jamba", cfg, params, _recurrent_prompts(cfg, 15), dev)
+    log(json.dumps(dict(
+        label=label, card=card, path="jamba, tf.decode_step",
+        step_ms_median=float(np.median(run["step_ms"])),
+        step_ms=run["step_ms"], prefill_ms=run["prefill_ms"],
+        tokens=run["tokens"], tokens_per_s=run["tokens_per_s"])))
+    return 0
+
+
 class _Timed:
     """Wall time of an engine's prefills (by bucket) and decode steps,
     each ended by ``torch.cuda.synchronize()``, and the tiara_gather
@@ -855,6 +944,14 @@ def serve_both(tag, cfg, params, prompts, max_new, dev, *,
     return runs, gathers
 
 
+def _tiny_prompts(cfg):
+    """tiny-lm's 16 serving requests, prompts of 16..1536 tokens."""
+    rng = np.random.default_rng(11)
+    plens = rng.permutation(np.round(np.geomspace(16, 1536, 16))
+                            .astype(int))
+    return [list(map(int, rng.integers(1, cfg.vocab, n))) for n in plens]
+
+
 def phase_serving(dev):
     """tiny-lm at full width through ServingEngine, host then tiara."""
     from repro_torch.configs import get_config
@@ -870,11 +967,8 @@ def phase_serving(dev):
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
         f"{cfg.vocab}, {n_params / 1e6:.1f}M f32 params from seed 0 "
         f"({time.perf_counter() - t:.1f} s)")
-    rng = np.random.default_rng(11)
-    plens = rng.permutation(np.round(np.geomspace(16, 1536, 16))
-                            .astype(int))
-    prompts = [list(map(int, rng.integers(1, cfg.vocab, n))) for n in plens]
-    runs, gathers = serve_both("serving", cfg, params, prompts, 32, dev)
+    runs, gathers = serve_both("serving", cfg, params, _tiny_prompts(cfg),
+                               SERVE_NEW, dev)
     cpu_err = card_vs_cpu(cfg, params, dev)
     return runs, cpu_err, gathers
 
@@ -1287,6 +1381,55 @@ class _Routes:
         self._moe.moe_route = self._orig
 
 
+def _attention_shape(kernel, args, kw) -> str:
+    """The shape key of one attention call: the kernel, q's and k's
+    shapes (paged: a page's), causal, and whether keys are masked past
+    ``lengths``; a path's launches and the timed cases meet on it."""
+    if kernel == "paged":
+        q, kp = args[:2]
+        return f"paged q {list(q.shape)} page {list(kp.shape[1:])}"
+    q, k = args[:2]
+    lengths = args[3] if len(args) > 3 else kw.get("lengths")
+    return (f"flash q {list(q.shape)} k {list(k.shape)} causal "
+            f"{bool(kw.get('causal', True))} lengths "
+            f"{lengths is not None}")
+
+
+class _AttentionCalls:
+    """The model's attention launches by shape: wraps
+    ``models/attention.py``'s ``flash_attention`` and ``paged_attention``
+    and adds to ``launches[shape key]`` (``_attention_shape``) what each
+    call added to its kernel's launch count."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as fa
+        from repro_torch.kernels.paged_attention import kernel as pa
+        from repro_torch.models import attention as am
+        self.launches = {}
+        self._am = am
+        self._saved = am.flash_attention, am.paged_attention
+
+        def counted(kernel, mod, fn):
+            def call(*args, **kw):
+                n0 = mod.LAUNCHES
+                out = fn(*args, **kw)
+                key = _attention_shape(kernel, args, kw)
+                self.launches[key] = self.launches.get(key, 0) \
+                    + mod.LAUNCHES - n0
+                return out
+            return call
+        am.flash_attention = counted("flash", fa, self._saved[0])
+        am.paged_attention = counted("paged", pa, self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        self._am.flash_attention, self._am.paged_attention = self._saved
+
+    def total(self, kernel) -> int:
+        return sum(n for k, n in self.launches.items()
+                   if k.startswith(kernel))
+
+
 def _route_sets(eidx):
     """(T, K) expert ids as sorted rows: the same experts in another
     order are the same choice."""
@@ -1341,6 +1484,29 @@ class _ScanTimer:
         return sum(a.elapsed_time(b) for a, b in self.events)
 
 
+class _Extra:
+    """The inputs of a model's entry points beside the tokens, lengths,
+    caches and block tables: none for the decoder-only families.  The
+    multimodal families subclass it (``_VisionInputs``,
+    ``_AudioInputs``)."""
+
+    def cache_kw(self):
+        return {}                   # init_caches keywords
+
+    def prefill(self, s):
+        return {}                   # batch keys of a prefill of width s
+
+    def decode(self, i):
+        return {}                   # of decode step i (from 0)
+
+    def full(self, s):
+        return {}                   # of the full forward over prompt +
+        #                             token, width s
+
+
+NO_EXTRA = _Extra()
+
+
 def scan_cost(cfg, params, prompts, dev):
     """The scans' share of one more prefill and decode step (outside the
     counted main path): their device time from ``_ScanTimer`` beside the
@@ -1371,24 +1537,31 @@ def scan_cost(cfg, params, prompts, dev):
     return r
 
 
-def recurrent_run(tag, cfg, params, prompts, dev):
+def model_run(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
     """The model's main path as a user drives it: ``tf.init_caches``, the
-    prompts right-padded into one ``tf.prefill`` with ``lengths``, then
-    RECURRENT_STEPS greedy ``tf.decode_step``s, each ended by
-    ``torch.cuda.synchronize()``.  Fails unless every logit is finite,
-    ``flash_attention`` launched once per attention layer in the prefill
-    and ``paged_attention`` once per attention layer in every decode step
-    (the counts set to 0 just before the prefill and read after the last
-    step).  Then one more decode step under ``torch.profiler``, and the
-    scans' share of one more prefill and step (``scan_cost``)."""
+    prompts right-padded into one ``tf.prefill`` with ``lengths`` (and
+    ``extra``'s inputs), then RECURRENT_STEPS greedy ``tf.decode_step``s,
+    each ended by ``torch.cuda.synchronize()``.  Fails unless every logit
+    is finite, ``flash_attention`` launched once per attention layer in
+    the prefill (an encoder-decoder's: its encoder layers, then each
+    decoder layer's self and cross attention) and ``paged_attention`` once
+    per attention layer in every decode step (plus, in an
+    encoder-decoder, one cross-attention ``flash_attention`` per decoder
+    layer), the counts set to 0 just before the prefill and read after
+    the last step.  Then one more decode step under ``torch.profiler``,
+    and, for a recurrent model, the scans' share of one more prefill and
+    step (``scan_cost``)."""
     from repro_torch import kernels
     from repro_torch.models import transformer as tf
     from repro_torch.models.moe import _capacity
     n_attn = sum(s.kind == "attn" for s in cfg.pattern) * cfg.n_repeat
+    n_cross = cfg.n_layers if cfg.enc_dec else 0
+    want_prefill = n_attn + n_cross + (cfg.n_enc_layers if cfg.enc_dec
+                                       else 0)
     b, plens = len(prompts), [len(p) for p in prompts]
     s = max(plens)
     maxp = -(-(s + RECURRENT_STEPS + 1) // cfg.page_size)
-    caches = tf.init_caches(cfg, b, maxp, device=dev)
+    caches = tf.init_caches(cfg, b, maxp, device=dev, **extra.cache_kw())
     bt = tf.default_block_tables(cfg, b, maxp, device=dev)
     lengths = torch.tensor(plens, dtype=torch.int32, device=dev)
     toks = _pad(prompts, s, dev)
@@ -1396,11 +1569,12 @@ def recurrent_run(tag, cfg, params, prompts, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, step_counts, finite = [], [], []
-    with torch.no_grad(), _Routes() as routes:
+    with torch.no_grad(), _Routes() as routes, _AttentionCalls() as calls:
         kernels.reset_launch_counts()         # the main path starts here
         t = time.perf_counter()
-        out = tf.prefill(params, cfg, dict(tokens=toks, caches=caches,
-                                           block_tables=bt, lengths=lengths))
+        out = tf.prefill(params, cfg, dict(
+            extra.prefill(s), tokens=toks, caches=caches, block_tables=bt,
+            lengths=lengths))
         logits = out.logits[rows, lengths.long() - 1, :cfg.vocab]
         nxt = logits.argmax(-1)
         torch.cuda.synchronize()
@@ -1414,8 +1588,8 @@ def recurrent_run(tag, cfg, params, prompts, dev):
             c0 = kernels.launch_counts()
             t = time.perf_counter()
             out = tf.decode_step(params, cfg, dict(
-                tokens=nxt[:, None], caches=caches, block_tables=bt,
-                lengths=lengths + i))
+                extra.decode(i), tokens=nxt[:, None], caches=caches,
+                block_tables=bt, lengths=lengths + i))
             nxt = out.logits[:, 0, :cfg.vocab].argmax(-1)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t) * 1e3)
@@ -1426,14 +1600,22 @@ def recurrent_run(tag, cfg, params, prompts, dev):
     peak = torch.cuda.max_memory_allocated()
     if not all(finite):
         raise AssertionError(f"{tag}: non-finite logits")
-    if prefill_counts["flash_attention"] != n_attn \
+    if prefill_counts["flash_attention"] != want_prefill \
+            or prefill_counts["paged_attention"] \
             or any(c["paged_attention"] != n_attn
-                   or c["flash_attention"] for c in step_counts) \
+                   or c["flash_attention"] != n_cross for c in step_counts) \
             or counts["tiara_gather"]:
         raise AssertionError(
             f"{tag}: launches prefill {prefill_counts}, decode steps "
-            f"{step_counts}; expected flash_attention {n_attn} per prefill "
-            f"and paged_attention {n_attn} per decode step")
+            f"{step_counts}; expected flash_attention {want_prefill} per "
+            f"prefill, and paged_attention {n_attn} and flash_attention "
+            f"{n_cross} per decode step")
+    for k in ("flash", "paged"):
+        if calls.total(k) != counts[f"{k}_attention"]:
+            raise AssertionError(
+                f"{tag}: {counts[f'{k}_attention']} {k}_attention launches, "
+                f"{calls.total(k)} of them from the model's attention "
+                f"calls ({calls.launches})")
     dropped = 0
     moe = [sp.moe for sp in cfg.pattern if sp.moe is not None]
     if moe:
@@ -1446,16 +1628,20 @@ def recurrent_run(tag, cfg, params, prompts, dev):
     tokens = b * (1 + RECURRENT_STEPS)
     with torch.no_grad():
         prof = _profiled(lambda: tf.decode_step(params, cfg, dict(
-            tokens=nxt[:, None], caches=caches, block_tables=bt,
+            extra.decode(RECURRENT_STEPS), tokens=nxt[:, None],
+            caches=caches, block_tables=bt,
             lengths=lengths + RECURRENT_STEPS)))
     prof["busy_share_of_median_step"] = \
         prof["device_busy_ms"] / float(np.median(step_ms))
-    scans = scan_cost(cfg, params, prompts, dev)
+    del caches
+    recurrent = any(sp.kind != "attn" for sp in cfg.pattern)
+    scans = scan_cost(cfg, params, prompts, dev) if recurrent else None
     run = dict(prompts=plens, prefill_ms=prefill_s * 1e3, step_ms=step_ms,
                tokens=tokens, tokens_per_s=tokens / total_s,
                decode_tokens_per_s=b / (float(np.median(step_ms)) / 1e3),
                prefill_counts=prefill_counts,
                step_counts=step_counts[0], counts=counts,
+               attention_launches=calls.launches,
                max_memory_allocated=peak, profile=prof, scans=scans)
     if moe:
         run.update(moe_capacity=cap, dropped_real_assignments=dropped,
@@ -1470,19 +1656,21 @@ def recurrent_run(tag, cfg, params, prompts, dev):
         f"{run['decode_tokens_per_s']:.1f} tokens/s); peak "
         f"max_memory_allocated {peak / 1e9:.2f} GB")
     log(f"[{tag}] launches: prefill {prefill_counts}, each decode step "
-        f"{step_counts[0]}")
+        f"{step_counts[0]}; by shape over the run: {calls.launches}")
     if moe:
         log(f"[{tag}] MoE at capacity factor {moe[0].capacity_factor} "
             f"(capacity {cap} of {b * s} prefill tokens, padding included): "
             f"{dropped} of {run['real_assignments']} expert assignments of "
             f"real tokens dropped in the prefill's {n_prefill_routes} MoE "
             f"layers")
-    log(f"[{tag}] the recurrent scans (one more prefill and decode step, "
-        f"CUDA events around each of {scans['prefill']['scan_calls']} scan "
-        f"calls): prefill {scans['prefill']['scan_ms']:.1f} of "
-        f"{scans['prefill']['wall_ms']:.1f} ms, decode step "
-        f"{scans['decode']['scan_ms']:.2f} of "
-        f"{scans['decode']['wall_ms']:.2f} ms")
+    if scans is not None:
+        log(f"[{tag}] the recurrent scans (one more prefill and decode "
+            f"step, CUDA events around each of "
+            f"{scans['prefill']['scan_calls']} scan calls): prefill "
+            f"{scans['prefill']['scan_ms']:.1f} of "
+            f"{scans['prefill']['wall_ms']:.1f} ms, decode step "
+            f"{scans['decode']['scan_ms']:.2f} of "
+            f"{scans['decode']['wall_ms']:.2f} ms")
     log(f"[{tag}] one profiled decode step: {prof['wall_ms']:.2f} ms wall, "
         f"device busy {prof['device_busy_ms']:.2f} ms "
         f"({prof['busy_share']:.1%}; {prof['busy_share_of_median_step']:.1%} "
@@ -1520,7 +1708,7 @@ def hold_logits(tag, check, got, want):
     return r
 
 
-def check_full_forward(tag, cfg, params, prompts, dev):
+def check_full_forward(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
     """Check (a), the chip's analogue of
     ``test_prefill_decode_matches_full_forward``: prefill (right-padded,
     ``lengths``) then one decode step of each prompt's greedy token; the
@@ -1534,20 +1722,21 @@ def check_full_forward(tag, cfg, params, prompts, dev):
     b, plens = len(prompts), [len(p) for p in prompts]
     s = max(plens)
     maxp = -(-(s + 1) // cfg.page_size)
-    caches = tf.init_caches(cfg, b, maxp, device=dev)
+    caches = tf.init_caches(cfg, b, maxp, device=dev, **extra.cache_kw())
     bt = tf.default_block_tables(cfg, b, maxp, device=dev)
     lengths = torch.tensor(plens, dtype=torch.int32, device=dev)
     toks = _pad(prompts, s + 1, dev)
     rows = torch.arange(b, device=dev)
     with torch.no_grad(), _Routes() as routes:
-        out = tf.prefill(params, cfg, dict(tokens=toks[:, :s], caches=caches,
-                                           block_tables=bt, lengths=lengths))
+        out = tf.prefill(params, cfg, dict(
+            extra.prefill(s), tokens=toks[:, :s], caches=caches,
+            block_tables=bt, lengths=lengths))
         nxt = out.logits[rows, lengths.long() - 1, :cfg.vocab].argmax(-1)
         del out
         n_moe = len(routes.own)               # MoE calls per forward
         dec = tf.decode_step(params, cfg, dict(
-            tokens=nxt[:, None], caches=caches, block_tables=bt,
-            lengths=lengths)).logits[:, 0, :cfg.vocab]
+            extra.decode(0), tokens=nxt[:, None], caches=caches,
+            block_tables=bt, lengths=lengths)).logits[:, 0, :cfg.vocab]
         # the full forward's expert choices: the prefill's at the prompt,
         # the decode step's at the token (its own past the token)
         pinned = []
@@ -1560,8 +1749,10 @@ def check_full_forward(tag, cfg, params, prompts, dev):
         routes.pin = lambda i, own: torch.where(
             real[:, None], pinned[i - 2 * n_moe], own)
         toks[rows, lengths.long()] = nxt
-        full = tf.apply_model(params, cfg, {"tokens": toks}, mode="train") \
-            .logits[rows, lengths.long(), :cfg.vocab]
+        full = tf.apply_model(params, cfg, dict(extra.full(s + 1),
+                                                tokens=toks),
+                              mode="train").logits[rows, lengths.long(),
+                                                    :cfg.vocab]
         flipped = sum(
             int(((_route_sets(routes.own[2 * n_moe + i])
                   != _route_sets(pinned[i])).any(-1) & real).sum())
@@ -1583,7 +1774,7 @@ def _real_mask(b, s, lengths, dev):
         .reshape(-1)
 
 
-def jamba_logits(cfg, params, prompts, dev):
+def kernel_logits(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
     """Check (b): the prefill logits with the CUDA attention kernels
     against the same model with the plain versions, on the card, at every
     real position of the 8 right-padded prompts; the plain run takes the
@@ -1613,8 +1804,9 @@ def jamba_logits(cfg, params, prompts, dev):
                     n = len(routes.own)
                     routes.pin = lambda i, own: routes.own[i - n]
                 got[name] = tf.prefill(params, kcfg, dict(
-                    tokens=_pad(prompts, s, dev),
-                    caches=tf.init_caches(cfg, b, maxp, device=dev),
+                    extra.prefill(s), tokens=_pad(prompts, s, dev),
+                    caches=tf.init_caches(cfg, b, maxp, device=dev,
+                                          **extra.cache_kw()),
                     block_tables=tf.default_block_tables(cfg, b, maxp,
                                                          device=dev),
                     lengths=lengths)).logits[..., :cfg.vocab] \
@@ -1627,87 +1819,140 @@ def jamba_logits(cfg, params, prompts, dev):
             n_flip = int((flipped & real).sum())
     finally:
         am.flash_attention = saved
-    r = hold_logits("jamba", "check (b), prefill logits with the CUDA "
+    r = hold_logits(tag, "check (b), prefill logits with the CUDA "
                     "kernels vs the plain versions on the card",
                     got["cuda"], got["plain"])
     r["routes_pinned"] = n_flip
-    log(f"[jamba] check (b): {n_flip} positions whose own route in the "
-        f"plain run differed in some layer (pinned to the kernel run's)")
+    if n:
+        log(f"[{tag}] check (b): {n_flip} positions whose own route in the "
+            f"plain run differed in some layer (pinned to the kernel "
+            f"run's)")
     del got
     torch.cuda.empty_cache()
     return r
 
 
-def jamba_kernels(cfg, plens, dev, scratch):
-    """paged_attention and flash_attention at Jamba's path shapes in bf16
-    (the last decode step of the 8 requests over pages of 128; the
-    8-request causal prefill at the longest prompt) against their plain
-    versions within SCOUT_ATTN_TOL (the same two-ulp bound, for the same
-    reason), two calls giving the same bits; times, bounds and SDPA."""
+def attention_cases(tag, cases, dev, scratch):
+    """Each ``(label, kernel, args, kw)`` in ``cases`` — paged (q, pages,
+    tables, lengths) or flash (q, k, v) with ``kw`` its ``lengths`` and
+    ``causal`` — launched on the card against its plain version within
+    SCOUT_ATTN_TOL (two bf16 ulps: kernel and plain version compute in
+    f32 and round once), two calls giving the same bits; then its time,
+    the plain version's, its bound over this data (the live keys only)
+    and, for flash, PyTorch's ``scaled_dot_product_attention`` on the
+    same inputs (a boolean mask when keys are masked past ``lengths``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     from repro_torch.kernels.paged_attention import paged_attention
     bf = torch.bfloat16
-    qh, kvh, d, page = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
-        cfg.page_size
-    b, s = len(plens), max(plens)
-    maxp = -(-(s + RECURRENT_STEPS + 1) // page)
-    rng = np.random.default_rng(32)
-    lens = [n + RECURRENT_STEPS for n in plens]  # the last decode step's
-    q = _randn(rng, (b, qh, d), bf, dev)
-    k = _randn(rng, (b * maxp, page, kvh, d), bf, dev)
-    v = _randn(rng, (b * maxp, page, kvh, d), bf, dev)
-    bt = torch.from_numpy(rng.permutation(b * maxp).reshape(b, maxp)
-                          .astype(np.int32)).to(dev)
-    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
     res = {}
-    for kernel, fn, plain, args in (
-            ("paged", paged_attention, _paged_plain, (q, k, v, bt, ln)),
-            ("flash", flash_attention, flash_attention_ref, tuple(
-                _randn(rng, (b, h, s, d), bf, dev)
-                for h in (qh, kvh, kvh)))):
-        name = f"{kernel}_attention (Jamba path shape, bf16)"
-        out, ref = fn(*args), plain(*args)
+    for label, kernel, args, kw in cases:
+        name = f"{kernel}_attention ({tag}, {label}, bf16)"
+        if kernel == "paged":
+            q, kp, _, _, ln = args
+            b, qh, d = q.shape
+            kvh = kp.shape[2]
+
+            def fn(args=args):
+                return paged_attention(*args)
+
+            def plain(args=args):
+                return _paged_plain(*args)
+            live = int(ln.sum())
+            r = dict(shape=list(q.shape) + list(kp.shape),
+                     lengths=ln.tolist(), library_ms=None)
+            moved = live * kvh * d * 2 * 2 + 2 * q.numel() * 2
+            flops = 4 * live * d * qh
+        else:
+            q, k, v = args
+            ln, causal = kw.get("lengths"), kw["causal"]
+            b, qh, sq, d = q.shape
+            kvh, sk = k.shape[1], k.shape[2]
+
+            def fn(args=args, kw=kw):
+                return flash_attention(*args, **kw)
+
+            def plain(args=args, kw=kw):
+                return flash_attention_ref(*args, **kw)
+            mask = None
+            if ln is not None:
+                mask = (torch.arange(sk, device=dev)[None]
+                        < ln[:, None])[:, None, None, :]
+            keys = b * sk if ln is None else int(ln.clamp(max=sk).sum())
+            pairs = b * sq * (sq + 1) // 2 if causal else sq * keys
+            flops = 4 * pairs * d * qh
+            moved = 2 * q.numel() * 2 + keys * kvh * d * 2 * 2
+            r = dict(shape=list(q.shape) + list(k.shape), causal=causal,
+                     lengths=None if ln is None else ln.tolist())
+
+            def sdpa(q=q, k=k, v=v, mask=mask, causal=causal):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, is_causal=causal,
+                    enable_gqa=q.shape[1] != k.shape[1])
+            r["library_ms"] = time_cuda(sdpa, scratch)
+        r["key"] = _attention_shape(kernel, args, kw)
+        out, ref = fn(), plain()
         torch.cuda.synchronize()
         err = _check_close(name, out, ref, bf, SCOUT_ATTN_TOL)
         share = _limit_share(out, ref, SCOUT_ATTN_TOL)
-        _check_same_bits(name, lambda: fn(*args))
-        r = dict(max_abs_err=err, limit_share=share,
-                 ms=time_cuda(lambda: fn(*args), scratch),
-                 plain_ms=time_cuda(lambda: plain(*args), scratch))
-        if kernel == "paged":
-            r["bytes_moved"] = sum(lens) * kvh * d * 2 * 2 \
-                + 2 * q.numel() * 2
-            r["bound_ms"] = r["bytes_moved"] / HBM_BYTES_PER_S * 1e3
-            r["bound_by"], r["library_ms"] = "bytes", None
-            r.update(shape=list(q.shape) + list(k.shape), lengths=lens)
-            log(f"[jamba] paged_attention, q {tuple(q.shape)} pages "
-                f"{tuple(k.shape)} lengths {lens} bf16: max err {err:.3g} = "
-                f"{share:.3f} of the limit, two calls same bits; kernel "
-                f"{r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} "
-                f"us, bound {r['bound_ms'] * 1e3:.2f} us (bytes)")
-        else:
-            fq, fk, fv = args
-            r["library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(
-                fq, fk, fv, is_causal=True, enable_gqa=True), scratch)
-            r["flops"] = 2 * 2 * b * (s * (s + 1) // 2) * d * qh
-            moved = (2 * fq.numel() + 2 * fk.numel()) * 2
-            r["bound_ms"] = max(r["flops"] / BF16_FLOPS_PER_S,
-                                moved / HBM_BYTES_PER_S) * 1e3
-            r["bound_by"] = "operations"
-            r["shape"] = list(fq.shape) + list(fk.shape)
-            log(f"[jamba] flash_attention, q {tuple(fq.shape)} k/v "
-                f"{tuple(fk.shape)} causal bf16: max err {err:.3g} = "
-                f"{share:.3f} of the limit, two calls same bits; kernel "
-                f"{r['ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} "
-                f"us, sdpa {r['library_ms'] * 1e3:.1f} us, bound "
-                f"{r['bound_ms'] * 1e3:.1f} us (operations, "
-                f"{r['flops'] / 1e9:.2f} GFLOP at the bf16 rate)")
-        res[kernel] = r
-        del out, ref, args
+        _check_same_bits(name, fn)
+        del out, ref
+        t_ops, t_bytes = flops / BF16_FLOPS_PER_S, moved / HBM_BYTES_PER_S
+        r.update(max_abs_err=err, limit_share=share,
+                 ms=time_cuda(fn, scratch), plain_ms=time_cuda(plain, scratch),
+                 flops=flops, bytes_moved=moved,
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops > t_bytes else "bytes")
+        lib = "" if r["library_ms"] is None else \
+            f", sdpa {r['library_ms'] * 1e3:.2f} us"
+        log(f"[{tag}] {kernel}_attention, {label}: shapes {r['shape']}"
+            + ("" if kernel == "paged" else f", causal {r['causal']}")
+            + (f", lengths {r['lengths']}" if r["lengths"] else "")
+            + f": max err {err:.3g} = {share:.3f} of the limit, two calls "
+            f"same bits; kernel {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us{lib}, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
+            f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)")
+        res[label] = r
     torch.cuda.empty_cache()
     return res
+
+
+def _paged_case(cfg, lens, dev, rng):
+    """paged_attention's inputs at the last decode step of requests with
+    ``lens`` live tokens: q (b, QH, D) and a pool of pages of the model's
+    page size in a shuffled identity table, bf16."""
+    b, page = len(lens), cfg.page_size
+    maxp = -(-(max(lens) + 1) // page)
+    shape = (b * maxp, page, cfg.n_kv_heads, cfg.head_dim)
+    return (_randn(rng, (b, cfg.n_heads, cfg.head_dim), torch.bfloat16, dev),
+            _randn(rng, shape, torch.bfloat16, dev),
+            _randn(rng, shape, torch.bfloat16, dev),
+            torch.from_numpy(rng.permutation(b * maxp).reshape(b, maxp)
+                             .astype(np.int32)).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def _flash_case(cfg, b, sq, sk, dev, rng):
+    """flash_attention's q (b, QH, sq, D) and k/v (b, KVH, sk, D), bf16."""
+    return tuple(_randn(rng, (b, h, n, cfg.head_dim), torch.bfloat16, dev)
+                 for h, n in ((cfg.n_heads, sq), (cfg.n_kv_heads, sk),
+                              (cfg.n_kv_heads, sk)))
+
+
+def jamba_kernels(cfg, plens, dev, scratch):
+    """paged_attention and flash_attention at Jamba's path shapes in bf16
+    (the last decode step of the 8 requests over pages of 128; the
+    8-request causal prefill at the longest prompt) through
+    ``attention_cases``."""
+    rng = np.random.default_rng(32)
+    b, s = len(plens), max(plens)
+    return attention_cases("jamba", [
+        ("paged", "paged", _paged_case(
+            cfg, [n + RECURRENT_STEPS for n in plens], dev, rng), {}),
+        ("flash", "flash", _flash_case(cfg, b, s, s, dev, rng),
+         {"causal": True})], dev, scratch)
 
 
 def _draw_model(tag, cfg, full, dev):
@@ -1755,7 +2000,7 @@ def phase_jamba(dev):
     kern = jamba_kernels(cfg, [len(p) for p in prompts], dev, scratch)
     del scratch
     torch.cuda.empty_cache()
-    run = recurrent_run("jamba", cfg, params, prompts, dev)
+    run = model_run("jamba", cfg, params, prompts, dev)
     torch.cuda.empty_cache()
     check_cfg = cfg.replace(pattern=tuple(
         sp if sp.moe is None else dataclasses.replace(
@@ -1764,14 +2009,14 @@ def phase_jamba(dev):
         for sp in cfg.pattern))
     full_fwd = check_full_forward("jamba", check_cfg, params, prompts, dev)
     torch.cuda.empty_cache()
-    logits = jamba_logits(cfg, params, prompts, dev)
+    logits = kernel_logits("jamba", cfg, params, prompts, dev)
     return dict(n_params=n_params, weight_bytes=n_bytes, kernels=kern,
                 run=run, check_a=full_fwd, check_b=logits)
 
 
 def phase_rwkv(dev):
     """RWKV-6 1.6B whole: the main path and check (a).  Attention-free: no
-    kernel of the port runs on this path (``recurrent_run`` checks that
+    kernel of the port runs on this path (``model_run`` checks that
     neither attention kernel launched)."""
     from repro_torch.configs import get_config
     cfg = get_config(RWKV_ARCH)
@@ -1781,11 +2026,203 @@ def phase_rwkv(dev):
         f"{cfg.d_ff}, {cfg.norm}; no reduction")
     params, n_params, n_bytes = _draw_model("rwkv", cfg, cfg, dev)
     prompts = _recurrent_prompts(cfg, 16)
-    run = recurrent_run("rwkv", cfg, params, prompts, dev)
+    run = model_run("rwkv", cfg, params, prompts, dev)
     torch.cuda.empty_cache()
     full_fwd = check_full_forward("rwkv", cfg, params, prompts, dev)
     return dict(n_params=n_params, weight_bytes=n_bytes, run=run,
                 check_a=full_fwd)
+
+
+class _VisionInputs(_Extra):
+    """Qwen2-VL's inputs beside the tokens: each request's image of
+    QWEN_GRID patches, its first tokens, as precomputed embeddings (the
+    vision stub's ``embeds``, random from a seed, 0 on text), and the
+    M-RoPE ids by the Qwen2-VL rule (``get_rope_index`` in the public
+    Qwen2-VL code): (t, h, w) = (0, row, col) on the image, then the text
+    from the largest id + 1 on all three streams; decode continues each
+    request from its own next id."""
+
+    def __init__(self, cfg, plens, dev, seed):
+        gh, gw = QWEN_GRID
+        nv = gh * gw
+        b, s = len(plens), max(plens)
+        width = s + RECURRENT_STEPS + 2
+        i = np.arange(nv)
+        pos = np.empty((3, b, width), np.int64)
+        pos[:, :, :nv] = np.stack([0 * i, i // gw, i % gw])[:, None]
+        pos[:, :, nv:] = max(gh, gw) + np.arange(width - nv)
+        self.pos = torch.from_numpy(pos).to(dev)
+        self.lengths = torch.tensor(plens, device=dev)
+        self.rows = torch.arange(b, device=dev)
+        gen = torch.Generator(dev).manual_seed(seed)
+        self.emb = torch.zeros((b, s, cfg.d_model), dtype=torch.bfloat16,
+                               device=dev)
+        self.emb[:, :nv] = torch.randn((b, nv, cfg.d_model), generator=gen,
+                                       device=dev).to(torch.bfloat16)
+
+    def prefill(self, s):
+        return {"positions3": self.pos[:, :, :s], "embeds": self.emb[:, :s]}
+
+    def decode(self, i):
+        return {"positions3": self.pos[:, self.rows, self.lengths + i]
+                [:, :, None]}
+
+    def full(self, s):
+        e = self.emb.new_zeros(self.emb.shape[:1] + (s,)
+                               + self.emb.shape[2:])
+        e[:, :self.emb.shape[1]] = self.emb
+        return {"positions3": self.pos[:, :, :s], "embeds": e}
+
+
+class _AudioInputs(_Extra):
+    """SeamlessM4T's inputs beside the tokens: the audio stub's encoder
+    frames ``enc_embeds`` (b, SEAMLESS_S_ENC, d_model), random from a
+    seed, right-padded to ragged ``enc_lengths``; the decoder's caches hold
+    SEAMLESS_S_ENC positions of cross KV."""
+
+    def __init__(self, cfg, b, dev, seed):
+        gen = torch.Generator(dev).manual_seed(seed)
+        self.enc = torch.randn((b, SEAMLESS_S_ENC, cfg.d_model),
+                               generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        rng = np.random.default_rng(seed)
+        self.enc_lengths = torch.tensor(rng.permutation(SEAMLESS_ENC_LENS),
+                                        dtype=torch.int32, device=dev)
+
+    def cache_kw(self):
+        return {"cross_len": SEAMLESS_S_ENC}
+
+    def prefill(self, s):
+        return {"enc_embeds": self.enc, "enc_lengths": self.enc_lengths}
+
+    def decode(self, i):
+        return {"enc_lengths": self.enc_lengths}
+
+    def full(self, s):
+        return self.prefill(s)
+
+
+def multimodal_phase(tag, cfg, prompts, extra, kernel_cases, dev,
+                     n_params_published):
+    """One multimodal model whole at its published widths: its weights
+    drawn on the card (their count held to the published one), the
+    attention kernels at its path shapes (``attention_cases``), the main
+    path (``model_run``), check (a) (``check_full_forward``) and check
+    (b) (``kernel_logits``)."""
+    params, n_params, n_bytes = _draw_model(tag, cfg, cfg, dev)
+    if n_params != n_params_published:
+        raise AssertionError(f"{tag}: {n_params} parameters, expected "
+                             f"{n_params_published}")
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    kern = attention_cases(tag, kernel_cases, dev, scratch)
+    del scratch
+    torch.cuda.empty_cache()
+    run = model_run(tag, cfg, params, prompts, dev, extra)
+    torch.cuda.empty_cache()
+    full_fwd = check_full_forward(tag, cfg, params, prompts, dev, extra)
+    torch.cuda.empty_cache()
+    logits = kernel_logits(tag, cfg, params, prompts, dev, extra)
+    return dict(n_params=n_params, weight_bytes=n_bytes, kernels=kern,
+                run=run, check_a=full_fwd, check_b=logits)
+
+
+def phase_qwen(dev):
+    """Qwen2-VL-7B whole: 8 requests, each an image prefix of 256 vision
+    tokens (the embeds stub) then text, prompts of 300..1024 tokens, with
+    M-RoPE over distinct t/h/w streams (``_VisionInputs``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(QWEN_ARCH)
+    log(f"[qwen] {cfg.name} whole: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, M-RoPE "
+        f"sections {cfg.mrope_sections} theta {cfg.rope_theta:g}, page "
+        f"{cfg.page_size}; no reduction; images of {QWEN_GRID[0]} x "
+        f"{QWEN_GRID[1]} patches")
+    rng = np.random.default_rng(17)
+    nv = QWEN_GRID[0] * QWEN_GRID[1]
+    prompts = [[QWEN_IMAGE_PAD] * nv
+               + list(map(int, rng.integers(1, cfg.vocab, n - nv)))
+               for n in rng.permutation(QWEN_PLENS)]
+    plens = [len(p) for p in prompts]
+    extra = _VisionInputs(cfg, plens, dev, 17)
+    s, b = max(plens), len(plens)
+    rng = np.random.default_rng(33)
+    cases = [
+        ("decode self attention", "paged",
+         _paged_case(cfg, [n + RECURRENT_STEPS for n in plens], dev, rng),
+         {}),
+        ("prefill self attention", "flash",
+         _flash_case(cfg, b, s, s, dev, rng), {"causal": True})]
+    return multimodal_phase("qwen", cfg, prompts, extra, cases, dev,
+                            QWEN_PARAMS)
+
+
+def phase_seamless(dev):
+    """SeamlessM4T-medium whole: encoder frames of SEAMLESS_S_ENC with
+    ragged ``enc_lengths`` (``_AudioInputs``), decoder prompts of 16..1024
+    tokens."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SEAMLESS_ARCH)
+    log(f"[seamless] {cfg.name} whole: {cfg.n_enc_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff} {cfg.pattern[0].mlp}, {cfg.norm}, vocab {cfg.vocab} "
+        f"(padded {cfg.vocab_padded}), page {cfg.page_size}; no "
+        f"reduction; {SEAMLESS_S_ENC} encoder frames, enc_lengths "
+        f"{min(SEAMLESS_ENC_LENS)}..{max(SEAMLESS_ENC_LENS)}")
+    prompts = _recurrent_prompts(cfg, 18)
+    plens = [len(p) for p in prompts]
+    s, b = max(plens), len(plens)
+    extra = _AudioInputs(cfg, b, dev, 18)
+    enc_len = extra.enc_lengths
+    with_0 = enc_len.clone()
+    with_0[1] = 0
+    rng = np.random.default_rng(34)
+    cross = _flash_case(cfg, b, s, SEAMLESS_S_ENC, dev, rng)
+    cross_1 = (cross[0][:, :, :1].contiguous(),) + cross[1:]
+    cases = [
+        ("decode self attention", "paged",
+         _paged_case(cfg, [n + RECURRENT_STEPS for n in plens], dev, rng),
+         {}),
+        ("encoder self attention", "flash",
+         _flash_case(cfg, b, SEAMLESS_S_ENC, SEAMLESS_S_ENC, dev, rng),
+         {"causal": False}),
+        ("prefill self attention", "flash",
+         _flash_case(cfg, b, s, s, dev, rng), {"causal": True}),
+        ("prefill cross attention", "flash", cross,
+         {"causal": False, "lengths": enc_len}),
+        ("decode cross attention", "flash", cross_1,
+         {"causal": False, "lengths": enc_len}),
+        ("decode cross attention, an encoder length of 0", "flash", cross_1,
+         {"causal": False, "lengths": with_0})]
+    return multimodal_phase("seamless", cfg, prompts, extra, cases, dev,
+                            SEAMLESS_PARAMS)
+
+
+def multimodal_rows(qwen, seamless, paged, flash):
+    """The kernels line's rows of the multimodal paths' shapes: one for
+    each shape that a path's main run launched, with the launches counted
+    there (``_AttentionCalls``) and the times of the timed case of the
+    same shape.  Fails if a path launched a shape that no case timed."""
+    rows = []
+    for tag, ph in (("qwen", qwen), ("seamless", seamless)):
+        cases = {}
+        for label, r in ph["kernels"].items():
+            cases.setdefault(r["key"], (label, r))
+        for key, n in ph["run"]["attention_launches"].items():
+            if key not in cases:
+                raise AssertionError(f"{tag}: the main path launched {key}, "
+                                     f"which no timed case covers")
+            label, r = cases[key]
+            base = paged if key.startswith("paged") else flash
+            rows.append(dict(
+                name=base["name"], route=base["route"],
+                source=base["source"], replaces=base["replaces"],
+                launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                shape=f"{tag} {label}: {key}"))
+    return rows
 
 
 def phase_simulator(dev):
@@ -2010,23 +2447,30 @@ def main() -> int:
     ap.add_argument("--attention-only", action="store_true",
                     help="only time the attention kernels at the timed "
                          "shapes and print one JSON line per shape")
-    ap.add_argument("--src", help="with --attention-only: the src "
-                    "directory whose repro_torch is timed (another tree, "
-                    "e.g. a parent commit unpacked with git archive)")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="only time the decode steps that run no tiara "
+                         "(tiny-lm host serving, Jamba) and print one JSON "
+                         "line per path")
+    ap.add_argument("--src", help="with --attention-only or --decode-only: "
+                    "the src directory whose repro_torch is timed (another "
+                    "tree, e.g. a parent commit unpacked with git archive)")
     ap.add_argument("--label", default="this tree",
-                    help="with --attention-only: the name of the tree")
+                    help="with --attention-only or --decode-only: the name "
+                         "of the tree")
     args = ap.parse_args()
-    if args.src and not args.attention_only:
-        ap.error("--src needs --attention-only")
+    if args.src and not (args.attention_only or args.decode_only):
+        ap.error("--src needs --attention-only or --decode-only")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
     if args.attention_only:
-        if args.src:
-            sys.path.insert(0, os.path.abspath(args.src))
         return attention_only(dev, args.label)
+    if args.decode_only:
+        return decode_only(dev, args.label)
     from repro_torch import kernels
 
     card = card_line()
@@ -2058,6 +2502,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rwkv = phase_rwkv(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen = phase_qwen(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seamless = phase_seamless(dev)
     simulated = phase_simulator(dev)
     serving = {k: sum(r["counts"][k] for r in runs.values())
                for k in counts}
@@ -2074,10 +2524,17 @@ def main() -> int:
     jamba_counts = jamba["run"]["counts"]
     log(f"[launches] Jamba path (prefill + {RECURRENT_STEPS} decode steps): "
         f"{jamba_counts}")
+    for tag, ph in (("Qwen2-VL", qwen), ("SeamlessM4T", seamless)):
+        log(f"[launches] {tag} path (prefill + {RECURRENT_STEPS} decode "
+            f"steps): {ph['run']['counts']}")
+    model_paths = [jamba_counts] + [ph["run"]["counts"]
+                                    for ph in (qwen, seamless)]
     paged["launches"] = serving["paged_attention"] \
-        + scout_counts["paged_attention"] + jamba_counts["paged_attention"]
+        + scout_counts["paged_attention"] \
+        + sum(c["paged_attention"] for c in model_paths)
     flash["launches"] = serving["flash_attention"] \
-        + scout_counts["flash_attention"] + jamba_counts["flash_attention"]
+        + scout_counts["flash_attention"] \
+        + sum(c["flash_attention"] for c in model_paths)
 
     # tiara_gather at the serving resolvers' own shapes, as recorded
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
@@ -2115,12 +2572,18 @@ def main() -> int:
                                        if k != "out"}
                                    for r, run in scout["runs"].items()},
                        "logits": scout["logits"]},
-                   "jamba": jamba, "rwkv": rwkv, "simulator": simulated},
+                   "jamba": jamba, "rwkv": rwkv, "qwen": qwen,
+                   "seamless": seamless, "simulator": simulated},
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: ki[k] for k in keys}
-                                for ki in (kinfo, paged, flash)]}))
+    rows = [dict({k: ki[k] for k in keys}, shape="all paths; timed at "
+                 + label) for ki, label in (
+                     (kinfo, "the endpoint path's 4096 rows of 8 KiB"),
+                     (paged, "tiny-lm's decode step"),
+                     (flash, "tiny-lm's 2048-token prefill"))]
+    rows += multimodal_rows(qwen, seamless, paged, flash)
+    log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

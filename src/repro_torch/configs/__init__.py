@@ -6,8 +6,9 @@ decoder-only attention architectures the serving engine runs — ``tiny-lm``,
 the dense models (InternLM2, Granite-3, StableLM-2, Nemotron-4) and the
 Llama-4 MoE models (Scout, Maverick) — and the recurrent families, which
 run through the model's entry points (``init_caches``, ``prefill``,
-``decode_step``): the hybrid Jamba and the attention-free RWKV-6.  The
-encoder-decoder and vision families join with their layers.
+``decode_step``): the hybrid Jamba and the attention-free RWKV-6 — and the
+multimodal families, which run there too: Qwen2-VL (M-RoPE, a vision
+stub) and the encoder-decoder SeamlessM4T (an audio stub).
 
 The JAX reference's mesh and compiler knobs (``dp_spec``, ``remat``,
 ``remat_unit``, ``scan_layers``) have no counterpart here: PyTorch runs
@@ -105,6 +106,8 @@ _MODULES = {
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
     "rwkv6-1.6b": "rwkv6_1_6b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "tiny-lm": "tiny_lm",
 }
 

@@ -1,8 +1,8 @@
 """Carry the reference's state into the port.
 
 The Tiara state is the memory pool and the encoded operator programs;
-the serving stack adds model weights and the decode caches (paged KV
-and the recurrent states).  The reference
+the serving stack adds model weights and the decode caches (paged KV,
+the recurrent states and the cross-attention KV).  The reference
 keeps pools and programs as plain numpy
 (``int64[n_devices, pool_words]`` pools, ``int64[n, INSTR_WIDTH]``
 instruction words), so carrying them across needs no import of the
@@ -116,20 +116,20 @@ def caches_from_numpy(caches, device=None):
     """The reference's decode caches — a tuple of ``BlockCache`` per
     pattern element, each leaf stacked ``(n_repeat, ...)``: the ``paged``
     pools, the ``mamba`` (h, conv) and the ``rwkv`` (state, x_time,
-    x_chan) states, whichever the layer has — as the port's caches on
-    ``device``.  Numpy leaves or JAX arrays (read through
-    ``np.asarray``) both cross."""
+    x_chan) states, and an encoder-decoder's ``cross_k`` / ``cross_v``,
+    whichever the layer has — as the port's caches on ``device``.  Numpy
+    leaves or JAX arrays (read through ``np.asarray``) both cross."""
     fields = (("paged", PagedKV), ("mamba", MambaCache), ("rwkv", RWKVCache))
     out = []
     for c in caches:
-        if getattr(c, "cross_k", None) is not None:
-            raise NotImplementedError(
-                "cross-attention caches come with the port's slice of the "
-                "encoder-decoder models")
         kw = {}
         for name, kind in fields:
             f = getattr(c, name)
             if f is not None:
                 kw[name] = kind(*params_from_numpy(tuple(f), device))
+        for name in ("cross_k", "cross_v"):
+            f = getattr(c, name, None)
+            if f is not None:
+                kw[name] = params_from_numpy(f, device)
         out.append(BlockCache(**kw))
     return tuple(out)

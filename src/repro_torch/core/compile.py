@@ -874,14 +874,11 @@ class _Tracer:
         """``out[b, w] = memf[starts[b] + ((offs[b] + w) & mask)]`` for
         ``w < width``: the ``tiara_gather`` kernel's window form on a card
         pool, its plain version on a CPU pool.  Masking the offsets keeps
-        every index inside the region, the kernel's precondition."""
-        if mask >= 1 << 31:
-            raise NotImplementedError(
-                "MEMCPY regions above 2**31 words do not fit the kernel's "
-                "int32 offsets")
+        every index inside the region, the kernel's precondition; they
+        stay int64, as a region may hold 2**31 words or more."""
         n = int(offs.shape[0])
         return tiara_gather_window(
-            self.memf, (offs & mask).to(torch.int32), starts.contiguous(),
+            self.memf, (offs & mask).contiguous(), starts.contiguous(),
             torch.arange(n, dtype=torch.int32, device=self.dev),
             width=width, mask=mask, impl=self.impl)
 

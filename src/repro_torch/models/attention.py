@@ -14,7 +14,7 @@ a copy per layer per step would dominate the decode.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,19 +53,28 @@ def _position_encode(q, k, cfg, positions, positions3):
 
 
 def attention_full(params, x, cfg, *, positions=None, positions3=None,
-                   lengths=None, causal=True):
+                   lengths=None, causal=True,
+                   kv_override: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None):
     """Training / prefill attention over the whole sequence.
 
     Returns (out, (k, v)) with k/v in (B, S, KVH, hd) layout (post-RoPE) so
-    the caller can page them for serving.  (The reference's
-    ``kv_override`` for cross attention comes with the encoder-decoder
-    models.)"""
+    the caller can page them for serving.  ``kv_override`` supplies
+    precomputed cross-attention KV (B, S_enc, KVH, hd) (encoder-decoder):
+    k and v come from it and neither side is rotated.  (The reference
+    still projects ``x`` to k and v there and drops the result; the port
+    skips those two products.)"""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None]
-    q, k, v = _qkv(params, x, nh, nkv, hd)
-    q, k = _position_encode(q, k, cfg, positions, positions3)
+    if kv_override is not None:
+        q = (x @ params["wq"]).reshape(b, s, nh, hd)
+        k, v = kv_override
+    else:
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device)[None]
+        q, k, v = _qkv(params, x, nh, nkv, hd)
+        q, k = _position_encode(q, k, cfg, positions, positions3)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), lengths, causal=causal,
                           impl=cfg.attn_impl)

@@ -1,8 +1,9 @@
 """Layer blocks: norm + mixer (attn/mamba/rwkv) + norm + FFN (mlp/moe/cm).
 
-The reference's ``block_defs``/``block_apply`` pair covers every assigned
-architecture; the port has every branch but cross attention, which raises
-until the slice that ports the encoder-decoder path.
+The reference's ``block_defs``/``block_apply`` pair covers every
+architecture, and so does the port's: the attention, Mamba and RWKV mixers,
+the dense, MoE and channel-mix FFNs, and the decoder's cross attention of
+an encoder-decoder model.
 """
 
 from __future__ import annotations
@@ -19,14 +20,9 @@ from repro_torch.models.attention import PagedKV
 from repro_torch.models.layers import apply_norm, mlp, mlp_defs, norm_defs
 from repro_torch.models.moe import moe_apply, moe_defs
 
-_CROSS = ("cross attention (encoder-decoder) comes with the port's slice of "
-          "the encoder-decoder models")
-
 
 def block_defs(cfg: ArchConfig, spec: LayerSpec, *, cross: bool = False):
     d = cfg.d_model
-    if cross:
-        raise NotImplementedError(_CROSS)
     defs: Dict[str, Any] = {"norm1": norm_defs(cfg.norm, d)}
     if spec.kind == "attn":
         defs["mix"] = attn_mod.attn_defs(d, cfg.n_heads, cfg.n_kv_heads,
@@ -37,6 +33,10 @@ def block_defs(cfg: ArchConfig, spec: LayerSpec, *, cross: bool = False):
         defs["mix"] = rwkv_mod.rwkv_time_defs(d, cfg.rwkv)
     else:
         raise ValueError(spec.kind)
+    if cross:
+        defs["norm_x"] = norm_defs(cfg.norm, d)
+        defs["cross"] = attn_mod.attn_defs(d, cfg.n_heads, cfg.n_kv_heads,
+                                           cfg.head_dim)
     defs["norm2"] = norm_defs(cfg.norm, d)
     if spec.mlp == "moe":
         defs["ffn"] = moe_defs(d, spec.moe)
@@ -49,35 +49,67 @@ def block_defs(cfg: ArchConfig, spec: LayerSpec, *, cross: bool = False):
 
 class BlockCache(NamedTuple):
     """Cache of one layer: the field of its mixer is set, the others are
-    None.  (The reference's cross-attention fields come with the
-    encoder-decoder models.)"""
+    None; a decoder layer of an encoder-decoder model also holds its
+    cross-attention KV, ``cross_k`` / ``cross_v`` (B, S_enc, KVH, hd)."""
     paged: Optional[PagedKV] = None
     mamba: Optional[mamba_mod.MambaCache] = None
     rwkv: Optional[rwkv_mod.RWKVCache] = None
+    cross_k: Optional[torch.Tensor] = None
+    cross_v: Optional[torch.Tensor] = None
 
 
 def init_block_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                      pages_per_layer: int, dtype: torch.dtype, *,
-                     device=None) -> BlockCache:
+                     cross_len: int = 0, device=None) -> BlockCache:
+    paged = mamba_c = rwkv_c = cross_k = cross_v = None
     if spec.kind == "attn":
         shape = (pages_per_layer, cfg.page_size, cfg.n_kv_heads,
                  cfg.head_dim)
-        return BlockCache(paged=PagedKV(
-            torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device)))
-    if spec.kind == "mamba":
-        return BlockCache(mamba=mamba_mod.init_mamba_cache(
-            batch, cfg.d_model, cfg.mamba, dtype, device=device))
-    if spec.kind == "rwkv":
-        return BlockCache(rwkv=rwkv_mod.init_rwkv_cache(
-            batch, cfg.d_model, cfg.rwkv, dtype, device=device))
-    raise ValueError(spec.kind)
+        paged = PagedKV(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device))
+    elif spec.kind == "mamba":
+        mamba_c = mamba_mod.init_mamba_cache(batch, cfg.d_model, cfg.mamba,
+                                             dtype, device=device)
+    elif spec.kind == "rwkv":
+        rwkv_c = rwkv_mod.init_rwkv_cache(batch, cfg.d_model, cfg.rwkv,
+                                          dtype, device=device)
+    else:
+        raise ValueError(spec.kind)
+    if cross_len:
+        cshape = (batch, cross_len, cfg.n_kv_heads, cfg.head_dim)
+        cross_k = torch.zeros(cshape, dtype=dtype, device=device)
+        cross_v = torch.zeros(cshape, dtype=dtype, device=device)
+    return BlockCache(paged=paged, mamba=mamba_c, rwkv=rwkv_c,
+                      cross_k=cross_k, cross_v=cross_v)
 
 
 def _store(dst, src) -> None:
     """Copy a new recurrent cache into the caller's (leaf by leaf)."""
     for a, b in zip(dst, src):
         a.copy_(b)
+
+
+def _cross_attention(params, x, cfg: ArchConfig, mode: str,
+                     ctx: Dict[str, Any], cache: Optional[BlockCache]):
+    hx = apply_norm(cfg.norm, params["norm_x"], x)
+    if mode == "decode":
+        kv = (cache.cross_k, cache.cross_v)
+    else:
+        enc = ctx["enc_out"]
+        b, se, _ = enc.shape
+        kv = tuple((enc @ params["cross"][w]).reshape(
+            b, se, cfg.n_kv_heads, cfg.head_dim) for w in ("wk", "wv"))
+        if cache is not None:
+            if cache.cross_k.shape[1] != se:
+                raise ValueError(
+                    f"cross caches hold {cache.cross_k.shape[1]} encoder "
+                    f"positions, the encoder gave {se} (init_caches("
+                    f"cross_len=) must be S_enc)")
+            _store((cache.cross_k, cache.cross_v), kv)
+    out, _ = attn_mod.attention_full(
+        params["cross"], hx, cfg, causal=False,
+        lengths=ctx.get("enc_lengths"), kv_override=kv)
+    return out
 
 
 def block_apply(params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
@@ -87,10 +119,14 @@ def block_apply(params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
                 ) -> Tuple[torch.Tensor, Optional[BlockCache], torch.Tensor]:
     """Returns (x, new_cache, aux_loss).  ``cache`` is updated in place
     (the paged pools as ``models/attention.py`` says, the recurrent states
-    by copy) and returned; ``lengths`` reaches the recurrent layers in
-    prefill only, as in the reference."""
-    if "cross" in params:
-        raise NotImplementedError(_CROSS)
+    and the cross-attention KV by copy) and returned; ``lengths`` reaches
+    the recurrent layers in prefill only, as in the reference.
+
+    A block with ``cross`` weights attends the encoder after its mixer: in
+    train and prefill it projects ``ctx["enc_out"]`` to this layer's
+    cross KV (and stores it in the cache, in the cache's dtype), in decode
+    it reads the cache; non-causal, keys masked past
+    ``ctx["enc_lengths"]``."""
     if spec.mlp == "moe" and cfg.moe_fn is not None:
         raise NotImplementedError(
             "the distributed expert-parallel MoE (cfg.moe_fn) comes with "
@@ -126,6 +162,8 @@ def block_apply(params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     else:
         raise ValueError(spec.kind)
     x = x + out
+    if "cross" in params:
+        x = x + _cross_attention(params, x, cfg, mode, ctx, cache)
     h = apply_norm(cfg.norm, params["norm2"], x)
     if spec.mlp == "moe":
         out, aux = moe_apply(params["ffn"], h, spec.moe,

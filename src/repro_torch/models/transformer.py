@@ -1,5 +1,9 @@
-"""Pattern-stacked transformer (the decoder-only path: dense, MoE, hybrid
-Mamba + attention and attention-free RWKV).
+"""Pattern-stacked transformer covering every family of the reference:
+dense, MoE, hybrid Mamba + attention, attention-free RWKV, the vision
+decoder with M-RoPE, and the encoder-decoder (an encoder stack, then a
+decoder whose blocks cross-attend the encoder's output).  Modality
+frontends are stubs that supply precomputed embeddings, as in the
+reference.
 
 The reference stacks the repeating layer pattern per pattern element and
 runs one ``lax.scan`` over repetitions.  The port keeps the stacked
@@ -27,7 +31,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs import ArchConfig
+from repro_torch.configs import ArchConfig, LayerSpec
 from repro_torch.core.vm import resolve_device
 from repro_torch.models.blocks import (BlockCache, block_apply, block_defs,
                                        init_block_cache)
@@ -42,18 +46,25 @@ def model_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+ENC_SPEC = LayerSpec(kind="attn", mlp="gelu")
+
+
 def model_defs(cfg: ArchConfig):
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            "encoder-decoder models come with the port's slice of the "
-            "other model families")
-    return {
+    defs: Dict[str, Any] = {
         "embed": embed_defs(cfg.vocab_padded, cfg.d_model,
                             cfg.tie_embeddings),
         "final_norm": norm_defs(cfg.norm, cfg.d_model),
-        "blocks": tuple(stack_defs(block_defs(cfg, spec), cfg.n_repeat)
+        "blocks": tuple(stack_defs(block_defs(cfg, spec, cross=cfg.enc_dec),
+                                   cfg.n_repeat)
                         for spec in cfg.pattern),
     }
+    if cfg.enc_dec:
+        defs["encoder"] = {
+            "blocks": stack_defs(block_defs(cfg, ENC_SPEC),
+                                 cfg.n_enc_layers),
+            "final_norm": norm_defs(cfg.norm, cfg.d_model),
+        }
+    return defs
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
@@ -80,24 +91,29 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
 
 def _map_cache(fn, cache: BlockCache) -> BlockCache:
     """``fn`` over every tensor of a layer cache, keeping its structure."""
-    return BlockCache(*(None if f is None else type(f)(*map(fn, f))
-                        for f in cache))
+    return BlockCache(*(None if f is None
+                        else fn(f) if isinstance(f, torch.Tensor)
+                        else type(f)(*map(fn, f)) for f in cache))
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_pages: int, *,
-                dtype=None, n_pages: Optional[int] = None, device=None):
+                dtype=None, n_pages: Optional[int] = None,
+                cross_len: int = 0, device=None):
     """One stacked BlockCache per pattern element, each leaf with a
     leading ``n_repeat`` dim, on ``device`` (the card unless named).  The
     paged pool gives each (layer, sequence) its own pages: ``n_pages``
     defaults to ``batch * max_pages`` (the serving engine asks for one
-    scratch page more); the recurrent layers keep ``batch`` states."""
+    scratch page more); the recurrent layers keep ``batch`` states; an
+    encoder-decoder's layers keep ``cross_len`` encoder positions of
+    cross-attention KV (S_enc of the prefill's ``enc_embeds``)."""
     dtype = dtype or model_dtype(cfg.dtype)
     device = resolve_device(device)
     pool = batch * max_pages if n_pages is None else int(n_pages)
     return tuple(
         _map_cache(lambda a: a.new_zeros((cfg.n_repeat,) + a.shape),
                    init_block_cache(cfg, spec, batch, pool, dtype,
-                                    device=device))
+                                    cross_len=cross_len if cfg.enc_dec
+                                    else 0, device=device))
         for spec in cfg.pattern)
 
 
@@ -126,16 +142,35 @@ class ModelOutput(NamedTuple):
     aux_loss: torch.Tensor
 
 
+def _run_encoder(params, cfg: ArchConfig, enc_embeds, enc_lengths):
+    """The encoder stack: non-causal, RoPE positions ``arange(S)``, mode
+    "train", then its final norm.  ``enc_lengths`` rides in the context
+    as the reference's does, where no encoder layer reads it: the
+    encoder's self-attention attends the padded frames of a ragged batch
+    too (only the decoder's cross attention masks them)."""
+    x = enc_embeds.to(model_dtype(cfg.dtype))
+    s = x.shape[1]
+    ctx = {"causal": False,
+           "positions": torch.arange(s, dtype=torch.int32,
+                                     device=x.device)[None],
+           "lengths": enc_lengths}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = params["encoder"]["blocks"]
+    for i in range(cfg.n_enc_layers):
+        x, _, a = block_apply(tree_map(lambda t, i=i: t[i], blocks), x, cfg,
+                              ENC_SPEC, mode="train", ctx=ctx)
+        aux = aux + a
+    return apply_norm(cfg.norm, params["encoder"]["final_norm"], x), aux
+
+
 def apply_model(params, cfg: ArchConfig, batch: Dict[str, Any], *,
                 mode: str = "train") -> ModelOutput:
     """batch keys: tokens (B,S) int; optional embeds (B,S,D) added to the
-    token embeddings; positions (B,S); positions3 (3,B,S); caches,
-    block_tables, lengths (prefill/decode).  The caches are updated in
-    place and returned."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            "encoder-decoder models come with the port's slice of the "
-            "other model families")
+    token embeddings; positions (B,S); positions3 (3,B,S) (M-RoPE, in
+    every mode); enc_embeds (B,S_enc,D) / enc_lengths (B,)
+    (encoder-decoder: the encoder runs in train and prefill, decode reads
+    the cross caches); caches, block_tables, lengths (prefill/decode).
+    The caches are updated in place and returned."""
     dtype = model_dtype(cfg.dtype)
     x = embed(params["embed"], batch["tokens"], dtype)
     if batch.get("embeds") is not None:
@@ -147,6 +182,12 @@ def apply_model(params, cfg: ArchConfig, batch: Dict[str, Any], *,
         "block_tables": batch.get("block_tables"),
         "lengths": batch.get("lengths"),
     }
+    enc_aux = None
+    if cfg.enc_dec:
+        ctx["enc_lengths"] = batch.get("enc_lengths")
+        if mode != "decode":
+            ctx["enc_out"], enc_aux = _run_encoder(
+                params, cfg, batch["enc_embeds"], batch.get("enc_lengths"))
     caches = batch.get("caches")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_repeat):
@@ -158,6 +199,8 @@ def apply_model(params, cfg: ArchConfig, batch: Dict[str, Any], *,
             aux = aux + a
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = unembed(params["embed"], x, cfg.vocab)
+    if enc_aux is not None:
+        aux = aux + enc_aux
     return ModelOutput(logits=logits, caches=caches, aux_loss=aux)
 
 

@@ -28,6 +28,7 @@ from repro_torch.core import compile as tc
 from repro_torch.core import vm
 from repro_torch.core.memory import Grant
 from repro_torch.core.verifier import verify
+from torch_wide_region import compiled_matches_pyvm_past_2_31
 
 
 def carry(jprog, jrt):
@@ -321,3 +322,17 @@ def test_compiled_cache_keys():
     assert tc.compiled_cached(pv, prt, 1, 2, impl="torch")
     assert not tc.compiled_cached(pv, prt, 1, 3, impl="torch")
     assert vm.engine_key(pv, prt, 1, 2) == vm.engine_key(pv, prt, 1, 2)
+
+
+
+@pytest.mark.parametrize("superops,double_buffer",
+                         [(False, False), (False, True), (True, False),
+                          (True, True)],
+                         ids=["memcpy", "memcpy_dbuf", "chain", "chain_dbuf"])
+def test_compiled_reads_regions_past_2_31_words(superops, double_buffer):
+    """The compiled trace keeps MEMCPY source offsets int64: a traced
+    MEMCPY (superoperators off) and the gather chain, under ``compiled``
+    and ``compiled_dbuf``, read a region of 2**32 words at offsets past
+    2**31 and equal pyvm bit for bit (``tests/torch_wide_region.py``)."""
+    compiled_matches_pyvm_past_2_31(superops, double_buffer,
+                                    torch.device("cpu"))

@@ -20,6 +20,7 @@ from repro_torch.core.verifier import verify
 from repro_torch.kernels.tiara_gather import (tiara_gather, tiara_gather_ref,
                                               tiara_gather_window,
                                               tiara_gather_window_ref)
+from torch_wide_region import compiled_matches_pyvm_past_2_31
 
 SHAPES = [(4, 16, 8), (7, 32, 128), (1, 4, 256), (9, 64, 1024), (5, 8, 3)]
 
@@ -125,6 +126,24 @@ def test_cuda_window_kernel_int64_offsets_past_2_31(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("superops,double_buffer",
+                         [(False, False), (False, True), (True, False),
+                          (True, True)],
+                         ids=["memcpy", "memcpy_dbuf", "chain", "chain_dbuf"])
+def test_cuda_compiled_reads_regions_past_2_31_words(cuda_device, superops,
+                                                     double_buffer):
+    """The compiled trace on the card hands the kernel int64 offsets: a
+    traced MEMCPY and the gather chain, under ``compiled`` and
+    ``compiled_dbuf``, read a region of 2**32 words past word 2**31
+    through ``tiara_gather`` and equal pyvm bit for bit (the CPU test's
+    case, ``tests/torch_wide_region.py``)."""
+    kernels.reset_launch_counts()
+    compiled_matches_pyvm_past_2_31(superops, double_buffer, cuda_device)
+    n = kernels.launch_counts()["tiara_gather"]
+    assert n == (2 if double_buffer else 1) if superops else n >= 1
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("double_buffer", [False, True])
 def test_cuda_gather_chain_unaligned_matches_pyvm(cuda_device,
                                                   double_buffer):
@@ -175,6 +194,8 @@ def _randn(rng, shape, dtype, device):
     (2, 4, 2, 128, 8, 16, 4),    # head_dim 128
     (3, 12, 4, 64, 40, 16, 9),   # tiny-lm's heads, lengths past one chunk
     (3, 10, 2, 128, 8, 128, 3),  # Llama-4 Scout's G = 5, D = 128, page 128
+    (3, 28, 4, 128, 12, 128, 3),  # Qwen2-VL's G = 7, D = 128, page 128
+    (3, 16, 16, 64, 12, 128, 3),  # SeamlessM4T's G = 1, D = 64, page 128
 ])
 def test_cuda_paged_attention_matches_plain(cuda_device, dtype, b, qh, kvh,
                                             d, pages, page, maxp):
@@ -236,6 +257,35 @@ def test_cuda_flash_attention_matches_plain(cuda_device, dtype, causal, b,
                                    atol=tol, rtol=tol)
     if b > 1:
         assert torch.all(out[1] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(1, 150), (1, 64), (70, 200), (300, 37)])
+def test_cuda_flash_attention_cross_shapes(cuda_device, dtype, sq, sk):
+    """Cross attention's launches: non-causal, Sq != Sk (Sq = 1 in every
+    decode step: one live row in a tile of 64), SeamlessM4T's 16/16 heads
+    of 64, keys masked past ragged lengths that are no multiple of the
+    tile, one of them 0 (that request's rows are 0).  Equal to the plain
+    version (a row stored past Sq would land in the next head's rows) and
+    the same bits twice."""
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_ref)
+    rng = np.random.default_rng(sq * 1000 + sk)
+    q = _randn(rng, (3, 16, sq, 64), dtype, cuda_device)
+    k = _randn(rng, (3, 16, sk, 64), dtype, cuda_device)
+    v = _randn(rng, (3, 16, sk, 64), dtype, cuda_device)
+    ln = torch.tensor([sk, 0, max(1, sk - 29)], dtype=torch.int32,
+                      device=cuda_device)
+    out = flash_attention_kernel(q, k, v, ln, causal=False)
+    again = flash_attention_kernel(q, k, v, ln, causal=False)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, ln, causal=False).float(),
+        atol=tol, rtol=tol)
+    assert torch.equal(out, again)
+    assert torch.all(out[1] == 0)
 
 
 @pytest.mark.gpu
@@ -542,6 +592,82 @@ def test_cuda_recurrent_model_matches_cpu(cuda_device, arch):
         got[dev.type] = (logits,
                          [t.cpu() for t in _recurrent_leaves(caches)])
     (lc, sc), (lh, sh) = got["cuda"], got["cpu"]
+    for a, c in zip(lc + sc, lh + sh):
+        assert torch.allclose(a, c, atol=RECURRENT_CARD_TOL,
+                              rtol=RECURRENT_CARD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "seamless-m4t-medium"])
+def test_cuda_multimodal_model_matches_cpu(cuda_device, arch):
+    """Reduced Qwen2-VL (M-RoPE with distinct t/h/w streams, an image
+    prefix of embeddings) and SeamlessM4T (an encoder over ragged frames,
+    one request with encoder length 0; cross attention) on the card,
+    through init_caches, a ragged prefill and two decode steps: logits and
+    every cache leaf equal the port on the CPU with the same weights.
+    Launches: flash_attention once per attention layer per prefill
+    (SeamlessM4T: encoder, decoder self and cross attention), and per
+    decode step paged_attention once per decoder layer plus, for
+    SeamlessM4T, one cross-attention flash_attention per layer."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import tree_map
+    cfg = reduce_config(get_config(arch))
+    params = tf.init_params(cfg, seed=0)
+    b, s, maxp, s_enc = 3, 20, 4, 13
+    rng = np.random.default_rng(10)
+    toks = [rng.integers(1, cfg.vocab, (b, s))] + \
+        [rng.integers(1, cfg.vocab, (b, 1)) for _ in range(2)]
+    lengths = np.array([20, 13, 1])
+    # t/h/w ids: an image prefix of 2 x 3 patches, then text from 3 on
+    pos = np.zeros((3, b, s + 2), np.int64)
+    pos[1, :, :6], pos[2, :, :6] = np.arange(6) // 3, np.arange(6) % 3
+    pos[:, :, 6:] = 3 + np.arange(s - 4)
+    emb = np.zeros((b, s, cfg.d_model), np.float32)
+    emb[:, :6] = rng.standard_normal((b, 6, cfg.d_model))
+    enc = rng.standard_normal((b, s_enc, cfg.d_model)).astype(np.float32)
+    enc_len = np.array([13, 0, 6], np.int32)
+    n_dec = cfg.n_layers
+    n_prefill = n_dec + (n_dec + cfg.n_enc_layers if cfg.enc_dec else 0)
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        p = tree_map(lambda a: a.to(dev), params)
+        caches = tf.init_caches(cfg, b, maxp, device=dev,
+                                cross_len=s_enc if cfg.enc_dec else 0)
+        bt = tf.default_block_tables(cfg, b, maxp, device=dev)
+        kernels.reset_launch_counts()
+        logits = []
+        for step in range(3):
+            ln = lengths + max(step - 1, 0)
+            batch = dict(tokens=torch.from_numpy(toks[step]).to(dev),
+                         caches=caches, block_tables=bt,
+                         lengths=torch.from_numpy(ln).to(dev, torch.int32))
+            if cfg.rope == "mrope":
+                p3 = pos[:, :, :s] if step == 0 else \
+                    pos[:, np.arange(b), ln][:, :, None]
+                batch["positions3"] = torch.from_numpy(
+                    np.ascontiguousarray(p3)).to(dev)
+                if step == 0:
+                    batch["embeds"] = torch.from_numpy(emb).to(dev)
+            if cfg.enc_dec:
+                batch["enc_lengths"] = torch.from_numpy(enc_len).to(dev)
+                if step == 0:
+                    batch["enc_embeds"] = torch.from_numpy(enc).to(dev)
+            fn = tf.prefill if step == 0 else tf.decode_step
+            logits.append(fn(p, cfg, batch).logits.cpu())
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                per_step = n_dec if cfg.enc_dec else 0
+                assert counts["flash_attention"] == n_prefill \
+                    + per_step * step
+                assert counts["paged_attention"] == n_dec * step
+        got[dev.type] = (logits, [t.cpu() for c in caches for f in c
+                                  if f is not None
+                                  for t in ([f] if torch.is_tensor(f)
+                                            else f)])
+    (lc, sc), (lh, sh) = got["cuda"], got["cpu"]
+    assert len(sc) == (4 if cfg.enc_dec else 2)
     for a, c in zip(lc + sc, lh + sh):
         assert torch.allclose(a, c, atol=RECURRENT_CARD_TOL,
                               rtol=RECURRENT_CARD_TOL)
