@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths and holds every hand-written CUDA
+Drives the port's main paths and holds every hand-written CUDA
 kernel against its plain PyTorch version on the card:
 
 * the Tiara endpoint — register operators, post on sessions, ring the
@@ -31,7 +31,12 @@ kernel against its plain PyTorch version on the card:
   128, M-RoPE over distinct t/h/w streams, an image prefix of 256 vision
   tokens through the ``embeds`` stub; 15.23 GB) and SeamlessM4T-medium
   (12 encoder and 12 decoder layers, d_model 1024, 16/16 heads of 64, an
-  encoder over ragged frames and the decoder's cross attention; 1.75 GB).
+  encoder over ragged frames and the decoder's cross attention; 1.75 GB);
+* training: tiny-lm at full width (12 layers, d_model 768, f32) through
+  ``Trainer`` on the synthetic stream of the reference's pipeline, with
+  checkpoints and a restart, and SeamlessM4T-medium whole in bf16 through
+  ``make_train_step``; on the card every attention forward and backward
+  runs as a CUDA kernel (``flash_attention``'s backward kernel).
 
 Phases:
 
@@ -104,7 +109,25 @@ Phases:
    ``paged_attention`` and 12 ``flash_attention`` per step;
 11. the cycle simulator over ``Session.trace`` of a depth-10 graph walk
    registered on a card endpoint: simulated cycles of the paper's machine
-   model, not card numbers.
+   model, not card numbers;
+12. training, after SeamlessM4T's weights are freed: the flash_attention
+   backward kernel against its plain version at BWD_CASES (tiny-lm's
+   training shape in f32, Qwen2-VL's and SeamlessM4T's encoder, decoder
+   and cross attention in bf16, a short ragged case; f32 within
+   BWD_F32_TOL of the largest gradient, bf16 within SCOUT_ATTN_TOL), the
+   same bits twice, the forward's output the same bits with and without
+   ``lse``, timed with its plain version, PyTorch's SDPA backward and its
+   bound; tiny-lm at full width through ``Trainer`` for TRAIN_STEPS steps
+   of 8 x 1024 tokens (the loss falls; per step 12 forward
+   ``flash_attention`` launches, 12 more under the remat recompute, 12
+   backward), a restart from the step-10 checkpoint that ends on the same
+   parameters bit for bit, TRAIN_Q8_STEPS steps with 8-bit AdamW state
+   tracking the f32 run, the step wall, tokens/s, peak memory and one
+   profiled step with the backward kernel's share; one train step on the
+   card against the CPU (loss and gradients within CARD_VS_CPU_TOL);
+   SeamlessM4T-medium whole in bf16, SEAMLESS_TRAIN_STEPS steps through
+   ``make_train_step`` (finite loss, finite and changed parameters, 36
+   forward launches, 24 recomputed, 36 backward per step).
 
 Any failure raises and the script exits non-zero.  It prints, before the
 last line, the card's name and power limit and one JSON object with each
@@ -133,6 +156,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -267,6 +291,54 @@ SEAMLESS_ENC_LENS = tuple(int(n) for n in
 # the design's own floor, printed beside the function's bound (the bf16
 # tensor-core rate), which it does not replace
 FLASH_BF16_PASSES = 2
+# Phase 12, training.  The flash_attention backward kernel's shapes: the
+# train steps' own (tiny-lm's 8 x 1024 batch; SeamlessM4T's encoder, its
+# decoder over 256 targets and their cross attention over 1024 ragged
+# frames, here with one request of no frame), Qwen2-VL's prefill shape
+# (bf16, D = 128, G = 7) and a short ragged one.  Each is (label, (B, QH,
+# KVH, Sq, Sk, D), causal, lengths, dtype).
+BWD_CASES = (
+    ("tiny-lm training", (8, 12, 4, 1024, 1024, 64), True, None,
+     torch.float32),
+    ("Qwen2-VL", (8, 28, 4, 1024, 1024, 128), True, None, torch.bfloat16),
+    ("SeamlessM4T encoder", (8, 16, 16, 1024, 1024, 64), False, None,
+     torch.bfloat16),
+    ("SeamlessM4T decoder self", (8, 16, 16, 256, 256, 64), True, None,
+     torch.bfloat16),
+    ("SeamlessM4T cross", (8, 16, 16, 256, 1024, 64), False,
+     SEAMLESS_ENC_LENS[:7] + (0,), torch.bfloat16),
+    ("short ragged", (2, 6, 2, 200, 200, 64), True, (200, 137),
+     torch.float32),
+)
+# The backward kernel against its plain version: in f32 within 1e-4 of
+# the largest gradient (both sum in f32, in other orders, over up to 1024
+# rows); in bf16 within SCOUT_ATTN_TOL of the f32 plain result (two bf16
+# ulps: both compute in f32 and round once).
+BWD_F32_TOL = 1e-4
+# The forward's lse against its plain version at those shapes, (atol,
+# rtol): both sum in f32 in other orders, the kernel's products in 3xTF32
+# (errors about 1e-6 on rows whose lse is about 5-8).
+LSE_TOL = (1e-5, 1e-5)
+# tiny-lm trained at full width through Trainer (f32, TF32 off, remat
+# "full", AdamW f32 state): the reference pipeline's synthetic stream of
+# 8 x 1024 tokens, TRAIN_STEPS steps with a checkpoint every
+# TRAIN_CKPT_EVERY, a restart from the first checkpoint, TRAIN_Q8_STEPS
+# steps with 8-bit state whose loss stays within TRAIN_Q8_TOL (relative)
+# of the f32 run's (the 8-bit moments move each update by about 1/127 of
+# a block's largest moment).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "tiny-lm", 8, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_Q8_STEPS = 20, 10, 5
+TRAIN_LR, TRAIN_WARMUP, TRAIN_Q8_TOL = 1e-3, 2, 0.05
+# One train step at tiny-lm's full width on the card and on the CPU from
+# the same state, batch 2 x 128: the loss and every gradient within
+# CARD_VS_CPU_TOL of the leaf's largest entry (f32 both, TF32 off; cuBLAS,
+# the kernels and the CPU sum in other orders through forward and
+# backward).
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128
+# SeamlessM4T-medium whole in bf16 through make_train_step: encoder frames
+# (8, SEAMLESS_S_ENC, 1024) with enc_lengths SEAMLESS_ENC_LENS, decoder
+# targets of SEAMLESS_TRAIN_TOKENS tokens, SEAMLESS_TRAIN_STEPS steps.
+SEAMLESS_TRAIN_TOKENS, SEAMLESS_TRAIN_STEPS = 256, 3
 
 
 def log(msg: str) -> None:
@@ -797,7 +869,7 @@ class _Timed:
     launches of every decode step."""
 
     def __init__(self, eng):
-        from repro_torch.kernels.tiara_gather import kernel as tg
+        from repro_torch import kernels
         self.prefill_ms, self.step_ms, self.step_gathers = {}, [], []
         self._in_prefill = 0.0
         prefill, step = eng._prefill, eng.step
@@ -818,14 +890,16 @@ class _Timed:
         def timed_step():
             decoding = bool(eng.waiting) or any(eng.active)
             torch.cuda.synchronize()
-            self._in_prefill, n0 = 0.0, tg.LAUNCHES
+            self._in_prefill = 0.0
+            n0 = kernels.launch_counts()["tiara_gather"]
             t = time.perf_counter()
             out = step()
             torch.cuda.synchronize()
             if decoding:
                 self.step_ms.append((time.perf_counter() - t) * 1e3
                                     - self._in_prefill)
-                self.step_gathers.append(tg.LAUNCHES - n0)
+                self.step_gathers.append(
+                    kernels.launch_counts()["tiara_gather"] - n0)
             return out
         eng._prefill, eng.step = timed_prefill, timed_step
 
@@ -1089,11 +1163,12 @@ def time_gather_call(call, scratch, reps: int = 200):
                 bound_ms=moved / HBM_BYTES_PER_S * 1e3)
 
 
-def _profiled(fn, top: int = 6):
+def _profiled(fn, top: int = 6, names=()):
     """Device time by kernel over one call of ``fn`` from
     ``torch.profiler``: the call's host wall, the device time of every
-    kernel it ran (busy share = their sum over the wall) and the ``top``
-    kernels by time."""
+    kernel it ran (busy share = their sum over the wall), the ``top``
+    kernels by time and, for each of ``names``, the device time of the
+    kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1112,7 +1187,9 @@ def _profiled(fn, top: int = 6):
                 busy_share=busy_ms / wall_ms,
                 kernel_launches=sum(n for _, _, n in kern),
                 top=[dict(kernel=k[:90], ms=ms, count=n)
-                     for k, ms, n in kern[:top]])
+                     for k, ms, n in kern[:top]],
+                named_ms={n: sum(ms for k, ms, _ in kern if n in k)
+                          for n in names})
 
 
 def profile_step(eng, prompts):
@@ -1410,12 +1487,14 @@ class _AttentionCalls:
         self._saved = am.flash_attention, am.paged_attention
 
         def counted(kernel, mod, fn):
+            name = f"{kernel}_attention"
+
             def call(*args, **kw):
-                n0 = mod.LAUNCHES
+                n0 = mod.COUNTS[name]
                 out = fn(*args, **kw)
                 key = _attention_shape(kernel, args, kw)
                 self.launches[key] = self.launches.get(key, 0) \
-                    + mod.LAUNCHES - n0
+                    + mod.COUNTS[name] - n0
                 return out
             return call
         am.flash_attention = counted("flash", fa, self._saved[0])
@@ -2225,6 +2304,582 @@ def multimodal_rows(qwen, seamless, paged, flash):
     return rows
 
 
+def _live_pairs(b, sq, sk, causal, lengths) -> int:
+    """(query, key) pairs with a live key over the batch, for one head."""
+    total = 0
+    for i in range(b):
+        klen = sk if lengths is None else min(max(int(lengths[i]), 0), sk)
+        total += int(np.minimum(np.arange(sq) + 1, klen).sum()) if causal \
+            else sq * klen
+    return total
+
+
+def _attention_mask(sq, sk, causal, ln, dev):
+    """SDPA's arguments for the kernel's masking: ``(attn_mask,
+    is_causal)``, a boolean mask (B, 1, Sq, Sk) when keys are masked past
+    ``ln``."""
+    if ln is None:
+        return None, causal
+    keep = (torch.arange(sk, device=dev)[None] < ln[:, None])[:, None, None]
+    if causal:
+        keep = keep & torch.ones(sq, sk, dtype=torch.bool,
+                                 device=dev).tril()
+    return keep, False
+
+
+def _lse_errors(name, got, want):
+    """The forward's ``lse`` against the plain log-sum-exp: +inf on the
+    same rows (no live key), the rest within LSE_TOL; returns the largest
+    error and its share of the limit."""
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError(f"{name}: lse is +inf on other rows than the "
+                             f"plain version's")
+    live = torch.isfinite(want)
+    g, w = got[live].double(), want[live].double()
+    err = (g - w).abs()
+    limit = LSE_TOL[0] + LSE_TOL[1] * w.abs()
+    share = float((err / limit).max()) if err.numel() else 0.0
+    if share > 1:
+        raise AssertionError(f"{name}: lse {float(err.max()):.3g} from the "
+                             f"plain version, over LSE_TOL {LSE_TOL}")
+    return (float(err.max()) if err.numel() else 0.0), share
+
+
+def bwd_cases(dev, scratch):
+    """flash_attention's forward and backward kernels at each of
+    BWD_CASES on the card.  The forward, launched with ``lse`` as
+    training launches it: its output against ``flash_attention_ref``
+    (f32 within ATTN_TOL, bf16 within SCOUT_ATTN_TOL), the same bits
+    without ``lse``, and ``lse`` against ``flash_attention_lse_ref``
+    (LSE_TOL).  The backward against ``flash_attention_bwd_ref`` fed the
+    plain lse and the kernel's output (f32 within BWD_F32_TOL of the
+    largest gradient, bf16 within SCOUT_ATTN_TOL), two calls giving the
+    same bits: the plain lse so that a wrong lse cannot pass on both
+    sides, the kernel's output because the backward's rowsum(dO o)
+    carries o's bf16 rounding, and the plain forward's output, an ulp
+    away, moves the gradients by more than two ulps (0.0039 at Qwen2-VL's
+    dq).
+    Then each one's time, its plain version's, PyTorch's SDPA on the same
+    inputs (the backward's: forward and backward less the forward) and
+    the bound over this data: the forward's two products and the
+    backward's five over the live pairs at the inputs' type's peak (f32:
+    three TF32 passes on the tensor cores, the forward's route), against
+    each operand read and each result written once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_bwd_ref,
+        flash_attention_kernel, flash_attention_lse_ref, flash_attention_ref)
+    res = {}
+    for label, (b, qh, kvh, sq, sk, d), causal, lens, dtype in BWD_CASES:
+        name = f"flash_attention backward ({label}, {dtype})"
+        fname = f"flash_attention forward ({label}, {dtype})"
+        rng = np.random.default_rng(sq + sk + d + qh)
+        q, do = (_randn(rng, (b, qh, sq, d), dtype, dev) for _ in range(2))
+        k, v = (_randn(rng, (b, kvh, sk, d), dtype, dev) for _ in range(2))
+        ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device=dev)
+        key = _attention_shape("flash", (q, k), dict(causal=causal,
+                                                      lengths=ln))
+        out0 = flash_attention_kernel(q, k, v, ln, causal=causal)
+        out, lse = flash_attention_kernel(q, k, v, ln, causal=causal,
+                                          return_lse=True)
+        torch.cuda.synchronize()
+        if not torch.equal(out0, out):
+            raise AssertionError(f"{name}: the forward's output changed "
+                                 f"when it also wrote lse")
+        del out0
+        out_ref = flash_attention_ref(q, k, v, ln, causal=causal)
+        lse_ref = flash_attention_lse_ref(q, k, ln, causal=causal)
+        ftol = SCOUT_ATTN_TOL if dtype == torch.bfloat16 else ATTN_TOL[dtype]
+        fwd_err = _check_close(fname, out, out_ref, dtype, ftol)
+        fwd_share = _limit_share(out, out_ref, ftol)
+        lse_err, lse_share = _lse_errors(fname, lse, lse_ref)
+        del out_ref
+
+        def fwd():
+            return flash_attention_kernel(q, k, v, ln, causal=causal,
+                                          return_lse=True)
+        _check_same_bits(fname, lambda: fwd()[0])
+
+        def fn():
+            return flash_attention_bwd_kernel(q, k, v, out, lse, do, ln,
+                                              causal=causal)
+
+        def plain():
+            return flash_attention_bwd_ref(q, k, v, out, lse_ref, do, ln,
+                                           causal=causal)
+        got, want = fn(), plain()
+        again = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"{name}: two calls differ")
+        errs, shares = {}, {}
+        for g, w, gname in zip(got, want, ("dq", "dk", "dv")):
+            tol = SCOUT_ATTN_TOL if dtype == torch.bfloat16 else \
+                (BWD_F32_TOL * float(w.float().abs().max()), 0.0)
+            errs[gname] = _check_close(f"{name} {gname}", g, w, dtype, tol)
+            shares[gname] = _limit_share(g, w, tol)
+        del got, want, again
+        torch.cuda.empty_cache()
+
+        mask, is_causal = _attention_mask(sq, sk, causal, ln, dev)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=is_causal,
+                enable_gqa=qh != kvh)
+        fwd_library_ms = time_cuda(sdpa_fwd, scratch)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa():
+            with torch.enable_grad():
+                return F.scaled_dot_product_attention(
+                    ql, kl, vl, attn_mask=mask, is_causal=is_causal,
+                    enable_gqa=qh != kvh)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (ql, kl, vl), do)
+        library_ms = time_cuda(sdpa_fwd_bwd, scratch) \
+            - time_cuda(sdpa, scratch)
+        del ql, kl, vl
+        fwd_ms = time_cuda(fwd, scratch)
+        fwd_plain_ms = time_cuda(
+            lambda: (flash_attention_ref(q, k, v, ln, causal=causal),
+                     flash_attention_lse_ref(q, k, ln, causal=causal)),
+            scratch)
+        ms = time_cuda(fn, scratch)
+        plain_ms = time_cuda(plain, scratch)
+        torch.cuda.empty_cache()
+
+        pairs = _live_pairs(b, sq, sk, causal, lens) * qh
+        keys = b * sk if lens is None else int(ln.clamp(0, sk).sum())
+        el = q.element_size()
+        live_kv = 2 * keys * kvh * d * el
+        # f32 at f32 accuracy on the tensor cores: three TF32 passes
+        passes, rate = (1, BF16_FLOPS_PER_S) if dtype == torch.bfloat16 \
+            else (3, TF32_FLOPS_PER_S)
+
+        def bound(flops, moved):
+            t_ops, t_bytes = passes * flops / rate, moved / HBM_BYTES_PER_S
+            return (max(t_ops, t_bytes) * 1e3,
+                    "operations" if t_ops > t_bytes else "bytes")
+        flops = 5 * 2 * pairs * d
+        moved = (4 * q.numel() + 2 * k.numel()) * el + live_kv \
+            + lse.numel() * 4
+        fwd_flops = 2 * 2 * pairs * d
+        fwd_moved = 2 * q.numel() * el + live_kv + lse.numel() * 4
+        r = dict(shape=[b, qh, kvh, sq, sk, d], causal=causal,
+                 lengths=None if lens is None else list(lens),
+                 dtype=str(dtype).replace("torch.", ""), key=key,
+                 max_abs_err=max(errs.values()), errs=errs,
+                 limit_share=max(shares.values()), ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, flops=flops, bytes_moved=moved,
+                 fma_floor_ms=flops / F32_FLOPS_PER_S * 1e3)
+        r["bound_ms"], r["bound_by"] = bound(flops, moved)
+        r["fwd"] = dict(max_abs_err=fwd_err, limit_share=fwd_share,
+                        lse_max_abs_err=lse_err, lse_limit_share=lse_share,
+                        ms=fwd_ms, plain_ms=fwd_plain_ms,
+                        library_ms=fwd_library_ms, flops=fwd_flops,
+                        bytes_moved=fwd_moved)
+        r["fwd"]["bound_ms"], r["fwd"]["bound_by"] = bound(fwd_flops,
+                                                          fwd_moved)
+        res[label] = r
+        f = r["fwd"]
+        log(f"[train] flash_attention forward with lse, {label}: (B, QH, "
+            f"KVH, Sq, Sk, D) {tuple(r['shape'])}, causal {causal}, "
+            f"{r['dtype']}" + (f", lengths {lens}" if lens else "")
+            + f": out max err {fwd_err:.3g} = {fwd_share:.3f} of the limit, "
+            f"lse max err {lse_err:.3g} = {lse_share:.3f} of LSE_TOL, two "
+            f"calls same bits, out unchanged by lse; kernel "
+            f"{fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, SDPA "
+            f"{fwd_library_ms:.3f} ms, bound {f['bound_ms']:.4f} ms "
+            f"({f['bound_by']}: {fwd_flops / 1e9:.2f} GFLOP, "
+            f"{fwd_moved / 1e6:.1f} MB)")
+        log(f"[train] flash_attention backward, {label}: max err "
+            f"{r['max_abs_err']:.3g} = {r['limit_share']:.3f} of the limit "
+            f"(against the plain backward of the kernel's out and the "
+            f"plain lse), two calls same bits; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {flops / 1e9:.2f} "
+            f"GFLOP, {moved / 1e6:.1f} MB), the f32 FMA route's floor "
+            f"{r['fma_floor_ms']:.3f} ms")
+    return res
+
+
+class _TrainShapes:
+    """Counts flash_attention's forward and backward launches by shape
+    while active: it wraps the two kernel names that ``ops.py`` calls
+    (``FlashAttentionFn`` and the no-gradient path) and adds each call's
+    launch-count delta under its ``_attention_shape`` key, in ``fwd`` and
+    ``bwd``."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as fa
+        from repro_torch.kernels.flash_attention import ops
+        self.ops, self.fwd, self.bwd = ops, {}, {}
+        self.saved = ops.flash_attention_kernel, ops.flash_attention_bwd_kernel
+
+        def counted(fn, counter, into, n_in):
+            def call(*args, **kw):
+                n0 = fa.COUNTS[counter]
+                out = fn(*args, **kw)
+                lengths = args[n_in] if len(args) > n_in \
+                    else kw.get("lengths")
+                key = _attention_shape("flash", args[:2],
+                                       dict(kw, lengths=lengths))
+                into[key] = into.get(key, 0) + fa.COUNTS[counter] - n0
+                return out
+            return call
+        ops.flash_attention_kernel = counted(self.saved[0], "flash_attention",
+                                             self.fwd, 3)
+        ops.flash_attention_bwd_kernel = counted(
+            self.saved[1], "flash_attention_bwd", self.bwd, 6)
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention_kernel, \
+            self.ops.flash_attention_bwd_kernel = self.saved
+
+
+def _launch_delta(c0, c1):
+    return {k: c1[k] - c0[k] for k in c1}
+
+
+def _leaf_paths(tree, prefix=""):
+    """The paths of a parameter tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, t in enumerate(tree)
+                for p in _leaf_paths(t, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def train_tiny(dev, root):
+    """tiny-lm at full width through Trainer: TRAIN_STEPS steps of the
+    synthetic stream with checkpoints, the main path whose launches are
+    counted; a restart from the first checkpoint that must end on the same
+    parameters, bit for bit; TRAIN_Q8_STEPS steps with 8-bit state; one
+    profiled step."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models.param import count_params, tree_leaves
+    from repro_torch.training import Trainer, TrainerConfig
+    cfg = get_config(TRAIN_ARCH)
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+
+    def trainer(d, steps=TRAIN_STEPS, bits=32):
+        return Trainer(cfg, TrainerConfig(
+            total_steps=steps, log_every=1, ckpt_every=TRAIN_CKPT_EVERY,
+            ckpt_dir=d, peak_lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+            state_bits=bits), dcfg, device=dev)
+    log(f"[train] {cfg.name} at full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab}, {cfg.dtype}, TF32 off, remat "
+        f"{cfg.remat} per {cfg.remat_unit}; {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens a step, AdamW f32 state, peak lr {TRAIN_LR}")
+    tr = trainer(os.path.join(root, "a"))
+    state = tr.init_or_restore()
+    n_params = count_params(state.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _TrainShapes() as shapes:
+        kernels.reset_launch_counts()        # the training path starts here
+        t = time.perf_counter()
+        state = tr.run(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = kernels.launch_counts()      # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics_log]
+    want = dict(flash_attention=2 * cfg.n_layers * TRAIN_STEPS,
+                flash_attention_bwd=cfg.n_layers * TRAIN_STEPS,
+                paged_attention=0, tiara_gather=0)
+    if counts != want:
+        raise AssertionError(f"tiny-lm training launches {counts}, expected "
+                             f"{want}: per step 12 forward, 12 under the "
+                             f"remat recompute, 12 backward")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"tiny-lm training: the loss did not fall: "
+                             f"{losses}")
+    step_ms = [dt * 1e3 for dt in tr.step_times]
+    med = float(np.median(step_ms))
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    log(f"[train] tiny-lm: {n_params / 1e6:.1f} M params; {TRAIN_STEPS} "
+        f"steps in {wall:.2f} s (checkpoints at {TRAIN_CKPT_EVERY} and "
+        f"{TRAIN_STEPS} included); loss {losses[0]:.4f} at step 0 -> "
+        f"{losses[-1]:.4f} at step {TRAIN_STEPS - 1}; step wall median "
+        f"{med:.2f} ms (min {min(step_ms):.2f}, first {step_ms[0]:.2f}), "
+        f"{tokens_s:.0f} tokens/s; peak max_memory_allocated "
+        f"{peak / 1e9:.2f} GB; launches {counts}")
+
+    b_dir = os.path.join(root, "b")
+    os.makedirs(b_dir)
+    first = f"step_{TRAIN_CKPT_EVERY:08d}"
+    shutil.copytree(os.path.join(root, "a", first),
+                    os.path.join(b_dir, first))
+    tr2 = trainer(b_dir)
+    resumed = tr2.init_or_restore()
+    if int(resumed.step) != TRAIN_CKPT_EVERY:
+        raise AssertionError(f"restart began at step {int(resumed.step)}")
+    resumed = tr2.run(resumed)
+    pairs = list(zip(tree_leaves(state.params), tree_leaves(resumed.params)))
+    if not all(torch.equal(a, c) for a, c in pairs):
+        diff = max(_max_err(a, c) for a, c in pairs)
+        raise AssertionError(f"the restart from step {TRAIN_CKPT_EVERY} "
+                             f"ended {diff:.3g} away from the "
+                             f"uninterrupted run")
+    log(f"[train] restart from the step-{TRAIN_CKPT_EVERY} checkpoint to "
+        f"step {TRAIN_STEPS}: every parameter equal to the uninterrupted "
+        f"run's, bit for bit; losses "
+        f"{[round(m['loss'], 4) for m in tr2.metrics_log]}")
+    del tr2, resumed, pairs
+
+    tr8 = trainer(None, TRAIN_Q8_STEPS, 8)
+    tr8.run()
+    losses8 = [m["loss"] for m in tr8.metrics_log]
+    gaps = [abs(a - b) / b for a, b in zip(losses8, losses)]
+    if not all(np.isfinite(losses8)) or max(gaps) > TRAIN_Q8_TOL:
+        raise AssertionError(f"8-bit state: losses {losses8} against the "
+                             f"f32 run's {losses[:TRAIN_Q8_STEPS]}")
+    log(f"[train] 8-bit AdamW state, {TRAIN_Q8_STEPS} steps: losses "
+        f"{[round(x, 4) for x in losses8]} against f32 "
+        f"{[round(x, 4) for x in losses[:TRAIN_Q8_STEPS]]} (largest gap "
+        f"{max(gaps):.4f} of the loss, limit {TRAIN_Q8_TOL})")
+    del tr8
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in tr.pipeline.batch(TRAIN_STEPS).items()}
+    names = ("flash_attention_bwd", "flash_attention_kernel")
+    prof = _profiled(lambda: tr.train_step(state, batch), top=8,
+                     names=names)
+    share = prof["named_ms"]["flash_attention_bwd"] / prof["device_busy_ms"]
+    log(f"[train] one profiled tiny-lm step: {prof['device_busy_ms']:.2f} ms "
+        f"of kernels in {prof['kernel_launches']} launches over a "
+        f"{prof['wall_ms']:.2f} ms wall ({prof['busy_share']:.1%} busy); "
+        f"flash_attention backward {prof['named_ms'][names[0]]:.2f} ms = "
+        f"{share:.1%} of the device time, forward "
+        f"{prof['named_ms'][names[1]]:.2f} ms; top "
+        + "; ".join(f"{r['kernel'][:60]} {r['ms']:.2f} ms x{r['count']}"
+                    for r in prof["top"][:5]))
+    return dict(n_params=n_params, losses=losses, losses_q8=losses8,
+                step_ms=step_ms, step_ms_median=med, tokens_s=tokens_s,
+                wall_s=wall, peak_bytes=peak, counts=counts,
+                fwd_by_shape=shapes.fwd, bwd_by_shape=shapes.bwd,
+                restart_bit_equal=True, profile=prof, bwd_share=share)
+
+
+def train_card_vs_cpu(dev):
+    """One train step of tiny-lm at full width, batch TRAIN_CPU_BATCH x
+    TRAIN_CPU_SEQ, on the card and on the CPU from the same state: the
+    loss and every gradient within CARD_VS_CPU_TOL of the leaf's largest
+    entry."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import (train_state_from_numpy,
+                                     train_state_to_numpy)
+    from repro_torch.data import DataConfig, LMPipeline
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, warmup_cosine
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config(TRAIN_ARCH)
+    opt = AdamWConfig(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    np_state = train_state_to_numpy(
+        make_train_step(cfg, opt)[0](1, device="cpu"))
+    batch = LMPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ,
+                                  global_batch=TRAIN_CPU_BATCH)).batch(0)
+    got = []                                  # the card's, then the CPU's
+    for d in (dev, torch.device("cpu")):
+        caught = {}
+
+        def catch(g, caught=caught):
+            caught["g"] = g
+            return g
+        _, step = make_train_step(cfg, opt, grad_compressor=catch)
+        _, m = step(train_state_from_numpy(np_state, device=d),
+                    {k: torch.from_numpy(v).to(d) for k, v in batch.items()})
+        got.append((float(m["loss"]),
+                    [g.cpu() for g in tree_leaves(caught["g"])]))
+    (lc, gc_), (lh, gh) = got
+    loss_err = abs(lc - lh) / abs(lh)
+    grad_err = max(_max_err(a, c) / float(c.abs().max())
+                   for a, c in zip(gc_, gh))
+    if loss_err > CARD_VS_CPU_TOL or grad_err > CARD_VS_CPU_TOL:
+        raise AssertionError(f"train step card vs CPU: loss {loss_err:.3g}, "
+                             f"gradients {grad_err:.3g} of the leaf's "
+                             f"largest (tolerance {CARD_VS_CPU_TOL})")
+    log(f"[train] tiny-lm train step on the card against the CPU, "
+        f"{TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} tokens from the same state: "
+        f"loss {lc:.6f} / {lh:.6f} ({loss_err:.3g} apart), every gradient "
+        f"within {grad_err:.3g} of its leaf's largest entry (tolerance "
+        f"{CARD_VS_CPU_TOL})")
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_err)
+
+
+def train_seamless(dev):
+    """SeamlessM4T-medium whole in bf16 through ``make_train_step``:
+    SEAMLESS_TRAIN_STEPS steps over encoder frames with ragged lengths and
+    decoder targets, launches per step and by shape, finite loss, finite
+    and changed parameters."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.param import count_params, tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, warmup_cosine
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config(SEAMLESS_ARCH)
+    init, step = make_train_step(cfg, AdamWConfig(
+        lr=warmup_cosine(1e-4, 1, SEAMLESS_TRAIN_STEPS)))
+    state = init(device=dev, generator=torch.Generator(dev).manual_seed(0))
+    n_params = count_params(state.params)
+    if n_params != SEAMLESS_PARAMS:
+        raise AssertionError(f"seamless: {n_params} parameters")
+    b = len(SEAMLESS_ENC_LENS)
+    extra = _AudioInputs(cfg, b, dev, 19)
+    rng = np.random.default_rng(19)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab, (b, SEAMLESS_TRAIN_TOKENS))).to(dev),
+        "labels": torch.from_numpy(rng.integers(
+            1, cfg.vocab, (b, SEAMLESS_TRAIN_TOKENS))).to(dev),
+        **extra.prefill(SEAMLESS_TRAIN_TOKENS)}
+    before = [p.detach().clone() for p in tree_leaves(state.params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_counts, losses = [], [], []
+    with _TrainShapes() as shapes:
+        kernels.reset_launch_counts()    # the SeamlessM4T path starts here
+        for _ in range(SEAMLESS_TRAIN_STEPS):
+            c0 = kernels.launch_counts()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            step_counts.append(_launch_delta(c0, kernels.launch_counts()))
+        counts = kernels.launch_counts()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    want = dict(flash_attention=n_attn + 2 * cfg.n_layers,
+                flash_attention_bwd=n_attn, paged_attention=0,
+                tiara_gather=0)
+    if any(c != want for c in step_counts):
+        raise AssertionError(f"seamless training launches per step "
+                             f"{step_counts}, expected {want}")
+    after = tree_leaves(state.params)
+    if not all(np.isfinite(losses)) \
+            or not all(bool(torch.isfinite(p).all()) for p in after):
+        raise AssertionError(f"seamless training: losses {losses}, or "
+                             f"non-finite parameters")
+    # Every leaf got a gradient (its AdamW first moment is nonzero) and
+    # every leaf moved, except the norms' scales: they start at 1.0, where
+    # bf16 values lie 2**-7 apart, and an update of about the learning rate
+    # (1e-4) rounds back to 1.0.
+    paths = _leaf_paths(state.params)
+    moved = {path: float((a != c).float().mean())
+             for path, a, c in zip(paths, before, after)}
+    no_grad = [p for p, mu in zip(paths, tree_leaves(state.opt.mu))
+               if not bool(mu.any())]
+    unchanged = [p for p, share in moved.items()
+                 if share == 0.0 and not p.endswith("/scale")]
+    if no_grad or unchanged:
+        raise AssertionError(f"seamless training: no gradient for "
+                             f"{no_grad}; unchanged {unchanged}")
+    del before
+    log(f"[train] {cfg.name} whole in bf16 ({n_params / 1e9:.3f} G params), "
+        f"{SEAMLESS_TRAIN_STEPS} steps of {b} x {SEAMLESS_S_ENC} encoder "
+        f"frames (enc_lengths {sorted(SEAMLESS_ENC_LENS)}) and {b} x "
+        f"{SEAMLESS_TRAIN_TOKENS} decoder targets: losses "
+        f"{[round(x, 4) for x in losses]}, every parameter finite, every "
+        f"leaf with a gradient, every leaf but the norms' scales changed "
+        f"({sum(moved.values()) / len(moved):.1%} of the elements on "
+        f"average); step wall {[round(x, 2) for x in step_ms]} ms; peak "
+        f"max_memory_allocated {peak / 1e9:.2f} GB; launches per step "
+        f"{step_counts[0]}; forward launches by shape {shapes.fwd}, "
+        f"backward {shapes.bwd}")
+    return dict(n_params=n_params, losses=losses, step_ms=step_ms,
+                peak_bytes=peak, counts=counts, step_counts=step_counts,
+                fwd_by_shape=shapes.fwd, bwd_by_shape=shapes.bwd,
+                moved_share=moved)
+
+
+def phase_training(dev):
+    """Phase 12: the flash_attention backward kernel at BWD_CASES, tiny-lm
+    trained at full width through Trainer (with a restart and 8-bit
+    state), a train step on the card against the CPU, and SeamlessM4T-
+    medium trained whole in bf16.  Checkpoints go to a git-ignored
+    directory of the checkout and are removed at the end."""
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    kern = bwd_cases(dev, scratch)
+    del scratch
+    torch.cuda.empty_cache()
+    root = os.path.join(HERE, "build", "chip", "smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        tiny = train_tiny(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cpu = train_card_vs_cpu(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seamless = train_seamless(dev)
+    return dict(kernels=kern, tiny=tiny, card_vs_cpu=cpu, seamless=seamless)
+
+
+def training_rows(train):
+    """The kernels line's rows of the training paths: for each shape that
+    tiny-lm's or SeamlessM4T's run launched the forward at, a forward row
+    with those launches (``_TrainShapes``) and the times of the
+    BWD_CASES case of that shape; and a backward row for every case, with
+    the launches the runs made at its shape (0 for the shapes only held
+    and timed here).  Fails if a run launched a shape that no case checked
+    and timed, or if the shapes' launches do not add up to the counts."""
+    cases = {r["key"]: (label, r) for label, r in train["kernels"].items()}
+    fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
+    rows, launched = [], {}
+    for kind, counter in (("fwd", "flash_attention"),
+                          ("bwd", "flash_attention_bwd")):
+        launched[kind] = {}
+        for path in ("tiny", "seamless"):
+            by_shape = train[path][f"{kind}_by_shape"]
+            if sum(by_shape.values()) != train[path]["counts"][counter]:
+                raise AssertionError(f"{path} training: {counter} launches "
+                                     f"by shape {by_shape} do not add up to "
+                                     f"{train[path]['counts'][counter]}")
+            for key, n in by_shape.items():
+                if key not in cases:
+                    raise AssertionError(f"{path} training launched "
+                                         f"{counter} at {key}, which no "
+                                         f"case checked and timed")
+                launched[kind][key] = launched[kind].get(key, 0) + n
+    for key, n in launched["fwd"].items():
+        label, r = cases[key]
+        f = r["fwd"]
+        rows.append(dict(
+            name="flash_attention", route="cuda",
+            source=fa_src + "flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention/kernel.py:73",
+            launches=n, max_abs_err=f["max_abs_err"], ms=f["ms"],
+            plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+            bound_by=f["bound_by"], library_ms=f["library_ms"],
+            shape=f"training, {label}, with lse: {key} {r['dtype']}"))
+    for label, r in train["kernels"].items():
+        rows.append(dict(
+            name="flash_attention_bwd", route="cuda",
+            source=fa_src + "flash_attention_bwd.cu",
+            replaces="no TPU kernel: the reference differentiates the "
+                     "plain route of flash_attention_kernel "
+                     "(src/repro/kernels/flash_attention/kernel.py:73)",
+            launches=launched["bwd"].get(r["key"], 0),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            shape=f"training, {label}: {r['key']} {r['dtype']}"))
+    return rows
+
+
 def phase_simulator(dev):
     """The paper's cycle simulator over the port's endpoint: the stock graph
     walk at depth 10, registered on a card-resident endpoint, traced on
@@ -2323,12 +2978,12 @@ def phase_endpoint(dev):
         """Run one wave; record its wall time, the engine the doorbell
         picked and the kernel launches it made."""
         torch.cuda.synchronize()
-        d0, n0 = ep.last_decision, tg.LAUNCHES
+        d0, n0 = ep.last_decision, tg.COUNTS["tiara_gather"]
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t
-        launches[name] = tg.LAUNCHES - n0
+        launches[name] = tg.COUNTS["tiara_gather"] - n0
         ran[name] = picked(asked, d0)
         log(f"[wave] {name}: mode={asked} -> {ran[name]}; tiara_gather "
             f"launches {launches[name]}; {walls[name] * 1e3:.1f} ms")
@@ -2409,7 +3064,7 @@ def phase_endpoint(dev):
         "steps, whole pool)")
 
     # 5. the serving loop on a virtual clock
-    n0 = tg.LAUNCHES
+    n0 = tg.COUNTS["tiara_gather"]
     t = time.perf_counter()
     loop = ServingLoop(ep, ServingConfig(ring_size=16, max_inflight_waves=2))
     subs = []
@@ -2424,7 +3079,7 @@ def phase_endpoint(dev):
     st = loop.drain()
     ep.wait_all()
     walls["serving_64"] = time.perf_counter() - t
-    launches["serving_64"] = tg.LAUNCHES - n0
+    launches["serving_64"] = tg.COUNTS["tiara_gather"] - n0
     total = st.executed + st.flushed + st.timed_out + st.rejected + st.shed
     if st.submitted != 64 or total != 64:
         raise AssertionError(f"CQE identity broken: {st}")
@@ -2509,6 +3164,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     seamless = phase_seamless(dev)
     simulated = phase_simulator(dev)
+    gc.collect()                             # SeamlessM4T's weights go here
+    torch.cuda.empty_cache()
+    # the training paths reset and read the counts around their own runs
+    training = phase_training(dev)
     serving = {k: sum(r["counts"][k] for r in runs.values())
                for k in counts}
     scout_counts = {k: sum(r["counts"][k] for r in scout["runs"].values())
@@ -2516,8 +3175,10 @@ def main() -> int:
     log(f"[launches] tiny-lm serving path (host + tiara): {serving}")
     log(f"[launches] Scout serving path (host + tiara): {scout_counts}")
     for path in (serving, scout_counts):
+        if path["flash_attention_bwd"]:
+            raise AssertionError("a serving path launched the backward")
         for k in counts:
-            if path[k] < 1:
+            if k != "flash_attention_bwd" and path[k] < 1:
                 raise AssertionError(f"a serving path never launched {k}")
     kinfo["launches"] = counts["tiara_gather"] + serving["tiara_gather"] \
         + scout_counts["tiara_gather"]
@@ -2532,6 +3193,11 @@ def main() -> int:
     paged["launches"] = serving["paged_attention"] \
         + scout_counts["paged_attention"] \
         + sum(c["paged_attention"] for c in model_paths)
+    train_paths = [training["tiny"]["counts"],
+                   training["seamless"]["counts"]]
+    log(f"[launches] training paths (tiny-lm {TRAIN_STEPS} steps, "
+        f"SeamlessM4T {SEAMLESS_TRAIN_STEPS} steps): {train_paths}")
+    # the training paths' forward launches have rows of their own
     flash["launches"] = serving["flash_attention"] \
         + scout_counts["flash_attention"] \
         + sum(c["flash_attention"] for c in model_paths)
@@ -2573,7 +3239,8 @@ def main() -> int:
                                    for r, run in scout["runs"].items()},
                        "logits": scout["logits"]},
                    "jamba": jamba, "rwkv": rwkv, "qwen": qwen,
-                   "seamless": seamless, "simulator": simulated},
+                   "seamless": seamless, "simulator": simulated,
+                   "training": training},
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2583,6 +3250,7 @@ def main() -> int:
                      (paged, "tiny-lm's decode step"),
                      (flash, "tiny-lm's 2048-token prefill"))]
     rows += multimodal_rows(qwen, seamless, paged, flash)
+    rows += training_rows(training)
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -10,8 +10,11 @@ run through the model's entry points (``init_caches``, ``prefill``,
 multimodal families, which run there too: Qwen2-VL (M-RoPE, a vision
 stub) and the encoder-decoder SeamlessM4T (an audio stub).
 
-The JAX reference's mesh and compiler knobs (``dp_spec``, ``remat``,
-``remat_unit``, ``scan_layers``) have no counterpart here: PyTorch runs
+``remat`` (none | dots | full) and ``remat_unit`` (pattern | layer) keep
+the reference's meaning and defaults: the train mode checkpoints the
+decoder stack through ``torch.utils.checkpoint`` (see
+``models/transformer.py``).  The reference's mesh and compiler knobs
+(``dp_spec``, ``scan_layers``) have no counterpart here: PyTorch runs
 eagerly and the port has no mesh yet.  ``paged_attn_fn`` and ``moe_fn``
 stay as fields because the distributed decode and the expert-parallel MoE
 plug in through them; until that slice lands, a value other than ``None``
@@ -64,6 +67,8 @@ class ArchConfig:
     mamba: MambaSpec = MambaSpec()
     rwkv: RWKVSpec = RWKVSpec()
     attn_impl: str = "auto"       # auto | cuda | torch (kernels' ``impl``)
+    remat: str = "full"           # none | dots | full (train-mode checkpoint)
+    remat_unit: str = "pattern"   # pattern | layer (checkpoint granularity)
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     page_size: int = 128          # paged-KV page (tokens)
@@ -96,6 +101,19 @@ class ArchConfig:
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
+
+ARCH_IDS = (
+    "internlm2-1.8b",
+    "granite-3-8b",
+    "stablelm-1.6b",
+    "nemotron-4-15b",
+    "llama4-scout-17b-a16e",
+    "llama4-maverick-400b-a17b",
+    "jamba-v0.1-52b",
+    "rwkv6-1.6b",
+    "seamless-m4t-medium",
+    "qwen2-vl-7b",
+)
 
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",

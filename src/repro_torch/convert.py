@@ -2,7 +2,8 @@
 
 The Tiara state is the memory pool and the encoded operator programs;
 the serving stack adds model weights and the decode caches (paged KV,
-the recurrent states and the cross-attention KV).  The reference
+the recurrent states and the cross-attention KV), and training the
+train state (weights, AdamW moments, counters).  The reference
 keeps pools and programs as plain numpy
 (``int64[n_devices, pool_words]`` pools, ``int64[n, INSTR_WIDTH]``
 instruction words), so carrying them across needs no import of the
@@ -28,6 +29,9 @@ from repro_torch.models.blocks import BlockCache
 from repro_torch.models.mamba import MambaCache
 from repro_torch.models.rwkv import RWKVCache
 from repro_torch.models.param import tree_map
+from repro_torch.models.transformer import trainable
+from repro_torch.training.optimizer import AdamWState, Q8
+from repro_torch.training.train_step import TrainState
 
 
 def pool_from_numpy(mem, device=None) -> torch.Tensor:
@@ -133,3 +137,49 @@ def caches_from_numpy(caches, device=None):
                 kw[name] = params_from_numpy(f, device)
         out.append(BlockCache(**kw))
     return tuple(out)
+
+
+def _is_q8(x) -> bool:
+    return isinstance(x, tuple) and getattr(x, "_fields", None) \
+        == ("codes", "scales")
+
+
+def train_state_from_numpy(state, device=None) -> TrainState:
+    """The reference's ``TrainState`` as numpy (``step``, ``params``,
+    ``opt`` an ``AdamWState`` of ``count``, ``mu``, ``nu`` whose leaves are
+    arrays, or ``Q8`` (codes, scales) pairs under 8-bit state) as the
+    port's, on ``device`` — the card unless named; the weights require
+    gradients.  Numpy leaves or JAX arrays both cross."""
+    dev = resolve_device(device)
+
+    def moment(tree):
+        def leaf(x):
+            if _is_q8(x):
+                return Q8(*params_from_numpy(tuple(x), dev))
+            return params_from_numpy(x, dev)
+        return tree_map(leaf, tree, is_leaf=_is_q8)
+    opt = state.opt
+    return TrainState(
+        step=params_from_numpy(state.step, dev),
+        params=trainable(params_from_numpy(state.params, dev)),
+        opt=AdamWState(count=params_from_numpy(opt.count, dev),
+                       mu=moment(opt.mu), nu=moment(opt.nu)))
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The port's train state with every tensor copied to a numpy array
+    (bf16 as f32, as :func:`params_from_numpy` takes it), in the port's
+    ``TrainState`` / ``AdamWState`` / ``Q8`` tuples, whose field names are
+    the reference's."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    def moment(tree):
+        return tree_map(lambda x: Q8(*map(leaf, x)) if _is_q8(x)
+                        else leaf(x), tree, is_leaf=_is_q8)
+    return TrainState(step=leaf(state.step),
+                      params=tree_map(leaf, state.params),
+                      opt=AdamWState(count=leaf(state.opt.count),
+                                     mu=moment(state.opt.mu),
+                                     nu=moment(state.opt.nu)))

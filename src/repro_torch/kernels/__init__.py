@@ -29,15 +29,17 @@ def _modules():
     from repro_torch.kernels.flash_attention import kernel as _fa
     from repro_torch.kernels.paged_attention import kernel as _pa
     from repro_torch.kernels.tiara_gather import kernel as _tg
-    return {"tiara_gather": _tg, "paged_attention": _pa,
-            "flash_attention": _fa}
+    return _tg, _pa, _fa
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of every kernel since the last :func:`reset_launch_counts`."""
-    return {name: mod.LAUNCHES for name, mod in _modules().items()}
+    """Launches of every kernel since the last :func:`reset_launch_counts`:
+    the merged ``COUNTS`` of the kernel modules, one entry per kernel
+    entry point."""
+    return {name: n for mod in _modules() for name, n in mod.COUNTS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _modules().values():
-        mod.LAUNCHES = 0
+    for mod in _modules():
+        for name in mod.COUNTS:
+            mod.COUNTS[name] = 0

@@ -9,6 +9,10 @@
 //   k/v (B, KVH, Sk, D)  same dtype, QH a multiple of KVH
 //   lengths (B,) int32 or null (every key live)
 //   out (B, QH, Sq, D)   q's dtype
+//   lse (B, QH, Sq)      f32 or null: each row's log-sum-exp of its scaled
+//                        live scores, log sum_j exp(scale q . k_j), in
+//                        natural log (the backward, flash_attention_bwd.cu,
+//                        reads it); +inf for a row with no live key
 //
 // Replaces the Pallas TPU kernel `flash_attention_kernel`
 // (src/repro/kernels/flash_attention/kernel.py, body `_flash_kernel`),
@@ -357,9 +361,9 @@ __global__ void __launch_bounds__(kThreads, q_in_regs<D>() ? 2 : 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const int32_t* __restrict__ lengths,
-                       T* __restrict__ out, int batch, int qh, int kvh,
-                       int seq_q, int seq_k, int n_qt, float scale,
-                       int causal) {
+                       T* __restrict__ out, float* __restrict__ lse,
+                       int batch, int qh, int kvh, int seq_q, int seq_k,
+                       int n_qt, float scale, int causal) {
   using S = Smem<T, D>;
   constexpr int KS = D / 8;              // k steps of Q K^T
   constexpr int CH = D / 4;              // 16-byte chunks of a row of d
@@ -607,8 +611,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = fmaxf(l[r], 1e-30f);
   }
+  // The row's log-sum-exp in natural log: m and l are in base 2 (q carries
+  // log2(e)), so lse = (m + log2 l) ln 2.  l is 0 only when the k loop did
+  // not run (no live key); +inf then makes every exp(s - lse) of the
+  // backward 0.
+  if (lse != nullptr && tg == 0) {
+    float* lg = lse + (static_cast<int64_t>(b) * qh + h) * seq_q;
+    const float ln2 = 0.6931471805599453f, inf = __int_as_float(0x7f800000);
+    if (qpos0 < seq_q)
+      lg[qpos0] = l[0] > 0.f ? (m[0] + log2f(l[0])) * ln2 : inf;
+    if (qpos1 < seq_q)
+      lg[qpos1] = l[1] > 0.f ? (m[1] + log2f(l[1])) * ln2 : inf;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = fmaxf(l[r], 1e-30f);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int c = 8 * n + 2 * tg;
@@ -623,9 +640,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* lengths, void* out, int64_t batch,
-                   int64_t qh, int64_t kvh, int64_t seq_q, int64_t seq_k,
-                   float scale, int causal, cudaStream_t stream) {
+                   const int32_t* lengths, void* out, float* lse,
+                   int64_t batch, int64_t qh, int64_t kvh, int64_t seq_q,
+                   int64_t seq_k, float scale, int causal,
+                   cudaStream_t stream) {
   constexpr int smem = Smem<T, D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<T, D>,
@@ -636,7 +654,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   dim3 grid(static_cast<unsigned>(n_qt * qh * batch));
   flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(out),
+      static_cast<const T*>(v), lengths, static_cast<T*>(out), lse,
       static_cast<int>(batch), static_cast<int>(qh), static_cast<int>(kvh),
       static_cast<int>(seq_q), static_cast<int>(seq_k),
       static_cast<int>(n_qt), scale, causal);
@@ -645,22 +663,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const int32_t* lengths, void* out, int64_t batch,
-                     int64_t qh, int64_t kvh, int64_t seq_q, int64_t seq_k,
-                     int64_t head_dim, float scale, int causal,
-                     cudaStream_t stream) {
+                     const int32_t* lengths, void* out, float* lse,
+                     int64_t batch, int64_t qh, int64_t kvh, int64_t seq_q,
+                     int64_t seq_k, int64_t head_dim, float scale,
+                     int causal, cudaStream_t stream) {
   switch (head_dim) {
     case 16:
-      return launch<T, 16>(q, k, v, lengths, out, batch, qh, kvh, seq_q,
+      return launch<T, 16>(q, k, v, lengths, out, lse, batch, qh, kvh, seq_q,
                            seq_k, scale, causal, stream);
     case 32:
-      return launch<T, 32>(q, k, v, lengths, out, batch, qh, kvh, seq_q,
+      return launch<T, 32>(q, k, v, lengths, out, lse, batch, qh, kvh, seq_q,
                            seq_k, scale, causal, stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, out, batch, qh, kvh, seq_q,
+      return launch<T, 64>(q, k, v, lengths, out, lse, batch, qh, kvh, seq_q,
                            seq_k, scale, causal, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, out, batch, qh, kvh, seq_q,
+      return launch<T, 128>(q, k, v, lengths, out, lse, batch, qh, kvh, seq_q,
                             seq_k, scale, causal, stream);
     default:
       return cudaErrorInvalidValue;
@@ -669,11 +687,11 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16.  lse may be null.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const int32_t* lengths,
-                                      void* out, int64_t batch, int64_t qh,
-                                      int64_t kvh, int64_t seq_q,
+                                      void* out, float* lse, int64_t batch,
+                                      int64_t qh, int64_t kvh, int64_t seq_q,
                                       int64_t seq_k, int64_t head_dim,
                                       float scale, int64_t causal,
                                       int64_t dtype, void* stream) {
@@ -688,12 +706,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const int c = causal != 0;
   switch (dtype) {
     case 0:
-      return static_cast<int>(launch_d<float>(q, k, v, lengths, out, batch,
-                                              qh, kvh, seq_q, seq_k,
+      return static_cast<int>(launch_d<float>(q, k, v, lengths, out, lse,
+                                              batch, qh, kvh, seq_q, seq_k,
                                               head_dim, scale, c, s));
     case 1:
       return static_cast<int>(launch_d<__nv_bfloat16>(
-          q, k, v, lengths, out, batch, qh, kvh, seq_q, seq_k, head_dim,
+          q, k, v, lengths, out, lse, batch, qh, kvh, seq_q, seq_k, head_dim,
           scale, c, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,4 +1,4 @@
-"""Public entry point for prefill attention."""
+"""Public entry point for prefill attention, with its gradient."""
 
 from __future__ import annotations
 
@@ -7,13 +7,38 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import resolve_impl
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_kernel, flash_attention_kernel)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_chunked,
                                                      flash_attention_ref)
 
 #: from this many query rows on, the plain version loops over query chunks
 #: so that it never builds a (B, H, S, S) score tensor
 CHUNKED_FROM = 2048
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The CUDA forward and backward kernels as one differentiable op.
+    The forward launches ``flash_attention_kernel`` with ``return_lse``
+    and saves ``q, k, v, out, lse, lengths``; the backward launches
+    ``flash_attention_bwd_kernel`` — on the card both products of
+    training run as kernels, never as the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal, scale):
+        out, lse = flash_attention_kernel(q, k, v, lengths, causal=causal,
+                                          scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, lengths)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, lengths = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, out, lse, dout.contiguous(), lengths,
+            causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,13 +55,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     impl: ``"auto"`` launches the CUDA kernel on CUDA tensors and runs the
     plain version on CPU tensors; ``"cuda"`` always launches the kernel;
     ``"torch"`` takes CPU tensors only (on the card the kernel runs).
+
+    Differentiable: on the card, when gradients are on and an input needs
+    one, the call runs as :class:`FlashAttentionFn` (the backward is the
+    CUDA backward kernel); on the CPU autograd runs through the plain
+    version.
     """
     del block_q, block_k
     if resolve_impl(impl, q) == "cuda":
-        return flash_attention_kernel(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            None if lengths is None else lengths.to(torch.int32)
-            .contiguous(), causal=causal, scale=scale)
+        args = (q.contiguous(), k.contiguous(), v.contiguous(),
+                None if lengths is None else lengths.to(torch.int32)
+                .contiguous())
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttentionFn.apply(*args, causal, scale)
+        return flash_attention_kernel(*args, causal=causal, scale=scale)
     if q.shape[2] >= CHUNKED_FROM:
         return flash_attention_chunked(q, k, v, lengths, causal=causal,
                                        scale=scale)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of tiled causal attention."""
+"""Plain PyTorch versions of tiled causal attention and of its
+gradient."""
 
 from __future__ import annotations
 
@@ -72,6 +73,69 @@ def flash_attention_chunked(q: torch.Tensor, k: torch.Tensor,
         outs.append(_attend(q[:, :, q0:q0 + chunk], kr, vr, mask,
                             scale).to(q.dtype))
     return torch.cat(outs, dim=2)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            lengths: Optional[torch.Tensor] = None, *,
+                            causal: bool = True,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """The forward kernel's ``lse`` output: each row's ``log sum_j
+    exp(scale q . k_j)`` over its live keys, (B, QH, Sq) f32, natural
+    log, ``+inf`` for a row with no live key."""
+    seq_q, head_dim = q.shape[2], q.shape[3]
+    if scale is None:
+        scale = head_dim ** -0.5
+    kr = k.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    mask = _mask(seq_q, k.shape[2], 0, lengths, causal, q.device)
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isneginf(lse), float("inf"), lse)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            lengths: Optional[torch.Tensor] = None, *,
+                            causal: bool = True,
+                            scale: Optional[float] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradient of :func:`flash_attention_ref`, written out as the
+    CUDA backward (``csrc/flash_attention_bwd.cu``) computes it, in f32:
+    with ``s = scale q k^T`` and the forward's ``o`` and ``lse`` (natural
+    log, ``+inf`` on a row with no live key),
+
+        P = exp(s - lse) on live keys, 0 elsewhere;   dV = P^T dO
+        D = rowsum(dO o);   dS = P (dO V^T - D);      dQ = scale dS K
+        dK = scale dS^T Q, summed over each kv head's query group.
+
+    Returns ``(dq, dk, dv)`` in the inputs' dtype.  The tests and the chip
+    smoke hold the kernel against it; no training path calls it."""
+    batch, qh, seq_q, head_dim = q.shape
+    kvh, seq_k = k.shape[1], k.shape[2]
+    group = qh // kvh
+    if scale is None:
+        scale = head_dim ** -0.5
+    qf, dof = q.float(), do.float()
+    kr = k.float().repeat_interleave(group, dim=1)
+    vr = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    mask = _mask(seq_q, seq_k, 0, lengths, causal, q.device)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vr) - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+
+    def per_kv_head(t):
+        return t.reshape(batch, kvh, group, seq_k, head_dim).sum(2)
+    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

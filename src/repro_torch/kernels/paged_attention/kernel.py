@@ -11,7 +11,7 @@ CTA each, and a second kernel on the same stream combines the partitions'
 partial softmax sums in partition order.  It is built with ``nvcc`` for
 ``sm_90a`` on first use.
 
-``LAUNCHES`` counts the op's launches, one per call: the partition kernel
+``COUNTS["paged_attention"]`` counts the op's launches, one per call: the partition kernel
 and its combine kernel are one launch of the op, counted right where the
 C function that launches both returns.
 """
@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = 0
+COUNTS = {"paged_attention": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
@@ -89,7 +89,6 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
     ``q``'s dtype.  Every ``block_tables`` entry a live token reaches must
     name a page of the pool.  Raises on anything the kernel does not take
     — there is no fallback."""
-    global LAUNCHES
     _check(q, k_pages, v_pages, block_tables, lengths)
     b, kvh, g, d = q.shape
     page, maxp = int(k_pages.shape[1]), int(block_tables.shape[1])
@@ -117,5 +116,5 @@ def paged_attention_kernel(q: torch.Tensor, k_pages: torch.Tensor,
                      stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: cudaError {err}")
-    LAUNCHES += 1
+    COUNTS["paged_attention"] += 1
     return out

@@ -16,8 +16,8 @@ The kernel replaces the Pallas TPU kernel ``tiara_gather_kernel``
 (``src/repro/kernels/tiara_gather/kernel.py``); see the source for its
 design.  It is built with ``nvcc`` for ``sm_90a`` on first use.
 
-``LAUNCHES`` counts the kernel's launches — the one place it is
-incremented is right where the kernel is launched, so a run can show
+``COUNTS["tiara_gather"]`` counts the kernel's launches — the one place
+it is incremented is right where the kernel is launched, so a run can show
 that its main path went through the kernel.
 """
 
@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = 0
+COUNTS = {"tiara_gather": 0}
 
 _DTYPES = (torch.int64, torch.float32, torch.bfloat16, torch.int32)
 
@@ -75,7 +75,6 @@ def _check(pool: torch.Tensor, table: torch.Tensor, ids: torch.Tensor,
 
 def _launch(pool, table, ids, bases, masks, *, width: int, stride: int,
             mask: int) -> torch.Tensor:
-    global LAUNCHES
     n = int(ids.shape[0])
     out = torch.empty((n, width), dtype=pool.dtype, device=pool.device)
     if n == 0 or width == 0:
@@ -91,7 +90,7 @@ def _launch(pool, table, ids, bases, masks, *, width: int, stride: int,
                      pool.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"tiara_gather launch failed: cudaError {err}")
-    LAUNCHES += 1
+    COUNTS["tiara_gather"] += 1
     return out
 
 

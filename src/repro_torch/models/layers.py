@@ -147,7 +147,9 @@ def embed_defs(vocab_padded: int, d_model: int, tie: bool):
 
 
 def embed(params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return params["tokens"].to(dtype)[tokens.long()]
+    # the reference's row gather; ``F.embedding``'s backward on the card
+    # sums the rows of repeated tokens after a sort, in a fixed order
+    return F.embedding(tokens.long(), params["tokens"].to(dtype))
 
 
 def unembed(params, x: torch.Tensor,

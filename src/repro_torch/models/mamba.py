@@ -14,7 +14,11 @@ chunks of at most ``SCAN_CHUNK_BYTES`` and runs the recurrence in place
 on ``bx``, one fused multiply-add per step (``bx[t] += a[t] * h``), so the
 chunk's ``bx`` ends up holding the states and the outputs ``y = h . C``
 are one batched product per chunk.  The arithmetic per step is the
-reference's.
+reference's.  When gradients flow, autograd could not differentiate
+through states overwritten in place, so the same step runs out of place
+(``h = torch.addcmul(bx[t], a[t], h)``) and the chunk's states are
+stacked: the same arithmetic, and the memory of one more chunk-sized
+tensor.
 """
 
 from __future__ import annotations
@@ -124,8 +128,17 @@ def _scan(h, dt, xcf, bm, cm, a_mat, valid):
             vm = valid[:, c0:c1].transpose(0, 1)[..., None, None]
             a = torch.where(vm, a, 1.0)
             bx = torch.where(vm, bx, 0.0)
-        for t in range(c1 - c0):       # bx[t] becomes the state after t
-            h = bx[t].addcmul_(a[t], h)
+        if torch.is_grad_enabled() and (a.requires_grad or bx.requires_grad
+                                        or h.requires_grad):
+            # out of place: autograd keeps every state
+            states = []
+            for t in range(c1 - c0):
+                h = torch.addcmul(bx[t], a[t], h)
+                states.append(h)
+            bx = torch.stack(states)
+        else:
+            for t in range(c1 - c0):   # bx[t] becomes the state after t
+                h = bx[t].addcmul_(a[t], h)
         ys[:, c0:c1] = torch.einsum("cbdn,cbn->bcd", bx,
                                     cm[:, c0:c1].transpose(0, 1))
         del a, bx                   # freed before the next chunk's

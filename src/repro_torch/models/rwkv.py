@@ -12,8 +12,10 @@ update ``S_t = w_t S_{t-1} + kv_t`` runs in place on it (one fused
 multiply-add per step, so the buffer ends up holding the states), and the
 outputs ``y_t = r_t (S_{t-1} + u kv_t)`` are two batched operations per
 chunk.  The arithmetic per step is the reference's; as there, ``y`` reads
-the state before the decay update.  (As in the reference, the time mix
-has no group norm.)
+the state before the decay update.  When gradients flow, the update runs
+out of place (``torch.addcmul``) and the chunk's states are stacked, as
+autograd cannot differentiate through states overwritten in place: the
+same arithmetic.  (As in the reference, the time mix has no group norm.)
 """
 
 from __future__ import annotations
@@ -126,10 +128,20 @@ def _scan(state, rh, kh, vh, wh, uh, valid):
             w_c = torch.where(vm[..., 0], w_c, 1.0)
             kv = torch.where(vm, kv, 0.0)
         s_in = state
-        for t in range(c1 - c0):      # kv[t] becomes the state after t
-            state = kv[t].addcmul_(w_c[t][..., None], state)
-        pre[0] += s_in
-        pre[1:] += kv[:-1]
+        if torch.is_grad_enabled() and (kv.requires_grad
+                                        or w_c.requires_grad
+                                        or state.requires_grad):
+            # out of place: autograd keeps every state
+            states = [s_in]
+            for t in range(c1 - c0):
+                state = torch.addcmul(kv[t], w_c[t][..., None], state)
+                states.append(state)
+            pre = pre + torch.stack(states[:-1])
+        else:
+            for t in range(c1 - c0):  # kv[t] becomes the state after t
+                state = kv[t].addcmul_(w_c[t][..., None], state)
+            pre[0] += s_in
+            pre[1:] += kv[:-1]
         ys[:, c0:c1] = torch.einsum("cbhi,cbhij->bchj", r_c, pre)
         del kv, pre                 # freed before the next chunk's
     return state.clone(), ys

@@ -12,7 +12,15 @@ cross between the frameworks by name and shape — and walks the
 repetitions with a Python loop.
 
 Three modes share one code path:
-  train    full-sequence forward, no caches;
+  train    full-sequence forward, no caches, differentiable: when
+           gradients flow to the blocks' weights, ``cfg.remat``
+           checkpoints the decoder stack as the reference's
+           ``jax.checkpoint`` does, through ``torch.utils.checkpoint``
+           (non-reentrant) around each pattern repetition, or each layer
+           under ``remat_unit="layer"``; ``"full"`` saves nothing inside,
+           ``"dots"`` saves the outputs of the matrix products with no
+           batch dims, ``"none"`` checkpoints nothing.  Remat changes
+           memory, never values;
   prefill  full-sequence forward that fills the paged KV pool and the
            recurrent states (``lengths`` marks right-padding);
   decode   one token per sequence against the paged pool (Tiara path)
@@ -21,15 +29,19 @@ Three modes share one code path:
 Parameters are a nested dict of tensors with the reference tree's names
 (``embed/tokens``, ``blocks[j]/mix/wq``, ...).  :class:`Transformer` holds
 them as an ``nn.Module`` for ``.to(device)`` and ``state_dict()``; its
-``forward`` calls :func:`apply_model`.
+``forward`` calls :func:`apply_model`.  :func:`trainable` marks a tree's
+tensors (the module's too) as requiring gradients, in place.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig, LayerSpec
 from repro_torch.core.vm import resolve_device
@@ -37,7 +49,8 @@ from repro_torch.models.blocks import (BlockCache, block_apply, block_defs,
                                        init_block_cache)
 from repro_torch.models.layers import (apply_norm, embed, embed_defs,
                                        norm_defs, unembed)
-from repro_torch.models.param import materialize, stack_defs, tree_map
+from repro_torch.models.param import (materialize, stack_defs, tree_leaves,
+                                      tree_map)
 
 
 def model_dtype(name: str) -> torch.dtype:
@@ -69,19 +82,28 @@ def model_defs(cfg: ArchConfig):
 
 def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
                 generator: Optional[torch.Generator] = None):
-    """Random weights, drawn leaf by leaf in tree order and moved to
-    ``device``.  By default they come from a CPU ``torch.Generator``
-    seeded with ``seed``: the same values whatever the device.  A caller
-    may pass its own seeded ``generator`` instead (``seed`` is then
-    unused), for example one on the card, which draws a full-width model
-    there without a pass through host memory; its values are that
-    generator's."""
+    """Random weights, drawn leaf by leaf in tree order and placed on
+    ``device`` (the card unless named).  By default they come from a CPU
+    ``torch.Generator`` seeded with ``seed``: the same values whatever the
+    device.  A caller may pass its own seeded ``generator`` instead
+    (``seed`` is then unused), for example one on the card, which draws a
+    full-width model there without a pass through host memory; its values
+    are that generator's."""
+    device = resolve_device(device)
     gen = generator if generator is not None \
         else torch.Generator().manual_seed(int(seed))
     params = materialize(model_defs(cfg), gen,
                          dtype or model_dtype(cfg.param_dtype))
-    return tree_map(lambda a: a.to(device), params) if device is not None \
-        else params
+    return tree_map(lambda a: a.to(device), params)
+
+
+def trainable(params):
+    """Mark every tensor of a parameter tree as requiring gradients, in
+    place (no copy), and return the tree: ``init_params``'s draws and a
+    :class:`Transformer`'s weights hold none."""
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -189,19 +211,62 @@ def apply_model(params, cfg: ArchConfig, batch: Dict[str, Any], *,
             ctx["enc_out"], enc_aux = _run_encoder(
                 params, cfg, batch["enc_embeds"], batch.get("enc_lengths"))
     caches = batch.get("caches")
+
+    def one_layer(h, aux, r, j):
+        bp = tree_map(lambda a: a[r], params["blocks"][j])
+        bc = None if caches is None else _layer_cache(caches[j], r)
+        h, _, a = block_apply(bp, h, cfg, cfg.pattern[j], mode=mode,
+                              ctx=ctx, cache=bc)
+        return h, aux + a
+
+    grads_flow = mode == "train" and torch.is_grad_enabled() and any(
+        p.requires_grad for p in tree_leaves(params["blocks"]))
+    remat = _remat(cfg) if grads_flow else None
+    if remat is not None and cfg.remat_unit == "layer":
+        layer = functools.partial(remat, one_layer)
+    else:
+        layer = one_layer
+
+    def one_repetition(h, aux, r):
+        for j in range(len(cfg.pattern)):
+            h, aux = layer(h, aux, r, j)
+        return h, aux
+
+    if remat is not None and cfg.remat_unit != "layer":
+        repetition = functools.partial(remat, one_repetition)
+    else:
+        repetition = one_repetition
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(cfg.n_repeat):
-        for j, spec in enumerate(cfg.pattern):
-            bp = tree_map(lambda a, r=r: a[r], params["blocks"][j])
-            bc = None if caches is None else _layer_cache(caches[j], r)
-            x, _, a = block_apply(bp, x, cfg, spec, mode=mode, ctx=ctx,
-                                  cache=bc)
-            aux = aux + a
+        x, aux = repetition(x, aux, r)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = unembed(params["embed"], x, cfg.vocab)
     if enc_aux is not None:
         aux = aux + enc_aux
     return ModelOutput(logits=logits, caches=caches, aux_loss=aux)
+
+
+# The matrix products with no batch dims (``x @ w``): what the reference's
+# ``dots_with_no_batch_dims_saveable`` keeps under ``remat="dots"``.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ArchConfig):
+    """``fn(*args)`` under the checkpoint ``cfg.remat`` names, or None for
+    ``"none"``; any other value recomputes everything, as the reference's
+    ``nothing_saveable``."""
+    if cfg.remat == "none":
+        return None
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, **kw)
 
 
 def prefill(params, cfg: ArchConfig, batch):

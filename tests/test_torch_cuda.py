@@ -710,3 +710,217 @@ def test_cuda_recurrent_functions_match_cpu(cuda_device):
                               (m[0], *m[1], r[0], *r[1], *c)]
         for a, c in zip(outs["cuda"], outs["cpu"]):
             assert torch.allclose(a, c, atol=tol, rtol=tol), dtype
+
+
+# -- training: the flash_attention backward, the train step, the trainer ----
+
+# The backward kernel against flash_attention_bwd_ref: in f32 within 1e-4
+# of each gradient's largest entry (both sum in f32, in other orders, over
+# up to Sq query rows); in bf16 within two bf16 ulps of the f32 plain
+# result (2**-6 relative, both round an f32 sum once), plus the same 1e-4
+# for entries near 0.
+BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 2 ** -6)}
+# The forward's lse against its plain version, (atol, rtol): both sum in
+# f32 in other orders, the kernel's products in 3xTF32 (errors about 1e-6
+# on rows whose lse is about 5).
+LSE_TOL = (1e-5, 1e-5)
+# The forward's output against its plain version, (atol, rtol): in bf16
+# both compute in f32 and round once, so two bf16 ulps.
+FWD_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (1e-4, 2 ** -6)}
+
+
+def _bwd_close(got, want, dtype):
+    atol, rtol = BWD_TOL[dtype]
+    want = want.float().cpu()
+    torch.testing.assert_close(got.float().cpu(), want, rtol=rtol,
+                               atol=atol * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,qh,kvh,sq,sk,d", [
+    (2, 4, 2, 64, 64, 32),
+    (1, 6, 2, 200, 130, 128),    # Sq > Sk, ragged tiles
+    (2, 7, 1, 70, 150, 64),      # G = 7, Sq < Sk
+    (3, 3, 3, 37, 37, 16),       # G = 1
+])
+def test_cuda_flash_attention_bwd_matches_plain(cuda_device, dtype, causal,
+                                                b, qh, kvh, sq, sk, d):
+    """The backward kernel against its plain version at every head dim,
+    GQA group, causal or full, Sq != Sk, ragged lengths with a 0 (whose
+    gradients are 0); the same bits twice; the forward's output the same
+    bits with and without lse, within FWD_TOL of the plain forward, and
+    its lse against the plain log-sum-exp (+inf on a row with no live
+    key).  The plain backward takes the plain lse, so a wrong lse cannot
+    pass on both sides, and the kernel's output: in bf16 the backward's
+    rowsum(dO o) carries o's rounding, so the plain forward's output (an
+    ulp away) would move the gradients by more than two ulps."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_bwd_ref,
+        flash_attention_kernel, flash_attention_lse_ref,
+        flash_attention_ref)
+    rng = np.random.default_rng(b * 1000 + sq + sk + d)
+    q = _randn(rng, (b, qh, sq, d), dtype, cuda_device)
+    k = _randn(rng, (b, kvh, sk, d), dtype, cuda_device)
+    v = _randn(rng, (b, kvh, sk, d), dtype, cuda_device)
+    do = _randn(rng, (b, qh, sq, d), dtype, cuda_device)
+    ln = rng.integers(1, sk + 1, (b,)).astype(np.int32)
+    if b > 1:
+        ln[1] = 0
+    ln = torch.from_numpy(ln).to(cuda_device)
+    out0 = flash_attention_kernel(q, k, v, ln, causal=causal)
+    out, lse = flash_attention_kernel(q, k, v, ln, causal=causal,
+                                      return_lse=True)
+    before = kernels.launch_counts()["flash_attention_bwd"]
+    got = flash_attention_bwd_kernel(q, k, v, out, lse, do, ln,
+                                     causal=causal)
+    again = flash_attention_bwd_kernel(q, k, v, out, lse, do, ln,
+                                       causal=causal)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention_bwd"] == before + 2
+    assert torch.equal(out0, out)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want_lse = flash_attention_lse_ref(q, k, ln, causal=causal)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    live = torch.isfinite(want_lse)
+    torch.testing.assert_close(lse[live], want_lse[live], atol=LSE_TOL[0],
+                               rtol=LSE_TOL[1])
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, ln, causal=causal).float(),
+        atol=FWD_TOL[dtype][0], rtol=FWD_TOL[dtype][1])
+    want = flash_attention_bwd_ref(q, k, v, out, want_lse, do, ln,
+                                   causal=causal)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        _bwd_close(g, w, dtype)
+    if b > 1:
+        assert torch.isinf(lse[1]).all()
+        assert not any(g[1].any() for g in got)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_autograd_runs_both_kernels(cuda_device):
+    """With gradients on, flash_attention on the card runs the forward
+    kernel and, in the backward, the backward kernel: one launch each."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd_kernel, flash_attention_kernel)
+    rng = np.random.default_rng(3)
+    q, k, v = (_randn(rng, s, torch.float32, cuda_device).requires_grad_()
+               for s in ((2, 6, 96, 64), (2, 2, 96, 64), (2, 2, 96, 64)))
+    do = _randn(rng, (2, 6, 96, 64), torch.float32, cuda_device)
+    ln = torch.tensor([96, 40], dtype=torch.int32, device=cuda_device)
+    kernels.reset_launch_counts()
+    out = flash_attention(q, k, v, ln, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == \
+        (1, 1)
+    with torch.no_grad():
+        o, lse = flash_attention_kernel(q, k, v, ln, return_lse=True)
+        want = flash_attention_bwd_kernel(q, k, v, o, lse, do, ln)
+    assert torch.equal(out.detach(), o)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def _np_state(cfg, seed):
+    from repro_torch.convert import train_state_to_numpy
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+    init, _ = make_train_step(cfg, AdamWConfig(lr=lambda s: 1e-3))
+    return train_state_to_numpy(init(seed, device="cpu"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tiny-lm", "seamless-m4t-medium"])
+def test_cuda_train_step_matches_cpu(cuda_device, arch):
+    """One train step of a reduced model on the card and on the CPU from
+    the same state and batch: loss and every gradient within 1e-3 of the
+    leaf's largest entry (cuBLAS and the kernels sum in other orders than
+    the CPU's BLAS and the plain attention, through the forward and the
+    backward).  Launches per step under remat "full": flash_attention
+    forward twice per checkpointed attention call (the recompute), once
+    per encoder layer, and the backward once per attention call."""
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import make_train_step
+    cfg = reduce_config(get_config(arch))
+    np_state = _np_state(cfg, 4)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 40)),
+             "labels": rng.integers(0, cfg.vocab, (2, 40))}
+    if cfg.enc_dec:
+        batch["enc_embeds"] = rng.standard_normal(
+            (2, 24, cfg.d_model)).astype(np.float32)
+        batch["enc_lengths"] = np.array([24, 9], np.int32)
+    got = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        caught = {}
+
+        def catch(g, caught=caught):
+            caught["g"] = g
+            return g
+        _, step = make_train_step(cfg, AdamWConfig(lr=lambda s: 1e-3),
+                                  grad_compressor=catch)
+        state = train_state_from_numpy(np_state, device=dev)
+        kernels.reset_launch_counts()
+        state, m = step(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in batch.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        got[dev.type] = (float(m["loss"]),
+                         [g.cpu() for g in tree_leaves(caught["g"])])
+    n_dec = cfg.n_layers * (2 if cfg.enc_dec else 1)
+    assert counts["flash_attention"] == 2 * n_dec + cfg.n_enc_layers
+    assert counts["flash_attention_bwd"] == n_dec + cfg.n_enc_layers
+    assert counts["paged_attention"] == counts["tiara_gather"] == 0
+    (lc, gc), (lh, gh) = got["cuda"], got["cpu"]
+    assert abs(lc - lh) <= 1e-3 * abs(lh)
+    for a, c in zip(gc, gh):
+        torch.testing.assert_close(a, c, rtol=1e-3,
+                                   atol=1e-3 * float(c.abs().max()))
+
+
+@pytest.mark.gpu
+def test_cuda_trainer_restart_equals_the_uninterrupted_run(cuda_device,
+                                                           tmp_path):
+    """Reduced tiny-lm through Trainer on the card: 6 steps with a
+    checkpoint at 3; a restart from the step-3 checkpoint (copied alone
+    into a fresh directory) ends on the uninterrupted run's parameters bit
+    for bit — every kernel of the step is deterministic."""
+    import shutil
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data import DataConfig
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.training import Trainer, TrainerConfig
+    cfg = reduce_config(get_config("tiny-lm"))
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=96, global_batch=4)
+
+    def tcfg(d):
+        return TrainerConfig(total_steps=6, ckpt_every=3, ckpt_dir=str(d),
+                             peak_lr=2e-3, warmup=2, log_every=1)
+    full = Trainer(cfg, tcfg(tmp_path / "a"), dcfg).run()
+    assert tree_leaves(full.params)[0].is_cuda
+    (tmp_path / "b").mkdir()
+    shutil.copytree(tmp_path / "a" / "step_00000003",
+                    tmp_path / "b" / "step_00000003")
+    tr = Trainer(cfg, tcfg(tmp_path / "b"), dcfg)
+    resumed = tr.init_or_restore()
+    assert int(resumed.step) == 3
+    resumed = tr.run(resumed)
+    assert int(resumed.step) == 6
+    assert all(torch.equal(a, c) for a, c in
+               zip(tree_leaves(full.params), tree_leaves(resumed.params)))
+
+
+@pytest.mark.gpu
+def test_cuda_init_params_defaults_to_the_card(cuda_device):
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import tree_leaves
+    params = tf.init_params(reduce_config(get_config("tiny-lm")), seed=0)
+    assert all(p.is_cuda for p in tree_leaves(params))

@@ -59,7 +59,7 @@ def test_reduced_config_matches_reference(models):
     assert (full_j.n_layers, full_j.d_model, full_j.vocab, full_j.page_size) \
         == (full_t.n_layers, full_t.d_model, full_t.vocab, full_t.page_size)
     # the port's own init draws the same tree: names, shapes, count
-    own = ttf.init_params(tcfg, seed=1)
+    own = ttf.init_params(tcfg, seed=1, device="cpu")
     assert [tuple(a.shape) for a in tree_leaves(own)] == \
         [tuple(a.shape) for a in tree_leaves(tparams)]
     assert count_params(own) == count_params(ttf.model_defs(tcfg)) == \

@@ -241,8 +241,9 @@ def test_moe_block_refuses_the_distributed_moe(scout):
 
 def test_init_params_takes_an_explicit_generator():
     cfg = reduce_config(get_config("llama4-scout-17b-a16e"))
-    want = ttf.init_params(cfg, seed=5)
-    got = ttf.init_params(cfg, generator=torch.Generator().manual_seed(5))
+    want = ttf.init_params(cfg, seed=5, device="cpu")
+    got = ttf.init_params(cfg, generator=torch.Generator().manual_seed(5),
+                          device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
                                                   tree_leaves(want)))
 

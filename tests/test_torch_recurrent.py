@@ -417,7 +417,8 @@ def test_engine_refuses_the_recurrent_archs():
     for arch in ARCHS:
         cfg = reduce_config(get_config(arch))
         with pytest.raises(AssertionError):
-            ServingEngine(cfg, ttf.init_params(cfg, seed=0), device="cpu")
+            ServingEngine(cfg, ttf.init_params(cfg, seed=0, device="cpu"),
+                          device="cpu")
 
 
 def test_init_caches_needs_a_device(monkeypatch):
