@@ -116,11 +116,12 @@ Phases:
    and cross attention in bf16, a short ragged case; f32 within
    BWD_F32_TOL of the largest gradient, bf16 within SCOUT_ATTN_TOL), the
    same bits twice, the forward's output the same bits with and without
-   ``lse``, timed with its plain version, PyTorch's SDPA backward and its
-   bound; tiny-lm at full width through ``Trainer`` for TRAIN_STEPS steps
-   of 8 x 1024 tokens (the loss falls; per step 12 forward
-   ``flash_attention`` launches, 12 more under the remat recompute, 12
-   backward), a restart from the step-10 checkpoint that ends on the same
+   ``lse``, timed with its plain version, PyTorch's SDPA backward, its
+   bound and its design's floor (BWD_PASSES), its kernels' registers and
+   spills read from the build log (a spill fails); tiny-lm at full width
+   through ``Trainer`` for TRAIN_STEPS steps of 8 x 1024 tokens (the loss
+   falls; per step 12 forward ``flash_attention`` launches, 12 more under
+   the remat recompute, 12 backward), a restart from the step-10 checkpoint that ends on the same
    parameters bit for bit, TRAIN_Q8_STEPS steps with 8-bit AdamW state
    tracking the f32 run, the step wall, tokens/s, peak memory and one
    profiled step with the backward kernel's share; one train step on the
@@ -138,9 +139,10 @@ CUDA card and refuses to run without one.
     python3 chip_smoke.py --attention-only [--src DIR] [--label NAME]
 
 times only the attention kernels at phase 2's timed shapes, with flash's
-error at larger logits, for the ``repro_torch`` under ``DIR`` (default:
-this checkout's), one JSON line per shape: run it on two trees in turns
-(parent, change, change, parent) in one call to compare them on one card.
+error at larger logits, and the backward kernel at BWD_CASES, for the
+``repro_torch`` under ``DIR`` (default: this checkout's), one JSON line
+per shape: run it on two trees in turns (parent, change, change, parent)
+in one call to compare them on one card.
 
     python3 chip_smoke.py --decode-only [--src DIR] [--label NAME]
 
@@ -156,6 +158,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -168,8 +171,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
-#                                 (NVIDIA data sheet, dense)
 TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 on the tensor cores
 #                                 (NVIDIA data sheet, dense)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores
@@ -291,6 +292,12 @@ SEAMLESS_ENC_LENS = tuple(int(n) for n in
 # the design's own floor, printed beside the function's bound (the bf16
 # tensor-core rate), which it does not replace
 FLASH_BF16_PASSES = 2
+# The backward's passes of 2 Sq Sk D flops (csrc/flash_attention_bwd.cu):
+# S and dP in both of its kernels, one bf16 pass each or three TF32 ones;
+# dV, dK and dQ with P and dS split in two bf16 parts, or in 3xTF32.  The
+# design's own floor, printed beside the bound (5 bf16 passes, or 15 TF32
+# ones for f32 at f32 accuracy), which it does not replace.
+BWD_PASSES = {torch.bfloat16: 4 * 1 + 3 * 2, torch.float32: 4 * 3 + 3 * 3}
 # Phase 12, training.  The flash_attention backward kernel's shapes: the
 # train steps' own (tiny-lm's 8 x 1024 batch; SeamlessM4T's encoder, its
 # decoder over 256 targets and their cross attention over 1024 ragged
@@ -388,6 +395,44 @@ def phase_build():
         if "registers" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
     return dt
+
+
+def bwd_registers():
+    """The backward kernels' registers and spills, one dict per kernel
+    (name, dtype, D) from the ``-Xptxas=-v`` build log; fails on a
+    spill."""
+    from repro_torch.kernels import _build
+    rows, name, spill = [], None, None
+    for line in _build.log_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"flash_attention_bwd_(dkdv|dq|delta)_kernelI"
+                             r"(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+            spill = None
+        elif name and spill is None and "spill stores" in line:
+            spill = [int(x) for x in
+                     re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+        elif name and "Used" in line and "registers" in line:
+            rows.append(dict(
+                kernel=name.group(1),
+                dtype="float32" if name.group(2) == "f" else "bfloat16",
+                head_dim=int(name.group(3)),
+                registers=int(re.search(r"Used (\d+) registers",
+                                        line).group(1)),
+                spill_stores=spill[0], spill_loads=spill[1]))
+            name = None
+    if not rows:
+        raise AssertionError("the build log names no backward kernel")
+    for key in sorted({(r["dtype"], r["head_dim"]) for r in rows}):
+        log(f"[train] flash_attention backward kernels, {key[0]}, D = "
+            f"{key[1]}: " + ", ".join(
+                f"{r['kernel']} {r['registers']} registers, spills "
+                f"{r['spill_stores']}/{r['spill_loads']} bytes"
+                for r in rows if (r["dtype"], r["head_dim"]) == key))
+    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"backward kernels spill: {spilled}")
+    return rows
 
 
 def phase_kernel(dev, scratch):
@@ -805,8 +850,11 @@ def phase_attention(dev, scratch):
 
 def attention_only(dev, label):
     """``--attention-only``: the timed attention shapes and flash's error
-    at larger logits, for the kernels of whichever tree ``--src`` named;
-    one JSON line per shape."""
+    at larger logits, then the backward kernel's time at each of
+    BWD_CASES, for the kernels of whichever tree ``--src`` named; one JSON
+    line per shape."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
     card = card_line()
     phase_build()
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
@@ -817,6 +865,16 @@ def attention_only(dev, label):
         else:
             row = dict(kernel=key[0], shape=key[1], **r)
         log(json.dumps(dict(label=label, card=card, **row)))
+    for case, shape, causal, lens, dtype in BWD_CASES:
+        q, k, v, do, ln = _bwd_inputs(dev, shape, lens, dtype)
+        out, lse = flash_attention_kernel(q, k, v, ln, causal=causal,
+                                          return_lse=True)
+        ms = time_cuda(lambda: flash_attention_bwd_kernel(
+            q, k, v, out, lse, do, ln, causal=causal), scratch)
+        log(json.dumps(dict(label=label, card=card, kernel="flash_bwd",
+                            shape=case, ms=ms)))
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -2345,6 +2403,18 @@ def _lse_errors(name, got, want):
     return (float(err.max()) if err.numel() else 0.0), share
 
 
+def _bwd_inputs(dev, shape, lens, dtype):
+    """A BWD_CASES case's q, k, v, dO and lengths on the card, from a seed
+    of its shape."""
+    b, qh, kvh, sq, sk, d = shape
+    rng = np.random.default_rng(sq + sk + d + qh)
+    q, do = (_randn(rng, (b, qh, sq, d), dtype, dev) for _ in range(2))
+    k, v = (_randn(rng, (b, kvh, sk, d), dtype, dev) for _ in range(2))
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    return q, k, v, do, ln
+
+
 def bwd_cases(dev, scratch):
     """flash_attention's forward and backward kernels at each of
     BWD_CASES on the card.  The forward, launched with ``lse`` as
@@ -2373,11 +2443,8 @@ def bwd_cases(dev, scratch):
     for label, (b, qh, kvh, sq, sk, d), causal, lens, dtype in BWD_CASES:
         name = f"flash_attention backward ({label}, {dtype})"
         fname = f"flash_attention forward ({label}, {dtype})"
-        rng = np.random.default_rng(sq + sk + d + qh)
-        q, do = (_randn(rng, (b, qh, sq, d), dtype, dev) for _ in range(2))
-        k, v = (_randn(rng, (b, kvh, sk, d), dtype, dev) for _ in range(2))
-        ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
-                                                    device=dev)
+        q, k, v, do, ln = _bwd_inputs(dev, (b, qh, kvh, sq, sk, d), lens,
+                                      dtype)
         key = _attention_shape("flash", (q, k), dict(causal=causal,
                                                       lengths=ln))
         out0 = flash_attention_kernel(q, k, v, ln, causal=causal)
@@ -2474,7 +2541,7 @@ def bwd_cases(dev, scratch):
                  max_abs_err=max(errs.values()), errs=errs,
                  limit_share=max(shares.values()), ms=ms, plain_ms=plain_ms,
                  library_ms=library_ms, flops=flops, bytes_moved=moved,
-                 fma_floor_ms=flops / F32_FLOPS_PER_S * 1e3)
+                 floor_ms=BWD_PASSES[dtype] * 2 * pairs * d / rate * 1e3)
         r["bound_ms"], r["bound_by"] = bound(flops, moved)
         r["fwd"] = dict(max_abs_err=fwd_err, limit_share=fwd_share,
                         lse_max_abs_err=lse_err, lse_limit_share=lse_share,
@@ -2501,8 +2568,9 @@ def bwd_cases(dev, scratch):
             f"plain lse), two calls same bits; kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, SDPA backward {library_ms:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {flops / 1e9:.2f} "
-            f"GFLOP, {moved / 1e6:.1f} MB), the f32 FMA route's floor "
-            f"{r['fma_floor_ms']:.3f} ms")
+            f"GFLOP, {moved / 1e6:.1f} MB), the design's floor "
+            f"{r['floor_ms']:.4f} ms ({BWD_PASSES[dtype]} "
+            f"{'bf16' if dtype == torch.bfloat16 else 'TF32'} passes)")
     return res
 
 
@@ -2809,6 +2877,7 @@ def phase_training(dev):
     state), a train step on the card against the CPU, and SeamlessM4T-
     medium trained whole in bf16.  Checkpoints go to a git-ignored
     directory of the checkout and are removed at the end."""
+    regs = bwd_registers()
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
     kern = bwd_cases(dev, scratch)
     del scratch
@@ -2825,7 +2894,8 @@ def phase_training(dev):
     gc.collect()
     torch.cuda.empty_cache()
     seamless = train_seamless(dev)
-    return dict(kernels=kern, tiny=tiny, card_vs_cpu=cpu, seamless=seamless)
+    return dict(kernels=kern, registers=regs, tiny=tiny, card_vs_cpu=cpu,
+                seamless=seamless)
 
 
 def training_rows(train):

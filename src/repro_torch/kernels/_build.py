@@ -5,7 +5,8 @@ it compiles in seconds without PyTorch's headers.  The sources compile in
 parallel, one ``nvcc -c`` each, all started together, and one more
 ``nvcc`` links the objects into ONE shared library.  The library lands in
 ``build/torch_ext/`` at the repository root (listed in ``.gitignore``),
-named by a hash of every source and the flags, so an edited source
+named by a hash of every source, every header the sources share
+(``kernels/*/csrc/*.cuh``) and the flags, so an edited source or header
 rebuilds and an unchanged tree is reused.  Nothing is compiled at import:
 the CPU tests import every module, and a machine with no CUDA toolkit
 must still import the package.
@@ -42,6 +43,11 @@ def sources() -> List[Path]:
     return sorted(_PKG.glob("*/csrc/*.cu"))
 
 
+def headers() -> List[Path]:
+    """Every header the CUDA sources include, in a stable order."""
+    return sorted(_PKG.glob("*/csrc/*.cuh"))
+
+
 def nvcc_path() -> str:
     for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
                  "/usr/local/cuda"):
@@ -59,7 +65,7 @@ def nvcc_path() -> str:
 
 def lib_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.relative_to(_PKG).as_posix().encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtorch_kernels_{h.hexdigest()[:16]}.so"

@@ -105,6 +105,8 @@
 
 #include <type_traits>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;        // one warpgroup
@@ -113,234 +115,11 @@ constexpr int kBK = 32;              // keys per tile
 constexpr int kNT = kBK / 8;         // 8-key steps per tile
 constexpr float kNegInf = -1e30f;    // the Pallas kernel's mask value
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Four consecutive elements as floats.
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-// Two consecutive outputs.
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// x rounded to the nearest TF32, ties away from zero (cvt.rna.tf32.f32),
-// as integer operations on the bits: the low 13 bits are dropped.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32 bit patterns.
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-__device__ __forceinline__ void split4(float4 x, uint4& big, uint4& small) {
-  split(x.x, big.x, small.x);
-  split(x.y, big.y, small.y);
-  split(x.z, big.z, small.z);
-  split(x.w, big.w, small.w);
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Shared-memory stores of the threads become visible to wgmma's reads.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving a register's uses across a wgmma wait.
-__device__ __forceinline__ void reg_fence(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-// wgmma's K-major interleaved layout of an R-row tile: element (r, 4 c +
-// e), c the 16-byte chunk along k, lives in 16-byte unit
-//     (r % 8) + 8 (r / 8) + R (c % 2) + 2 R (c / 2)
-// so a descriptor of one k step (8 TF32 = 2 chunks) has leading byte
-// offset 16 R (chunk to chunk), stride byte offset 128 (8 rows to the next
-// 8), and the next k step starts 32 R bytes further.
-template <int R>
-__device__ __forceinline__ int kmajor_unit(int r, int c) {
-  return (r & 7) + 8 * (r >> 3) + R * (c & 1) + 2 * R * (c >> 1);
-}
-
 // For D <= 64 q's split A fragments stay in registers (D regs a thread),
 // so Q K^T reads only K from shared memory; for D = 128 they would not
 // fit, and q stays in shared memory.
 template <int D>
 __host__ __device__ constexpr bool q_in_regs() { return D <= 64; }
-
-template <int R>
-__device__ __forceinline__ uint64_t kmajor_desc(const void* tile, int step) {
-  const uint32_t a =
-      static_cast<uint32_t>(__cvta_generic_to_shared(tile)) + step * 32 * R;
-  return static_cast<uint64_t>((a >> 4) & 0x3fff) |
-         static_cast<uint64_t>((16 * R) >> 4) << 16 |
-         static_cast<uint64_t>(128 >> 4) << 32;
-}
-
-// m64nNk8 TF32 warpgroup MMAs, f32 accumulators (N / 2 per thread): rs
-// for every N of P V (N = D) and of Q K^T with q in registers (N = kBK =
-// 32), ss only where q stays in shared memory (D = 128, N = 32).
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  // d += a b, a from registers (the m64n8 A fragment), b from shared memory
-  __device__ __forceinline__ static void rs(float (&d)[8],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  // d += a b, a from shared memory (descriptor), b from shared memory
-  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t a,
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1));
-  }
-  // d += a b, a from registers (the m64n8 A fragment), b from shared memory
-  __device__ __forceinline__ static void rs(float (&d)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // d += a b, a from registers (the m64n8 A fragment), b from shared memory
-  __device__ __forceinline__ static void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // d += a b, a from registers (the m64n8 A fragment), b from shared memory
-  __device__ __forceinline__ static void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
 
 template <typename T, int D>
 struct Smem {

@@ -14,9 +14,11 @@ log-sum-exp, which :func:`flash_attention_bwd_kernel` reads.
 :func:`flash_attention_bwd_kernel` is the gradient of the same function
 (``csrc/flash_attention_bwd.cu``): ``dq``, ``dk`` and ``dv`` from the
 forward's inputs, its output and log-sum-exp, and the output's gradient.
-It replaces no TPU kernel: the reference lets JAX differentiate the plain
-route of its Pallas kernel.  Both are built with ``nvcc`` for ``sm_90a``
-on first use.
+All five of its products run on the tensor cores (``wgmma``): in bf16
+with P and dS split into two bf16 parts, in f32 as 3xTF32; no atomics, so
+every call gives the same bits.  It replaces no TPU kernel: the reference
+lets JAX differentiate the plain route of its Pallas kernel.  Both are
+built with ``nvcc`` for ``sm_90a`` on first use.
 
 ``COUNTS`` counts the launches of the forward (``"flash_attention"``)
 and of the backward (``"flash_attention_bwd"``; its pre-pass and two

@@ -152,3 +152,13 @@ def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     big = rna(x)
     return big, rna(x - big)
 
+
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x = hi + lo`` with both parts bf16, as the CUDA backward splits P
+    and dS for its bf16 products (two passes against the same operand):
+    ``hi`` is ``x`` rounded to the nearest bf16 (ties to even, as
+    ``__floats2bfloat162_rn``), ``lo`` is ``x - hi`` rounded the same way.
+    Returns bf16 tensors.  A test helper: no training path calls it."""
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
