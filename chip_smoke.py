@@ -36,7 +36,14 @@ kernel against its plain PyTorch version on the card:
   ``Trainer`` on the synthetic stream of the reference's pipeline, with
   checkpoints and a restart, and SeamlessM4T-medium whole in bf16 through
   ``make_train_step``; on the card every attention forward and backward
-  runs as a CUDA kernel (``flash_attention``'s backward kernel).
+  runs as a CUDA kernel (``flash_attention``'s backward kernel);
+* the sharded pool and the distributed layer on meshes of 4 shards that
+  all name this card (the port's single-controller mesh runs n shards on
+  one card as the reference's tests run n shards on one CPU; one card
+  measures the routing, not an interconnect): the endpoint with
+  ``placement="sharded"`` at a 4 x 2.13 GiB pool, tiny-lm served over
+  four homes, and ``tiara_fetch``, the sharded paged decode, the
+  expert-parallel MoE and the int8 gradient all-reduce at full width.
 
 Phases:
 
@@ -128,7 +135,28 @@ Phases:
    card against the CPU (loss and gradients within CARD_VS_CPU_TOL);
    SeamlessM4T-medium whole in bf16, SEAMLESS_TRAIN_STEPS steps through
    ``make_train_step`` (finite loss, finite and changed parameters, 36
-   forward launches, 24 recomputed, 36 backward per step).
+   forward launches, 24 recomputed, 36 backward per step);
+13. the sharded paths (SHARDS shards of this card, the mesh printed):
+   (a) phase 3's region table on a pool of SHARDS rows plus the
+   reference's acceptance tenants, SHARDED_POSTS mixed posts over all
+   homes with cross-home MEMCPYs and contended STORE/CAS through
+   ``doorbell(placement="sharded")`` and again ``"auto"``, each wave
+   bit-identical to the dense mixed engine (the whole pool, on the card)
+   and to a pyvm replay, with its wall, collectives, bytes and
+   ``tiara_gather`` launches; then a failed device under ``"auto"`` (the
+   wave runs single, word ops homed there fault, ``revive()`` +
+   ``reset()`` recover); (b) tiny-lm at full width through
+   ``ServingEngine(resolver="tiara", n_homes=SHARDS,
+   placement="sharded")``: SHARDED_PLENS prompts, SHARDED_NEW new tokens,
+   the host resolver's tokens, a region rehomed mid-run, the decode-step
+   wall beside phase 5's; (c) ``tiara_fetch`` over a 1 GiB pool (bit-equal,
+   exactly 2 ``all_to_all``s, the client-side rounds beside it), tiny-lm's
+   decode with ``cfg.paged_attn_fn`` on a 2 x 2 mesh (both layouts) within
+   DECODE_TOL of the unsharded step, ``make_moe_ep`` at Scout's widths in
+   f32 within MOE_REL_TOL of ``moe_apply`` and Scout's 4-layer cut in bf16
+   with ``cfg.moe_fn`` held as SCOUT_LOGIT_TOL holds the kernels, and
+   tiny-lm's gradients through ``make_grad_compressor`` within
+   INT8_REL_TOL.
 
 Any failure raises and the script exits non-zero.  It prints, before the
 last line, the card's name and power limit and one JSON object with each
@@ -346,6 +374,34 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 128
 # (8, SEAMLESS_S_ENC, 1024) with enc_lengths SEAMLESS_ENC_LENS, decoder
 # targets of SEAMLESS_TRAIN_TOKENS tokens, SEAMLESS_TRAIN_STEPS steps.
 SEAMLESS_TRAIN_TOKENS, SEAMLESS_TRAIN_STEPS = 256, 3
+# Phase 13: the sharded pool and the distributed layer, every mesh of
+# SHARDS shards on this one card (the port's single-controller mesh runs n
+# shards on one card as the reference's tests run n shards on forced host
+# devices of one CPU).  One card measures the software routing — the
+# collectives as device copies — not an interconnect.
+# (a) the reference's acceptance wave (tests/test_sharded.py:491):
+# SHARDED_POSTS posts of 4 tenants over all SHARDS homes; (b) tiny-lm at
+# full width, prompts SHARDED_PLENS, SHARDED_NEW new tokens each, its block
+# tables resolved over SHARDS homes; (c) tiara_fetch over a 1 GiB f32 pool
+# of FETCH_ROWS rows of FETCH_ROW_FLOATS floats (8 KiB) with FETCH_IDS ids
+# per shard and a quota that drops nothing at these sizes; tiny-lm's
+# decode, DECODE_STEPS steps of batch 4 at DECODE_LENGTHS over
+# DECODE_PAGES pages each, within DECODE_TOL of the unsharded step (the
+# reference's tolerance, tests/test_distributed.py:205); one Scout MoE
+# layer in f32 on MOE_TOKENS tokens within MOE_REL_TOL (relative to the
+# largest output) of moe_apply, then Scout's 4-layer cut in bf16 on
+# prompts MOE_PLENS and MOE_DECODE decode steps, held as SCOUT_LOGIT_TOL
+# holds the kernels; tiny-lm's gradients through the int8 all-reduce
+# within INT8_REL_TOL (tests/test_distributed.py:71-85).
+SHARDS, SHARDED_POSTS, SHARDED_NEW = 4, 1024, 8
+SHARDED_PLENS = tuple(int(n) for n in np.round(np.geomspace(16, 1024, 8)))
+FETCH_ROWS, FETCH_ROW_FLOATS, FETCH_IDS, FETCH_QUOTA = 131072, 2048, 4096, \
+    2048
+DECODE_PAGES, DECODE_LENGTHS, DECODE_STEPS = 64, (600, 17, 1000, 5), 4
+DECODE_TOL = 2e-4
+MOE_TOKENS, MOE_REL_TOL = (2, 512), 1e-4
+MOE_PLENS, MOE_DECODE = (96, 200, 350, 512), 4
+INT8_REL_TOL = 0.02
 
 
 def log(msg: str) -> None:
@@ -529,11 +585,23 @@ def phase_kernel(dev, scratch):
     row_ms = time_cuda(lambda: tiara_gather(pool2d, table, ids), scratch)
     row_plain_ms = time_cuda(lambda: tiara_gather_ref(pool2d, table, ids),
                              scratch)
+    # the library's row gather on the same inputs: index_select over the
+    # pointers the table gives (the row form's function)
+
+    def library():
+        return pool2d.index_select(0, table[ids])
+
+    if not torch.equal(library(), out_r):
+        raise AssertionError("index_select != tiara_gather at the path "
+                             "shape")
+    library_ms = time_cuda(library, scratch)
     log(f"[kernel] path shape: flat int64 pool {flat.numel() * 8 >> 20} MiB, "
         f"n={n} rows of {R} words: equal; window kernel {ms * 1e3:.2f} us "
         f"({moved / ms / 1e6:.0f} GB/s), plain {plain_ms * 1e3:.2f} us, "
         f"bound {bound_ms * 1e3:.2f} us; row form kernel "
-        f"{row_ms * 1e3:.2f} us, plain {row_plain_ms * 1e3:.2f} us")
+        f"{row_ms * 1e3:.2f} us, plain {row_plain_ms * 1e3:.2f} us, "
+        f"library (pool.index_select(0, table[ids])) "
+        f"{library_ms * 1e3:.2f} us")
     del flat, out, ref, out_r, pool2d
     torch.cuda.empty_cache()
     return dict(name="tiara_gather", route="cuda",
@@ -541,7 +609,7 @@ def phase_kernel(dev, scratch):
                        "tiara_gather.cu",
                 replaces="src/repro/kernels/tiara_gather/kernel.py:28",
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
                 bytes_moved=moved, shape=[n_rows, R, n],
                 row_form_ms=row_ms, row_form_plain_ms=row_plain_ms)
 
@@ -3167,6 +3235,739 @@ def phase_endpoint(dev):
     return walls, launches, ran
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sharded pool and the distributed layer
+# ---------------------------------------------------------------------------
+
+
+def _mesh_note(mesh) -> str:
+    devs = sorted({str(d) for d in mesh.flat_devices})
+    axes = " x ".join(f"{a} {n}" for a, n in mesh.shape.items())
+    return f"{mesh.size} shards ({axes}), every one on {', '.join(devs)}"
+
+
+def _acceptance_tenant(s, n_homes):
+    """The reference's acceptance operators (tests/test_sharded.py) on one
+    tenant: sum2, cas_latch, store_latch, rcpy (cross-home MEMCPY) and
+    rcas (cross-home CAS), and each home's data region."""
+    from repro_torch.core.program import OperatorBuilder as B
+    rt = s.view
+    b = B("sum2", n_params=2, regions=rt)
+    x, y = b.reg(), b.reg()
+    b.load(x, "data", b.param(0))
+    b.load(y, "data", b.param(0), disp=1)
+    b.add(x, x, y)
+    b.store(x, "reply", b.param(1))
+    b.ret(x)
+    s.register(b.build())
+    b = B("cas_latch", n_params=1, regions=rt)
+    zero = b.const(0)
+    old = b.reg()
+    b.cas(old, "latch", zero, cmp=zero, swap=b.param(0))
+    b.ret(old)
+    s.register(b.build())
+    b = B("store_latch", n_params=1, regions=rt)
+    one = b.const(1)
+    b.store(b.param(0), "latch", one)
+    b.ret(b.param(0))
+    s.register(b.build())
+    b = B("rcpy", n_params=3, regions=rt)
+    b.memcpy(dst_region="reply", dst_off=b.param(1), src_region="data",
+             src_off=b.param(0), n_words=4, src_dev=b.param(2))
+    b.ret(b.param(1))
+    s.register(b.build())
+    b = B("rcas", n_params=2, regions=rt)
+    zero = b.const(0)
+    old = b.reg()
+    b.cas(old, "latch", zero, cmp=zero, swap=b.param(0), disp=2,
+          dev=b.param(1))
+    b.ret(old)
+    s.register(b.build())
+    for d in range(n_homes):
+        s.write_region("data", np.arange(10, 74, dtype=np.int64) * (d + 1),
+                       device=d)
+
+
+def _acceptance_posts(sessions, n, n_homes, rng):
+    """``n`` posts of the reference's acceptance mix over ``n_homes``
+    homes: sum2 words in reply[0..512), rcpy windows in reply[512..1024),
+    contention on the latches (tests/test_sharded.py:491)."""
+    posts, n_sum, n_cpy = [], [0] * 4, [0] * 4
+    for i in range(n):
+        t = i % 4
+        s = sessions[t]
+        home = int(rng.integers(0, n_homes))
+        kind = i % 8
+        if kind < 3:
+            posts.append((s, "sum2", [int(rng.integers(0, 60)),
+                                      n_sum[t] % 512], home))
+            n_sum[t] += 1
+        elif kind < 5:
+            posts.append((s, "rcpy", [int(rng.integers(0, 60)),
+                                      512 + 4 * (n_cpy[t] % 128),
+                                      int(rng.integers(0, n_homes))], home))
+            n_cpy[t] += 1
+        elif kind == 5:
+            posts.append((s, "cas_latch", [10_000 + i], home))
+        elif kind == 6:
+            posts.append((s, "store_latch", [20_000 + i], home))
+        else:
+            posts.append((s, "rcas", [30_000 + i,
+                                      int(rng.integers(0, n_homes))], home))
+    return posts
+
+
+def _hold_wave(tag, ep, cs, dense, replay, span):
+    """A wave's CQEs and pool against the dense mixed engine's result on
+    the same input (every field, the whole pool on the card) and against
+    the pyvm replay (ret, status, steps; the pool over ``span``, the
+    words the wave's tenants own)."""
+    from repro_torch.distributed.mesh import Sharded
+    lo, hi = span
+    pool = ep._dev_mem
+    rows = pool.shards if isinstance(pool, Sharded) \
+        else [pool[d][None] for d in range(pool.shape[0])]
+    for d, row in enumerate(rows):
+        if not torch.equal(row[0], dense.mem[d]):
+            raise AssertionError(f"{tag}: row {d} differs from the dense "
+                                 f"mixed engine's")
+        if not np.array_equal(row[0, lo:hi].cpu().numpy(),
+                              replay[0][d, lo:hi]):
+            raise AssertionError(f"{tag}: row {d} differs from the pyvm "
+                                 f"replay")
+    for i, c in enumerate(cs):
+        want = (int(dense.ret[i]), int(dense.status[i]),
+                int(dense.steps[i]))
+        if (c.ret, c.status, c.steps) != want \
+                or not np.array_equal(c.regs, dense.regs[i]):
+            raise AssertionError(f"{tag}: seq {c.seq} differs from the "
+                                 f"dense mixed engine")
+        if (c.ret, c.status, c.steps) != replay[1][c.seq]:
+            raise AssertionError(f"{tag}: seq {c.seq} differs from pyvm")
+
+
+def _replay(ep, host, cs):
+    """pyvm over ``cs`` in arrival order on the host pool, in place."""
+    from repro_torch.core import pyvm
+    vops = ep.registry.store_ops()
+    out = {}
+    for c in sorted(cs, key=lambda c: c.seq):
+        r = pyvm.run(vops[c.op_id], ep.regions, host, list(c.params),
+                     home=c.home)
+        out[c.seq] = (r.ret, r.status, r.steps)
+    return host, out
+
+
+def sharded_endpoint(dev):
+    """13 (a): phase 3's region table on a pool of SHARDS rows, sharded
+    over a mesh of SHARDS shards of the card, and the reference's
+    acceptance wave through ``doorbell(placement="sharded")`` then
+    ``"auto"``, each held to the dense mixed engine and to pyvm; then a
+    failed device under ``"auto"``."""
+    from repro_torch.core import faults, isa, memory, vm
+    from repro_torch.core import operators as ops
+    from repro_torch.core.endpoint import TiaraEndpoint
+    from repro_torch.distributed.mesh import Sharded, make_device_mesh
+    from repro_torch.kernels.tiara_gather import kernel as tg
+
+    mesh = make_device_mesh(SHARDS, devices=[dev] * SHARDS)
+    log(f"[sharded] mesh: {_mesh_note(mesh)}")
+    kv = ops.PagedKVFetch(n_blocks_pool=131072, block_bytes=8192,
+                          max_req_blocks=16, reply_slots=256)
+    gw = ops.GraphWalk(n_nodes=1 << 20, reply_words=8 * 256)
+    layout = memory.packed_table([("latch", 8), ("data", 64),
+                                  ("reply", 1024)])
+    t0 = time.perf_counter()
+    ep, ss = TiaraEndpoint.for_tenants(
+        [("kv", kv.regions()), ("gw", gw.regions())]
+        + [(f"t{i}", layout) for i in range(4)],
+        n_devices=SHARDS, device=dev, mesh=mesh)
+    host = ss["kv"].pool                    # host copy, authoritative
+    kv.populate(host, ss["kv"].view, seed=1)
+    gw.populate(host, ss["gw"].view, seed=2)
+    sessions = [ss[f"t{i}"] for i in range(4)]
+    for s in sessions:
+        _acceptance_tenant(s, SHARDS)
+    lo = ss["t0"].view["latch"].base
+    hi = ss["t3"].view["reply"].base + 1024
+    pool0 = ep.mem                          # upload once
+    torch.cuda.synchronize()
+    log(f"[sharded] pool {tuple(pool0.shape)} int64 = "
+        f"{pool0.numel() * 8 / 2**30:.2f} GiB ({SHARDS} x "
+        f"{pool0[0].numel() * 8 / 2**30:.2f} GiB rows; kv + graph walk + 4 "
+        f"tenants of latch/data/reply) on {pool0.device}; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(7)
+    walls, rec = {}, {}
+
+    def wave(name, placement, posts, pre):
+        """Post, take the yardsticks from ``pre`` (the pool as the wave
+        finds it), ring, hold."""
+        cs = [s.post(op, p, home=h) for s, op, p, h in posts]
+        ids = [c.op_id for c in cs]
+        dense = vm.invoke_batched_mixed(
+            ep.registry.store_ops(), ep.regions, pre, ids,
+            [list(c.params) for c in cs], homes=[c.home for c in cs])
+        replay = _replay(ep, host, cs)
+        torch.cuda.synchronize()
+        mesh.reset_stats()
+        n0 = tg.COUNTS["tiara_gather"]
+        t = time.perf_counter()
+        ep.doorbell(placement=placement)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+        launches = tg.COUNTS["tiara_gather"] - n0
+        _hold_wave(name, ep, cs, dense, replay, (lo, hi))
+        sharded = isinstance(ep._dev_mem, Sharded)
+        dec = ep.last_placement
+        rec[name] = dict(
+            posts=len(cs), wall_s=walls[name], launches=launches,
+            ran="sharded" if sharded else "single",
+            decision=None if dec is None else dict(mode=dec.mode,
+                                                   costs=dec.costs),
+            collectives=mesh.collective_counts(),
+            collective_bytes=mesh.collective_bytes(),
+            ok=sum(c.ok for c in cs))
+        log(f"[sharded] {name}: {len(cs)} posts (4 tenants, homes over "
+            f"{SHARDS}) placement={placement} -> ran "
+            f"{rec[name]['ran']}"
+            + ("" if dec is None else f" (cost model {dec.mode}: "
+               f"{ {k: round(v, 1) for k, v in dec.costs.items()} } us)")
+            + f"; wave wall {walls[name] * 1e3:.1f} ms; tiara_gather "
+            f"launches {launches}; collectives {rec[name]['collectives']}, "
+            f"bytes read across shards {rec[name]['collective_bytes']}; "
+            f"== dense mixed engine (whole pool, every CQE field) and == "
+            f"pyvm replay ({rec[name]['ok']} ok)")
+        del dense
+        return cs
+
+    wave("sharded", "sharded", _acceptance_posts(sessions, SHARDED_POSTS,
+                                                 SHARDS, rng), pool0)
+    del pool0
+    torch.cuda.empty_cache()
+    if rec["sharded"]["ran"] != "sharded" \
+            or rec["sharded"]["launches"] < 1:
+        raise AssertionError("the sharded wave did not run on the mesh "
+                             "through tiara_gather")
+    pre = vm.as_pool(ep._dev_mem)           # the dense yardstick's input
+    wave("auto", "auto", _acceptance_posts(sessions, SHARDED_POSTS, SHARDS,
+                                           rng), pre)
+    del pre
+    torch.cuda.empty_cache()
+
+    # a failed device: "auto" must run single, the posts homed there fault
+    dead = SHARDS - 1
+    ep.inject(faults.fail_devices(dead))
+    posts = _acceptance_posts(sessions, 64, SHARDS, rng)
+    cs = [s.post(op, p, home=h) for s, op, p, h in posts]
+    ep.doorbell(placement="auto")
+    dec = ep.last_placement
+    if dec.mode != "single" or "sharded" in dec.costs:
+        raise AssertionError(f"auto placed a wave on a mesh with a failed "
+                             f"device: {dec.mode} {dec.costs}")
+    word = [c for c in cs if c.home == dead
+            and c.op_name in ("sum2", "cas_latch", "store_latch")]
+    if not word or not all(c.faulted and c.fault.device == dead
+                           for c in word):
+        raise AssertionError("a word op homed on the failed device did "
+                             "not fault")
+    degraded = [c for c in cs if c.home == dead and c.op_name == "rcpy"]
+    if not all(c.ok and int(c.regs[isa.ERR_REG]) & 1 for c in degraded):
+        raise AssertionError("a MEMCPY into the failed device did not "
+                             "take the degraded path")
+    ep.revive(dead)
+    for s in sessions:
+        s.reset()
+    again = [c.session.post(c.op_name, list(c.params), home=c.home)
+             for c in word]
+    ep.doorbell(placement="auto")
+    if not all(c.ok for c in again) \
+            or "sharded" not in ep.last_placement.costs:
+        raise AssertionError("revive() + reset() did not recover")
+    log(f"[sharded] device {dead} failed: placement=auto -> {dec.mode} "
+        f"(no sharded candidate); {len(word)} word-op posts homed there "
+        f"faulted on device {dead}, {len(degraded)} MEMCPYs into it "
+        f"degraded (ERR_REG); revive() + reset(): the {len(again)} posts "
+        f"ok again, the mesh a candidate again")
+    rec["failed_device"] = dict(faulted=len(word), degraded=len(degraded),
+                                recovered=len(again))
+    del ep, ss, sessions, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_serving(dev, single_step_ms):
+    """13 (b): tiny-lm at full width served with its block tables resolved
+    over SHARDS homes on the mesh: ServingEngine(resolver="tiara",
+    n_homes=SHARDS, placement="sharded") against resolver="host", tokens
+    equal, a region rehomed mid-run."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.mesh import Sharded, make_device_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.serving import ServingEngine
+    cfg = get_config("tiny-lm")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(17)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab, n)))
+               for n in rng.permutation(SHARDED_PLENS)]
+
+    def engine(**kw):
+        return ServingEngine(cfg, params, max_slots=len(prompts),
+                             max_seq=SERVE_MAX_SEQ, eos_id=-1,
+                             temperature=0.0, device=dev, **kw)
+
+    host = engine()
+    for p in prompts:
+        host.submit(p, max_new=SHARDED_NEW)
+    want = host.run_to_completion()
+    del host
+    mesh = make_device_mesh(SHARDS, devices=[dev] * SHARDS)
+    eng = engine(resolver="tiara", n_homes=SHARDS, placement="sharded",
+                 rehome_every=2, mesh=mesh)
+    timed = _Timed(eng)
+    kernels.reset_launch_counts()           # the sharded serving path
+    mesh.reset_stats()
+    t = time.perf_counter()
+    hs = [eng.submit(p, max_new=SHARDED_NEW) for p in prompts]
+    out = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()         # ... ends here
+    aud = eng.resolver_audit()
+    if out != want or not all(h.ok for h in hs):
+        raise AssertionError("sharded tiara serving: tokens differ from the "
+                             "host resolver's")
+    if aud["rehomes"] < 1 or not isinstance(eng.resolver.ep._dev_mem,
+                                            Sharded):
+        raise AssertionError("sharded tiara serving: no rehome, or the pool "
+                             "did not stay sharded")
+    if counts["tiara_gather"] < 1 or min(timed.step_gathers) < 1:
+        raise AssertionError("sharded tiara serving: a decode step launched "
+                             "no tiara_gather")
+    step = float(np.median(timed.step_ms))
+    r = dict(requests=len(prompts), new=SHARDED_NEW, wall_s=wall,
+             step_ms=list(timed.step_ms), step_ms_median=step,
+             single_step_ms_median=single_step_ms, counts=counts,
+             collectives=mesh.collective_counts(),
+             collective_bytes=mesh.collective_bytes(),
+             rehomes=int(aud["rehomes"]),
+             rehomed_words=int(aud["rehomed_words"]),
+             cross_device_words=int(aud["cross_device_words"]))
+    log(f"[sharded] tiny-lm served over {SHARDS} homes (mesh: "
+        f"{_mesh_note(mesh)}): {len(prompts)} requests (prompts "
+        f"{min(SHARDED_PLENS)}..{max(SHARDED_PLENS)}), {SHARDED_NEW} new "
+        f"tokens each, tokens == host resolver's; {len(timed.step_ms)} decode "
+        f"steps, median {step:.1f} ms (phase 5's single-placement tiara "
+        f"step: {single_step_ms:.1f} ms); launches {counts}; rehomes "
+        f"{r['rehomes']} ({r['rehomed_words']} words), cross-device words "
+        f"{r['cross_device_words']}; collectives {r['collectives']}; "
+        f"{wall:.1f} s")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _wall(fn, reps=3):
+    """Median host wall of ``fn`` over ``reps`` calls, each ended by a
+    device sync; returns (ms, the last result)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), out
+
+
+def sharded_fetch(dev):
+    """13 (c) tiara_fetch: a 1 GiB f32 pool of 8 KiB rows with its
+    co-partitioned table over SHARDS shards, FETCH_IDS ids per shard."""
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.distributed import tiara_fetch as tfetch
+    from repro_torch.kernels.tiara_gather import kernel as tg
+    mesh = dmesh.make_device_mesh(SHARDS, devices=[dev] * SHARDS)
+    n, R = FETCH_ROWS, FETCH_ROW_FLOATS
+    g = torch.Generator(dev).manual_seed(5)
+    pool = torch.randn((n, R), generator=g, device=dev)
+    t_shard = n // SHARDS
+    table = torch.cat([s * t_shard + torch.randperm(t_shard, generator=g,
+                                                    device=dev)
+                       for s in range(SHARDS)]).to(torch.int32)
+    ids = torch.randint(0, n, (SHARDS * FETCH_IDS,), generator=g,
+                        device=dev, dtype=torch.int32)
+    want = pool[table[ids].long()]
+    fetch = tfetch.make_tiara_fetch(mesh, "pool", n, n, FETCH_QUOTA)
+    out = fetch(table, pool, ids)
+    if not torch.equal(out.full(), want):
+        raise AssertionError("tiara_fetch != pool[table[ids]] (a quota "
+                             "dropped a row?)")
+    mesh.reset_stats()
+    n0 = tg.COUNTS["tiara_gather"]
+    ms, _ = _wall(lambda: fetch(table, pool, ids))
+    launches = (tg.COUNTS["tiara_gather"] - n0) // 3
+    counts = {k: v // 3 for k, v in mesh.collective_counts().items()}
+    nbytes = {k: v // 3 for k, v in mesh.collective_bytes().items()}
+    if counts != {"all-to-all": 2} or launches != SHARDS:
+        raise AssertionError(f"tiara_fetch: collectives {counts}, "
+                             f"tiara_gather launches {launches}")
+    mesh.reset_stats()
+    base_ms, base = _wall(lambda: tfetch.client_side_fetch(
+        mesh, "pool", table, pool, ids))
+    bcounts = {k: v // 3 for k, v in mesh.collective_counts().items()}
+    bbytes = {k: v // 3 for k, v in mesh.collective_bytes().items()}
+    if not torch.equal(base.full(), want) or sum(bcounts.values()) < 3:
+        raise AssertionError(f"client_side_fetch: {bcounts}")
+    log(f"[sharded] tiara_fetch: {n} rows of {R * 4} B (f32 pool "
+        f"{pool.numel() * 4 / 2**30:.2f} GiB) and its co-partitioned table "
+        f"over {_mesh_note(mesh)}, {FETCH_IDS} ids per shard, quota "
+        f"{FETCH_QUOTA}: == pool[table[ids]] bit for bit; one round "
+        f"{ms:.2f} ms host wall, collectives {counts}, bytes read across "
+        f"shards {nbytes}, tiara_gather {launches} launches (one per "
+        f"owner); client-side {base_ms:.2f} ms, collectives {bcounts}, "
+        f"bytes {bbytes}")
+    del pool, table, ids, want, out, base
+    torch.cuda.empty_cache()
+    return dict(ms=ms, collectives=counts, bytes=nbytes, launches=launches,
+                client_ms=base_ms, client_collectives=bcounts,
+                client_bytes=bbytes)
+
+
+def sharded_decode(dev):
+    """13 (c) sharded_paged_attention: tiny-lm's decode steps at full
+    width on a 2 x 2 ("data", "model") mesh, pages per shard, against the
+    unsharded steps (the paged_attention kernel)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.distributed import paged_decode
+    from repro_torch.models import transformer as tf
+    cfg = get_config("tiny-lm")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    b, maxp = 4, DECODE_PAGES
+    g = torch.Generator(dev).manual_seed(9)
+    caches = tf.init_caches(cfg, b, maxp, device=dev)
+    for c in caches:
+        for pages in c.paged:
+            pages.copy_(torch.randn(pages.shape, generator=g, device=dev)
+                        * 0.1)
+    bt = tf.default_block_tables(cfg, b, maxp, device=dev)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    toks = [torch.randint(1, cfg.vocab, (b, 1), generator=g, device=dev)
+            for _ in range(DECODE_STEPS)]
+
+    def clone(cs):
+        return tuple(c._replace(paged=type(c.paged)(
+            *(p.clone() for p in c.paged))) for c in cs)
+
+    def run(cfg_, cs):
+        logits, ms = [], []
+        for i, tk in enumerate(toks):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = tf.decode_step(params, cfg_, {
+                "tokens": tk, "caches": cs, "block_tables": bt,
+                "lengths": lengths + i})
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            logits.append(out.logits)
+            cs = out.caches
+        return logits, cs, ms
+
+    base, base_caches, base_ms = run(cfg, clone(caches))
+    mesh = dmesh.make_mesh((2, 2), ("data", "model"), [dev] * 4)
+    res = {}
+    for contiguous in (False, True):
+        fn = paged_decode.sharded_paged_attention(
+            mesh, ("data",), "model", contiguous=contiguous)
+        sc = paged_decode.shard_pages(mesh, clone(caches),
+                                      ("data", "model"))
+        ptrs = [s.data_ptr() for s in sc[0].paged.k_pages.shards]
+        mesh.reset_stats()
+        got, out_caches, ms = run(cfg.replace(paged_attn_fn=fn), sc)
+        err = max(float((a - w).abs().max()) for a, w in zip(got, base))
+        kp = out_caches[0].paged.k_pages
+        if err > DECODE_TOL or not all(bool(torch.isfinite(a).all())
+                                       for a in got):
+            raise AssertionError(f"sharded decode (contiguous="
+                                 f"{contiguous}): logits differ by {err:.3g}")
+        if not isinstance(kp, dmesh.Sharded) \
+                or [s.data_ptr() for s in kp.shards] != ptrs:
+            raise AssertionError("sharded decode: the pages left their "
+                                 "shards")
+        page_err = float((kp.full() - base_caches[0].paged.k_pages)
+                         .abs().max())
+        res[f"contiguous={contiguous}"] = dict(
+            max_abs_err=err, page_max_abs_err=page_err, step_ms=ms,
+            collectives={k: v // DECODE_STEPS
+                         for k, v in mesh.collective_counts().items()},
+            bytes={k: v // DECODE_STEPS
+                   for k, v in mesh.collective_bytes().items()})
+        log(f"[sharded] tiny-lm decode, {DECODE_STEPS} steps of batch {b} "
+            f"(lengths {DECODE_LENGTHS}, {maxp} pages of {cfg.page_size} "
+            f"each), pages over ({_mesh_note(mesh)}), contiguous="
+            f"{contiguous}: logits max |diff| {err:.3g} vs the unsharded "
+            f"step (the paged_attention kernel; tolerance {DECODE_TOL}); "
+            f"pages stayed on their shards ({page_err:.2g} from the "
+            f"unsharded pages); step {np.median(ms):.1f} ms (unsharded "
+            f"{np.median(base_ms):.1f} ms); per step collectives "
+            f"{res[f'contiguous={contiguous}']['collectives']}")
+    res["unsharded_step_ms"] = base_ms
+    del params, caches, base_caches
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_moe(dev):
+    """13 (c) make_moe_ep: one MoE layer at Llama-4 Scout's published
+    widths in f32 on a 2 x 2 mesh against moe_apply at a capacity that
+    drops nothing; then Scout's 4-layer cut in bf16 through prefill and
+    decode with cfg.moe_fn against the run without it."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.distributed import moe_ep
+    from repro_torch.models import blocks as bm
+    from repro_torch.models import moe as mm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.param import materialize, tree_leaves
+    full = get_config(SCOUT_ARCH)
+    spec = full.pattern[0].moe
+    # capacity that drops nothing: every token could pick one expert
+    wide = dataclasses.replace(spec, capacity_factor=float(
+        spec.n_experts) / spec.top_k)
+    mesh = dmesh.make_mesh((2, 2), ("data", "model"), [dev] * 4)
+    g = torch.Generator(dev).manual_seed(21)
+    w = materialize(mm.moe_defs(full.d_model, spec), g, torch.float32)
+    n_bytes = sum(a.numel() * 4 for a in tree_leaves(w))
+    x = torch.randn(MOE_TOKENS + (full.d_model,), generator=g, device=dev)
+    plain_ms, (want, _) = _wall(lambda: mm.moe_apply(w, x, wide))
+    fn = moe_ep.make_moe_ep(mesh, ("data",), wide)
+    sw = moe_ep.shard_moe_params(mesh, w)
+    mesh.reset_stats()
+    ep_ms, (got, _) = _wall(lambda: fn(sw, x))
+    rel = float((got - want).abs().max() / want.abs().max())
+    calls = {k: v // 3 for k, v in mesh.collective_counts().items()}
+    if rel > MOE_REL_TOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"moe_ep vs moe_apply: {rel:.3g} relative")
+    log(f"[sharded] moe_ep: one Scout MoE layer (d_model {full.d_model}, "
+        f"{spec.n_experts} experts top-{spec.top_k} of {spec.d_ff_expert} + "
+        f"shared, f32, {n_bytes / 1e9:.2f} GB of weights) over "
+        f"({_mesh_note(mesh)}), {x.shape[0]} x {x.shape[1]} tokens, "
+        f"capacity factor {wide.capacity_factor} (nothing drops): max "
+        f"|diff| / max |moe_apply| {rel:.3g} (tolerance {MOE_REL_TOL}); "
+        f"{ep_ms:.1f} ms vs moe_apply {plain_ms:.1f} ms; collectives per "
+        f"call {calls}")
+    res = dict(f32_layer=dict(rel_err=rel, ms=ep_ms, moe_apply_ms=plain_ms,
+                              collectives=calls, weight_bytes=n_bytes))
+    del w, sw, x, want, got
+    torch.cuda.empty_cache()
+
+    cfg = full.replace(n_layers=SCOUT_LAYERS, pattern=tuple(
+        dataclasses.replace(ls, moe=wide if ls.moe is not None else None)
+        for ls in full.pattern))
+    params = tf.init_params(cfg, device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+    ep_params = dict(params)
+    ep_params["blocks"] = tuple(
+        dict(bp, ffn=moe_ep.shard_moe_params(mesh, bp["ffn"], stacked=True))
+        if ls.moe is not None else bp
+        for bp, ls in zip(params["blocks"], cfg.pattern))
+    ep_fn = moe_ep.make_moe_ep(mesh, ("data",), wide)
+    routes = []
+
+    def route_of(p, h):
+        routes.append(mm.moe_route(p, h.reshape(-1, h.shape[-1]), wide)
+                      .eidx[:, 0])
+
+    def moe_fn(p, h):
+        route_of(p, h)
+        return ep_fn(p, h)
+
+    moe_apply = bm.moe_apply
+
+    def recorded(p, h, s, *, hints=False):
+        route_of(p, h)
+        return moe_apply(p, h, s, hints=hints)
+
+    b, plen = len(MOE_PLENS), max(MOE_PLENS)
+    rng = np.random.default_rng(23)
+    toks = _pad([list(map(int, rng.integers(1, cfg.vocab, n)))
+                 for n in MOE_PLENS], plen, dev)
+    lengths = torch.tensor(MOE_PLENS, dtype=torch.int32, device=dev)
+    maxp = (plen + MOE_DECODE) // cfg.page_size + 1
+    bt = tf.default_block_tables(cfg, b, maxp, device=dev)
+    nxt = [torch.randint(1, cfg.vocab, (b, 1), generator=g, device=dev)
+           for _ in range(MOE_DECODE)]
+    got = {}
+    bm.moe_apply = recorded
+    try:
+        for name, cfg_, p_ in (("plain", cfg, params),
+                               ("moe_ep", cfg.replace(moe_fn=moe_fn),
+                                ep_params)):
+            routes.clear()
+            caches = tf.init_caches(cfg_, b, maxp, device=dev)
+            with torch.no_grad():
+                out = tf.apply_model(p_, cfg_, {
+                    "tokens": toks, "caches": caches, "block_tables": bt,
+                    "lengths": lengths}, mode="prefill")
+                logit_rows = [out.logits[i, :n, :cfg.vocab]
+                              for i, n in enumerate(MOE_PLENS)]
+                caches = out.caches
+                for i, tk in enumerate(nxt):
+                    out = tf.decode_step(p_, cfg_, {
+                        "tokens": tk, "caches": caches, "block_tables": bt,
+                        "lengths": lengths + i})
+                    caches = out.caches
+                    logit_rows.append(out.logits[:, 0, :cfg.vocab])
+            torch.cuda.synchronize()
+            # a position's route over the layers: prefill rows then the
+            # decode rows, in the order the layers ran
+            got[name] = (torch.cat(logit_rows).float(), list(routes))
+            del caches, out
+    finally:
+        bm.moe_apply = moe_apply
+    (a, ra), (p, rp) = got["moe_ep"], got["plain"]
+    n_pref = b * plen
+    n_layers_moe = sum(ls.moe is not None for ls in cfg.pattern) \
+        * cfg.n_repeat
+    flip = torch.zeros(a.shape[0], dtype=torch.bool, device=dev)
+    keep = torch.cat([torch.arange(n, device=dev) + i * plen
+                      for i, n in enumerate(MOE_PLENS)])
+    for li in range(len(ra)):
+        x_, y_ = _route_sets(ra[li][:, None]), _route_sets(rp[li][:, None])
+        diff = (x_ != y_).any(-1)
+        if li < n_layers_moe:                       # prefill calls
+            flip[:keep.numel()] |= diff[:n_pref][keep]
+        else:                                       # decode calls
+            step = (li - n_layers_moe) // n_layers_moe
+            flip[keep.numel() + step * b:keep.numel() + (step + 1) * b] \
+                |= diff
+    err = (a - p).abs()
+    ok = (err <= SCOUT_LOGIT_TOL * (1 + p.abs())).all(-1)
+    n_flip, n_bad = int(flip.sum()), int((~ok & ~flip).sum())
+    rows = int(a.shape[0])
+    clean = err[~flip]
+    res["scout"] = dict(
+        positions=rows, flipped=n_flip,
+        max_abs_err_unflipped=float(clean.max()) if clean.numel() else 0.0,
+        rel_l2_all=float((a - p).norm() / p.norm()))
+    log(f"[sharded] Scout {cfg.n_layers}-layer cut, bf16, capacity factor "
+        f"{wide.capacity_factor}: prefill of {b} prompts "
+        f"({MOE_PLENS}) + {MOE_DECODE} decode steps with cfg.moe_fn = "
+        f"make_moe_ep over the 2 x 2 mesh, against the run without it: "
+        f"{n_flip} of {rows} positions routed differently in some layer; "
+        f"the others max |diff| {res['scout']['max_abs_err_unflipped']:.4g} "
+        f"(tolerance {SCOUT_LOGIT_TOL} (1 + |plain|)); relative L2 over "
+        f"all {res['scout']['rel_l2_all']:.3g}")
+    if not bool(torch.isfinite(a).all()) or n_bad \
+            or n_flip > SCOUT_MAX_FLIP_SHARE * rows:
+        raise AssertionError(f"Scout with moe_ep: {n_bad} unflipped "
+                             f"positions over the tolerance, {n_flip} "
+                             f"flipped")
+    del params, ep_params, got, a, p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sharded_compress(dev):
+    """13 (c) make_grad_compressor: tiny-lm's gradients of one train step
+    at full width through the int8 all-reduce over the pod axis of a 2 x 2
+    ("pod", "data") mesh; every pod holds the same gradient, so the
+    result is twice it, within the reference's 0.02."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as comp
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.training.optimizer import AdamWConfig, warmup_cosine
+    from repro_torch.training.train_step import make_train_step
+    cfg = get_config("tiny-lm")
+    mesh = dmesh.make_mesh((2, 2), ("pod", "data"), [dev] * 4)
+    inner = comp.make_grad_compressor(mesh, "pod")
+    seen = {}
+
+    def hook(grads):
+        seen["in"] = [gr.clone() for gr in tree_leaves(grads)]
+        mesh.reset_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(grads)
+        torch.cuda.synchronize()
+        seen["ms"] = (time.perf_counter() - t) * 1e3
+        seen["out"] = [gr.clone() for gr in tree_leaves(out)]
+        return out
+
+    init, step = make_train_step(cfg, AdamWConfig(lr=warmup_cosine(
+        1e-3, 2, 10)), grad_compressor=hook)
+    state = init(0, device=dev)
+    g = torch.Generator(dev).manual_seed(31)
+    toks = torch.randint(1, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                         generator=g, device=dev)
+    _, metrics = step(state, {"tokens": toks, "labels": toks})
+    rel = max(float((o - 2 * i).abs().max() / i.abs().max())
+              for i, o in zip(seen["in"], seen["out"])
+              if float(i.abs().max()) > 0)
+    n = sum(i.numel() for i in seen["in"])
+    if rel >= INT8_REL_TOL or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"int8 gradient all-reduce: {rel:.3g} "
+                             f"relative")
+    calls = mesh.collective_counts()
+    log(f"[sharded] make_grad_compressor: tiny-lm's {n / 1e6:.1f}M "
+        f"gradients of one train step ({TRAIN_BATCH} x {TRAIN_SEQ} tokens) "
+        f"over the pod axis of ({_mesh_note(mesh)}): worst leaf "
+        f"max |out - 2 g| / max |g| {rel:.4f} (limit {INT8_REL_TOL}); "
+        f"{seen['ms']:.1f} ms for {calls} collectives, "
+        f"{mesh.collective_bytes()} bytes read across shards")
+    del state
+    torch.cuda.empty_cache()
+    return dict(rel_err=rel, ms=seen["ms"], collectives=calls,
+                bytes=mesh.collective_bytes(), n_grads=n)
+
+
+def phase_sharded(dev, single_step_ms):
+    """Phase 13: the sharded endpoint at real size, tiny-lm served over
+    SHARDS homes, and the distributed layer at full width, every mesh of
+    SHARDS shards on this one card."""
+    from repro_torch import kernels
+    t = time.perf_counter()
+    out = {}
+    for name, fn in (("endpoint", lambda: sharded_endpoint(dev)),
+                     ("serving", lambda: sharded_serving(dev,
+                                                         single_step_ms)),
+                     ("fetch", lambda: sharded_fetch(dev)),
+                     ("decode", lambda: sharded_decode(dev)),
+                     ("moe", lambda: sharded_moe(dev)),
+                     ("compress", lambda: sharded_compress(dev))):
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        out[name + "_s"] = time.perf_counter() - t1
+        out[name + "_launches"] = kernels.launch_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t
+    # the sharded paths' own launches: the endpoint's two waves, the
+    # tiara serving run, one fetch (not the yardsticks they are held to)
+    gathers = out["endpoint"]["sharded"]["launches"] \
+        + out["endpoint"]["auto"]["launches"] \
+        + out["serving"]["counts"]["tiara_gather"] \
+        + out["fetch"]["launches"]
+    out["tiara_gather_launches"] = gathers
+    log(f"[sharded] phase 13: {out['wall_s']:.1f} s (endpoint "
+        f"{out['endpoint_s']:.1f}, serving {out['serving_s']:.1f}, fetch "
+        f"{out['fetch_s']:.1f}, decode {out['decode_s']:.1f}, moe "
+        f"{out['moe_s']:.1f}, compress {out['compress_s']:.1f}); "
+        f"tiara_gather launched {gathers} times on the sharded paths; "
+        f"{card_line()}")
+    if gathers < 1:
+        raise AssertionError("the sharded paths never launched "
+                             "tiara_gather")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--attention-only", action="store_true",
@@ -3238,6 +4039,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the training paths reset and read the counts around their own runs
     training = phase_training(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # and so do the sharded paths, part by part
+    sharded = phase_sharded(
+        dev, float(np.median(runs["tiara"]["step_ms"])))
     serving = {k: sum(r["counts"][k] for r in runs.values())
                for k in counts}
     scout_counts = {k: sum(r["counts"][k] for r in scout["runs"].values())
@@ -3251,7 +4057,7 @@ def main() -> int:
             if k != "flash_attention_bwd" and path[k] < 1:
                 raise AssertionError(f"a serving path never launched {k}")
     kinfo["launches"] = counts["tiara_gather"] + serving["tiara_gather"] \
-        + scout_counts["tiara_gather"]
+        + scout_counts["tiara_gather"] + sharded["tiara_gather_launches"]
     jamba_counts = jamba["run"]["counts"]
     log(f"[launches] Jamba path (prefill + {RECURRENT_STEPS} decode steps): "
         f"{jamba_counts}")
@@ -3260,6 +4066,7 @@ def main() -> int:
             f"steps): {ph['run']['counts']}")
     model_paths = [jamba_counts] + [ph["run"]["counts"]
                                     for ph in (qwen, seamless)]
+    model_paths.append(sharded["serving"]["counts"])
     paged["launches"] = serving["paged_attention"] \
         + scout_counts["paged_attention"] \
         + sum(c["paged_attention"] for c in model_paths)
@@ -3310,7 +4117,7 @@ def main() -> int:
                        "logits": scout["logits"]},
                    "jamba": jamba, "rwkv": rwkv, "qwen": qwen,
                    "seamless": seamless, "simulator": simulated,
-                   "training": training},
+                   "training": training, "sharded": sharded},
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

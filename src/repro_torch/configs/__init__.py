@@ -15,12 +15,12 @@ the reference's meaning and defaults: the train mode checkpoints the
 decoder stack through ``torch.utils.checkpoint`` (see
 ``models/transformer.py``).  The reference's mesh and compiler knobs
 (``dp_spec``, ``scan_layers``) have no counterpart here: PyTorch runs
-eagerly and the port has no mesh yet.  ``paged_attn_fn`` and ``moe_fn``
-stay as fields because the distributed decode and the expert-parallel MoE
-plug in through them; until that slice lands, a value other than ``None``
-makes the decode or the MoE block raise.  ``moe_hints`` (the reference's
-dispatch sharding constraints) is accepted and has nothing to shard on
-one device.
+eagerly, and the port's mesh is explicit (``distributed/mesh.py``).
+``paged_attn_fn`` and ``moe_fn`` are where the distributed decode
+(``distributed/paged_decode.sharded_paged_attention``) and the
+expert-parallel MoE (``distributed/moe_ep.make_moe_ep``) plug in, as in
+the reference.  ``moe_hints`` (the reference's dispatch sharding
+constraints) is accepted and has nothing to shard on one device.
 """
 
 from __future__ import annotations
@@ -72,9 +72,9 @@ class ArchConfig:
     dtype: str = "bfloat16"
     param_dtype: str = "bfloat16"
     page_size: int = 128          # paged-KV page (tokens)
-    paged_attn_fn: Optional[Any] = None   # distributed decode (not ported)
+    paged_attn_fn: Optional[Any] = None   # one-round sharded paged decode
     moe_hints: bool = False       # dispatch-buffer shardings (no-op here)
-    moe_fn: Optional[Any] = None  # distributed EP MoE (not ported)
+    moe_fn: Optional[Any] = None  # local-dispatch expert-parallel MoE
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:

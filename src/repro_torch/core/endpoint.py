@@ -95,6 +95,7 @@ from repro_torch.core.costmodel import DispatchCostModel
 from repro_torch.core.memory import Grant, RegionTable, RegionView
 from repro_torch.core.program import TiaraProgram
 from repro_torch.core.registry import OperatorRegistry
+from repro_torch.distributed.mesh import Sharded, make_device_mesh
 
 # the wave/engine mode vocabularies are the registry's — one source of
 # truth, the endpoint only adds the single-request "interp" spelling
@@ -513,8 +514,18 @@ class TiaraEndpoint:
                  clock: Optional[Callable[[], float]] = None,
                  sleep: Optional[Callable[[float], None]] = None,
                  budget: Optional[wcet.Budget] = wcet.DEFAULT_BUDGET,
-                 sep: str = "/", device=None):
+                 sep: str = "/", device=None, mesh=None):
         self.device = vm.resolve_device(device)
+        if mesh is not None and mesh.size != int(n_devices):
+            raise EndpointError(
+                f"a mesh of {mesh.size} shards for a pool of {n_devices} "
+                f"device rows")
+        # the mesh sharded placements run on: the caller's, else (built
+        # on first use) one over the visible devices of the endpoint's
+        # type — which cannot be built when fewer than n_devices are
+        # visible ("auto" then stays single, "sharded" raises)
+        self._mesh = mesh
+        self._default_mesh = None
         self.regions = RegionTable(pool_words)
         self.registry = OperatorRegistry(self.regions, n_devices=n_devices,
                                          max_steps=max_steps,
@@ -626,12 +637,41 @@ class TiaraEndpoint:
     @property
     def mem(self) -> torch.Tensor:
         """The pool as a device tensor, current with every launched wave
-        and every host write (uploading the host copy if it is newer)."""
+        and every host write (uploading the host copy if it is newer).
+        After a sharded wave this gathers the shards onto the endpoint's
+        device and keeps that copy resident instead."""
+        pool = self._resident_pool()
+        if isinstance(pool, Sharded):
+            self._dev_mem = vm.as_pool(pool, self.device)
+        return self._dev_mem
+
+    def _resident_pool(self):
+        """The pool as it lies: a device tensor, or after a sharded wave
+        the per-shard rows (uploading the host copy if it is newer)."""
         if self._host_auth:
             self._dev_mem = torch.from_numpy(self._host).to(self.device,
                                                             copy=True)
             self._host_auth = False
         return self._dev_mem
+
+    @property
+    def mesh(self):
+        """The mesh sharded placements run on (None when no mesh of
+        ``n_devices`` shards can be built)."""
+        return self._placement_mesh(required=False)
+
+    def _placement_mesh(self, required: bool):
+        if self._mesh is not None:
+            return self._mesh
+        if self._default_mesh is None:
+            try:
+                self._default_mesh = make_device_mesh(
+                    self.n_devices, device_type=self.device.type)
+            except RuntimeError:
+                if required:
+                    raise
+                return None
+        return self._default_mesh
 
     def _set_device_pool(self, mem: torch.Tensor) -> None:
         """Rebind the pool to a launch's output; the host copy is stale."""
@@ -651,6 +691,13 @@ class TiaraEndpoint:
                 else t.numpy()
         return self._host
 
+    def _row(self, device: int) -> torch.Tensor:
+        """Device row ``device`` of the resident pool (its shard, after a
+        sharded wave)."""
+        if isinstance(self._dev_mem, Sharded):
+            return self._dev_mem.shards[device][0]
+        return self._dev_mem[device]
+
     def host_mem(self) -> np.ndarray:
         """The pool, guaranteed host-writable for control-path access.
 
@@ -668,7 +715,7 @@ class TiaraEndpoint:
         the device pool."""
         if self._host is not None:
             return np.array(self._host[device, start:start + count])
-        return self._dev_mem[device, start:start + count].cpu().numpy()
+        return self._row(device)[start:start + count].cpu().numpy()
 
     def _write_words(self, device: int, start: int,
                      data: np.ndarray) -> None:
@@ -678,8 +725,9 @@ class TiaraEndpoint:
         if self._host_auth:
             self._host[device, start:start + data.size] = data
             return
-        self._dev_mem[device, start:start + data.size] = \
-            torch.as_tensor(data, device=self.device)
+        row = self._row(device)
+        row[start:start + data.size] = torch.as_tensor(data,
+                                                       device=row.device)
         self._host = None
 
     @property
@@ -994,14 +1042,21 @@ class TiaraEndpoint:
                     self._transient_left -= 1
                     raise faults.TransientError(
                         "injected transient launch failure")
-                mem = self.mem
                 if mode in _WAVE_MODES:
-                    res = reg._invoke_mixed(ids, mem, params,
-                                            homes=homes, mode=mode,
+                    # a wave that may run on the mesh takes the pool as
+                    # it lies (sharded rows stay sharded)
+                    mesh = None if placement == "single" else \
+                        self._placement_mesh(required=placement ==
+                                             "sharded")
+                    res = reg._invoke_mixed(ids, self._resident_pool(),
+                                            params, homes=homes, mode=mode,
                                             contention_rate=contention_rate,
                                             failed=failed,
-                                            placement=placement, block=block)
-                elif mode in _SINGLE_OP_MODES:
+                                            placement=placement,
+                                            block=block, mesh=mesh)
+                    break
+                mem = self.mem
+                if mode in _SINGLE_OP_MODES:
                     if len(set(ids)) != 1:
                         raise EndpointError(
                             f"mode {mode!r} needs a single-op wave; got "

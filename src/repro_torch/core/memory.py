@@ -286,6 +286,40 @@ def make_pool(n_devices: int, table: RegionTable,
     return mem
 
 
+def pool_sharding(mesh, axis: str = "pool"):
+    """The pool's mesh placement: the leading ``n_devices`` axis split
+    over the 1-D device mesh (shard ``d`` holds row ``d`` — its blade's
+    DRAM), words replicated along no other axis."""
+    from repro_torch.distributed.mesh import P
+    del mesh
+    return P(axis, None)
+
+
+def shard_pool(mem, mesh=None, axis: str = "pool"):
+    """Place a ``(n_devices, pool_words)`` pool on a device mesh with
+    :func:`pool_sharding` — shard-aware pool construction for the
+    sharded VM engine (shard ``d`` owns ``mem[d]`` on mesh device
+    ``d``).  ``mem`` is a numpy array, a tensor (a row already on its
+    shard's device is a view, not a copy) or an already sharded pool,
+    which passes through.  With no ``mesh`` a 1-D mesh over the first
+    ``n_devices`` CUDA cards is built (raises when fewer are visible)."""
+    import torch
+
+    from repro_torch.distributed import mesh as _mesh
+    if isinstance(mem, _mesh.Sharded):
+        if mesh is not None and mem.mesh is not mesh:
+            raise ValueError("the pool is sharded over another mesh")
+        return mem
+    if mesh is None:
+        mesh = _mesh.make_device_mesh(int(mem.shape[0]), axis)
+    if int(mem.shape[0]) != mesh.size:
+        raise ValueError(f"a pool of {int(mem.shape[0])} rows on a mesh "
+                         f"of {mesh.size} shards")
+    if not isinstance(mem, torch.Tensor):
+        mem = torch.from_numpy(np.asarray(mem, dtype=np.int64))
+    return mesh.put(mem.to(torch.int64), pool_sharding(mesh, axis))
+
+
 def write_region(mem: np.ndarray, table: RegionTable, device: int,
                  region: str, data: Sequence[int], offset: int = 0) -> None:
     """Host-side (control path) helper to populate a region."""

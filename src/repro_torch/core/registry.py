@@ -31,10 +31,10 @@ and calls the internal engines here.
 The instruction stores are per-MP BRAMs of 1024 entries; we model one
 shared store and enforce the aggregate capacity.
 
-Placement: this port runs every wave on one device.  ``placement="auto"``
-resolves to ``"single"`` (as the reference does on a one-device pool);
-``placement="sharded"`` raises ``NotImplementedError`` until the sharded
-engine is ported.
+Placement: ``placement="single"`` runs a wave on one device against the
+whole pool; ``placement="sharded"`` runs it on the mesh-sharded engine
+(``vm.invoke_sharded_mixed``), the pool split over a device mesh by row;
+``placement="auto"`` lets the cost model pick between them.
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ from repro_torch.core.costmodel import (DispatchCostModel,
 from repro_torch.core.memory import Grant, RegionTable
 from repro_torch.core.program import TiaraProgram
 from repro_torch.core.verifier import VerifiedOperator, verify
+from repro_torch.distributed.mesh import Sharded
 
 _SINGLE_MODES = ("auto", "interp", "compiled")
 _BATCHED_MODES = ("auto", "batched", "compiled", "compiled_dbuf")
@@ -463,7 +464,8 @@ class OperatorRegistry:
                       mode: str = "auto",
                       contention_rate: float = 0.0,
                       placement: str = "single",
-                      block: bool = True) -> vm.BatchedInvokeResult:
+                      block: bool = True,
+                      mesh=None) -> vm.BatchedInvokeResult:
         """Dispatch a wave whose requests carry *per-request* op_ids.
 
         ``mode``:
@@ -489,11 +491,18 @@ class OperatorRegistry:
         ``placement``:
           "single"     the wave runs on one chip against the whole pool
                        (every mode above).
-          "sharded"    the mesh-sharded engine — not ported yet: raises
-                       ``NotImplementedError``.
+          "sharded"    the pool's leading axis is sharded over ``mesh``
+                       (a 1-D :class:`~repro_torch.distributed.mesh.Mesh`
+                       of ``n_devices`` shards; with none, one over the
+                       first ``n_devices`` cards, which raises when fewer
+                       are visible): the planner buckets the wave by
+                       ``home`` into per-shard sub-waves and the mesh
+                       executes them in lockstep, remote traffic on
+                       collectives (``vm.invoke_sharded_mixed``) —
+                       bit-identical to the "mixed" engine over the
+                       arrival-order wave.  The pool comes back sharded.
           "auto"       :meth:`DispatchCostModel.choose_placement`
-                       decides (recorded in :attr:`last_placement`); with
-                       no mesh engine it always picks "single".
+                       decides (recorded in :attr:`last_placement`).
           Both non-"single" placements require ``mode`` "auto" or
           "mixed", as in the reference.
         """
@@ -522,11 +531,21 @@ class OperatorRegistry:
         nc = ids.size > 1 and self.prove_wave_noconflict(
             ids, params, homes, n_devices=int(mem.shape[0]))
         if placement != "single":
-            self._resolve_placement(ids, mem, params, homes=homes,
-                                    mode=mode,
-                                    contention_rate=contention_rate,
-                                    placement=placement,
-                                    static_noconflict=nc)
+            out = self._invoke_placed(ids, mem, params, homes=homes,
+                                      failed=failed, mode=mode,
+                                      contention_rate=contention_rate,
+                                      placement=placement,
+                                      static_noconflict=nc, mesh=mesh)
+            if out is not None:
+                # the wave ran on the mesh: no engine-mode decision was
+                # made, so clear the audit hook rather than leave an
+                # earlier wave's pick looking current
+                self.last_decision = None
+                self.last_noconflict = nc
+                return out
+        if isinstance(mem, Sharded):
+            # the single-device engines take the whole pool on one device
+            mem = vm.as_pool(mem)
         plan = tcompile.plan_mixed_batch(ids)
         decision = None
         if mode == "auto":
@@ -567,48 +586,63 @@ class OperatorRegistry:
         self.last_noconflict = nc
         return out
 
-    def _resolve_placement(self, ids: np.ndarray, mem,
-                           params: Sequence[Sequence[int]], *,
-                           homes: Union[int, Sequence[int]],
-                           mode: str, contention_rate: float,
-                           placement: str,
-                           static_noconflict: bool = False) -> None:
-        """Resolve a non-"single" placement before the wave runs on one
-        device: "sharded" raises (no mesh engine in this port yet);
-        "auto" records the cost model's placement decision in
-        :attr:`last_placement` — with the sharded candidate infeasible,
-        always "single"."""
+    def _invoke_placed(self, ids: np.ndarray, mem,
+                       params: Sequence[Sequence[int]], *,
+                       homes: Union[int, Sequence[int]],
+                       failed: Optional[Set[int]],
+                       mode: str, contention_rate: float,
+                       placement: str,
+                       static_noconflict: bool = False,
+                       mesh=None) -> Optional[vm.BatchedInvokeResult]:
+        """Resolve a non-"single" placement: run the wave on the sharded
+        mesh engine, or return None when the cost model sends an "auto"
+        wave back to single-device execution.  A statically-proven wave
+        (``static_noconflict``) runs the mesh step without the footprint
+        all_gather or the sweep, and is priced accordingly."""
         if mode not in ("auto", "mixed"):
             raise ValueError(
                 f"placement={placement!r} executes the mixed lockstep "
                 f"engine over the mesh; mode must be 'auto' or 'mixed', "
                 f"not {mode!r}")
-        if placement == "sharded":
-            raise NotImplementedError(
-                "placement='sharded' needs the sharded engine, which is not "
-                "ported yet (a later slice of the port: sharded pool and "
-                "distributed layer); use placement='single' or 'auto'")
         n_dev = int(mem.shape[0])
-        bound = max(self._slots[int(i)].verified.step_bound
-                    for i in np.unique(ids))
-        # the dense (no-homes) plan's segment stats price the best
-        # *single-chip* dispatch — mixed or segmented.  No mesh engine
-        # exists in this port yet, so the sharded candidate is
-        # infeasible and "auto" always resolves to "single".
-        dense_plan = tcompile.plan_mixed_batch(ids)
         h = vm.homes_array(homes, len(params))
         plan = tcompile.plan_mixed_batch(ids, homes=h, n_devices=n_dev)
-        decision = self.cost_model.choose_placement(
-            batch=int(ids.size), n_devices=n_dev, step_bound=bound,
-            contention_rate=contention_rate,
-            batch_per_device=plan.batch_per_device,
-            sharded_feasible=False,
-            mixed_cached=vm.mixed_engine_cached(
-                self.store_ops(), self.regions, n_dev, int(ids.size),
-                static_noconflict=static_noconflict),
-            segments=self._segment_stats(dense_plan, n_dev),
-            static_noconflict=static_noconflict)
-        self.last_placement = decision
+        if placement == "auto":
+            bound = max(self._slots[int(i)].verified.step_bound
+                        for i in np.unique(ids))
+            # the dense (no-homes) plan's segment stats price the best
+            # *single-chip* dispatch — mixed or segmented — so a wave
+            # whose best local plan is segmented is not routed to the
+            # mesh prematurely
+            dense_plan = tcompile.plan_mixed_batch(ids)
+            decision = self.cost_model.choose_placement(
+                batch=int(ids.size), n_devices=n_dev, step_bound=bound,
+                contention_rate=contention_rate,
+                batch_per_device=plan.batch_per_device,
+                # a pool can model more homes than the mesh has shards;
+                # "auto" must degrade to "single" there, not pick a
+                # placement whose mesh cannot run.  Likewise a mesh with
+                # a failed member: the single-device engines model failed
+                # devices exactly, the mesh would compute through the
+                # dead shard
+                sharded_feasible=(mesh is not None
+                                  and mesh.size == n_dev and not failed),
+                mixed_cached=vm.mixed_engine_cached(
+                    self.store_ops(), self.regions, n_dev, int(ids.size),
+                    static_noconflict=static_noconflict),
+                sharded_cached=vm.sharded_engine_cached(
+                    self.store_ops(), self.regions, n_dev,
+                    plan.batch_per_device,
+                    static_noconflict=static_noconflict, mesh=mesh),
+                segments=self._segment_stats(dense_plan, n_dev),
+                static_noconflict=static_noconflict)
+            self.last_placement = decision
+            if decision.mode != "sharded":
+                return None
+        return vm.invoke_sharded_mixed(self.store_ops(), self.regions,
+                                       mem, plan, params, failed=failed,
+                                       static_noconflict=static_noconflict,
+                                       mesh=mesh)
 
     def _coalesced_segments(self, plan: "tcompile.MixedPlan"
                             ) -> Iterator[Tuple[int, np.ndarray]]:

@@ -83,9 +83,13 @@ from repro_torch.core.isa import (Alu, Op, FLAG_ASYNC, FLAG_DEV_REG,
                                   DEV_LOCAL, ERR_REG)
 from repro_torch.core.memory import RegionTable
 from repro_torch.core.verifier import VerifiedOperator
+from repro_torch.distributed import mesh as _mesh
 from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
 
 _REG_MASK = isa.NUM_REGS - 1
+# the instruction fields that can name a register a step reads
+_READ_FIELDS = (isa.F_A, isa.F_B, isa.F_C, isa.F_D, isa.F_E, isa.F_DST,
+                isa.F_IMM2)
 _I64 = torch.int64
 _BIG = 1 << 62
 
@@ -106,7 +110,12 @@ def resolve_device(device=None) -> torch.device:
 def as_pool(mem, device=None) -> torch.Tensor:
     """An int64 ``(n_devices, pool_words)`` pool tensor: a tensor stays
     on its own device (``device``, when given, must match), a numpy array
-    is copied to ``device`` (the card unless named)."""
+    is copied to ``device`` (the card unless named), a sharded pool is
+    gathered onto ``device`` (its first shard's unless named)."""
+    if isinstance(mem, _mesh.Sharded):
+        # a single-device engine over a sharded pool: the one explicit
+        # gather of the shards onto one device
+        return mem.full(device if device is not None else mem.device)
     if isinstance(mem, torch.Tensor):
         if device is not None and \
                 torch.device(device).type != mem.device.type:
@@ -229,6 +238,88 @@ class _DenseOps:
         memx.index_put_((tgt.reshape(-1),), val.reshape(-1))
 
 
+class _ShardOps:
+    """Collective-routed access to one shard of the pool inside
+    ``shard_map`` (the JAX engine's ``_ShardOps``): ``memx`` is this
+    shard's private ``(pool_words + 1,)`` row plus its sink word.
+
+    Reads are answered by the owning shard (masked contribution +
+    ``psum`` across the mesh axis); writes are applied only by the owner
+    (non-owners route the scatter to the sink).  The *vector* form routes
+    different per-shard requests: they are ``all_gather``-ed across the
+    axis, every shard contributes the words it owns — a window read
+    through the ``tiara_gather`` kernel's window form on the owner's own
+    shard — and the ``psum`` carries each answer back: the software
+    spelling of the fabric's remote-read round trip.  The *replicated*
+    form (``replicated=True``) serves the serialized fallback, where
+    every shard asks the identical question, so a masked ``psum``
+    suffices and a write needs no collective at all."""
+
+    def __init__(self, pool_words: int, axis: str, me: int,
+                 replicated: bool = False):
+        self.P = pool_words
+        self.sink = pool_words
+        self.axis = axis
+        self.me = me
+        self.replicated = replicated
+
+    def _own(self, memx, addr):
+        return memx[addr.clamp(0, self.P - 1)]
+
+    def readv(self, memx, dev, addr):
+        if self.replicated:
+            own = torch.where(dev == self.me, self._own(memx, addr), 0)
+            return _mesh.psum(own, self.axis)
+        req = _mesh.all_gather(torch.stack([dev, addr]), self.axis)
+        own = torch.where(req[:, 0] == self.me,
+                          self._own(memx, req[:, 1]), 0)      # (n, B)
+        return _mesh.psum(own, self.axis)[self.me]
+
+    def writev(self, memx, dev, addr, val, mask):
+        if not self.replicated:
+            pay = _mesh.all_gather(
+                torch.stack([dev, addr, val, mask.to(_I64)]), self.axis)
+            dev, addr, val = (pay[:, i].reshape(-1) for i in range(3))
+            mask = pay[:, 3].reshape(-1) != 0
+        mine = mask & (dev == self.me)
+        tgt = torch.where(mine, addr.clamp(0, self.P - 1),
+                          torch.full_like(addr, self.sink))
+        memx.index_put_((tgt,), val)
+
+    def readv_win(self, memx, dev, base, off, mask, width: int):
+        """Lane ``b``'s window (see ``_DenseOps.readv_win``), read by the
+        shard that owns ``dev[b]`` through ``tiara_gather``'s window form
+        on its own row (one launch per shard) and routed back."""
+        B = int(dev.shape[0])
+        if not self.replicated:
+            req = _mesh.all_gather(torch.stack([dev, base, off, mask]),
+                                   self.axis)                 # (n, 4, B)
+            dev, base, off, mask = (req[:, i].reshape(-1)
+                                    for i in range(4))
+        n = int(dev.shape[0])
+        win = tiara_gather_window(
+            memx, (off & mask).contiguous(), base.contiguous(),
+            torch.arange(n, dtype=torch.int32, device=memx.device),
+            width=width, mask=mask.contiguous())
+        own = torch.where((dev == self.me)[:, None], win, 0)
+        got = _mesh.psum(own, self.axis)
+        if self.replicated:
+            return got
+        return got[self.me * B:(self.me + 1) * B]
+
+    def writev_win(self, memx, dev, phys, val, live):
+        if not self.replicated:
+            dev = _mesh.all_gather(dev, self.axis).reshape(-1)
+            pay = _mesh.all_gather(
+                torch.stack([phys, val, live.to(_I64)]), self.axis)
+            phys, val = pay[:, 0].flatten(0, 1), pay[:, 1].flatten(0, 1)
+            live = pay[:, 2].flatten(0, 1) != 0
+        mine = live & (dev == self.me)[:, None]
+        tgt = torch.where(mine, phys.clamp(0, self.P - 1),
+                          torch.full_like(phys, self.sink))
+        memx.index_put_((tgt.reshape(-1),), val.reshape(-1))
+
+
 # ---------------------------------------------------------------------------
 # Step emitters
 # ---------------------------------------------------------------------------
@@ -255,6 +346,20 @@ def _sweep_conflict(r_lo, r_hi, w_lo, w_hi):
     return (excl_w > lo_s).any() | (w_s & (excl_all > lo_s)).any()
 
 
+def _lane_conflicts(r_lo, r_hi, w_lo, w_hi):
+    """Per lane: does its write window overlap another lane's read or
+    write window, or its read window another lane's write window?  The
+    pairwise form of :func:`_sweep_conflict` (a lane's own windows never
+    conflict with each other).  Returns bool ``(L,)``."""
+    def meet(alo, ahi, blo, bhi):
+        return (alo[:, None] < bhi[None, :]) & (blo[None, :] < ahi[:, None])
+
+    pair = meet(w_lo, w_hi, w_lo, w_hi) | meet(w_lo, w_hi, r_lo, r_hi) \
+        | meet(r_lo, r_hi, w_lo, w_hi)
+    pair.fill_diagonal_(False)
+    return pair.any(dim=1)
+
+
 def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
                       max_window, depth, failed, ops, protect=True):
     """The vectorized macro-step plus the per-lane footprint intervals
@@ -274,59 +379,64 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
     col3 = torch.arange(3, dtype=_I64, device=dev_t)[None, None, :]
     iw_full = torch.arange(max_window, dtype=_I64, device=dev_t)[None, :]
 
-    def rd(regs, idx):
-        """Vector register-file read: regs[b, idx[b] & 15]."""
-        return regs.gather(1, (idx & _REG_MASK)[:, None])[:, 0]
+    fields = torch.as_tensor(_READ_FIELDS, dtype=_I64, device=dev_t)
 
-    def dev_of_v(regs, field, via_reg, homes):
-        d = torch.where(via_reg, rd(regs, field), field)
+    def reads(s, rows):
+        """Every register a step can read, in one gather: ``r[f][b] =
+        regs[b, rows[b, f] & 15]`` for each field ``f`` of
+        ``_READ_FIELDS`` (the register file as the step finds it)."""
+        g = s.regs.gather(1, rows[:, fields] & _REG_MASK)
+        return {f: g[:, i] for i, f in enumerate(_READ_FIELDS)}
+
+    def dev_of_v(reg, field, via_reg, homes):
+        d = torch.where(via_reg, reg, field)
         return torch.where(d == DEV_LOCAL, homes, torch.remainder(d, n_dev))
 
-    def dev_oob_v(regs, field, via_reg):
-        d = rd(regs, field)
-        return via_reg & (d != DEV_LOCAL) & ((d < 0) | (d >= n_dev))
+    def dev_oob_v(reg, via_reg):
+        return via_reg & (reg != DEV_LOCAL) & ((reg < 0) | (reg >= n_dev))
 
-    def _decode(s, rows, homes):
+    def _decode(s, rows, homes, r):
         """Shared per-lane decode of memory operands (word ops and
         memcpy windows) used by both the vector step and the conflict
-        check."""
+        check; ``r`` is the step's register reads."""
         flags = rows[:, isa.F_FLAGS]
         # word ops (LOAD/STORE/CAS/CAA) share the same addressing form
         w_rid = rows[:, isa.F_A].clamp(0, n_regions - 1)
         w_via = (flags & FLAG_DEV_REG) != 0
-        w_dev = dev_of_v(s.regs, rows[:, isa.F_E], w_via, homes)
-        w_off = rd(s.regs, rows[:, isa.F_B]) + rows[:, isa.F_IMM]
+        w_dev = dev_of_v(r[isa.F_E], rows[:, isa.F_E], w_via, homes)
+        w_off = r[isa.F_B] + rows[:, isa.F_IMM]
         w_addr = base_c[w_rid] + (w_off & mask_c[w_rid])
         # memcpy operands
         m_drid = rows[:, isa.F_A].clamp(0, n_regions - 1)
         m_srid = rows[:, isa.F_D].clamp(0, n_regions - 1)
         m_via_d = (flags & FLAG_DSTDEV_REG) != 0
         m_via_s = (flags & FLAG_SRCDEV_REG) != 0
-        m_ddev = dev_of_v(s.regs, rows[:, isa.F_DST], m_via_d, homes)
-        m_sdev = dev_of_v(s.regs, rows[:, isa.F_C], m_via_s, homes)
+        m_ddev = dev_of_v(r[isa.F_DST], rows[:, isa.F_DST], m_via_d,
+                          homes)
+        m_sdev = dev_of_v(r[isa.F_C], rows[:, isa.F_C], m_via_s, homes)
         cap = rows[:, isa.F_IMM]
-        lnreg = rd(s.regs, rows[:, isa.F_IMM2])
+        lnreg = r[isa.F_IMM2]
         ln = torch.where((flags & FLAG_LEN_REG) != 0,
                          torch.minimum(lnreg.clamp(min=0), cap), cap)
         ln = torch.minimum(torch.minimum(ln, mask_c[m_drid] + 1),
                            mask_c[m_srid] + 1)
         m_fail = failed[m_ddev] | failed[m_sdev]
-        m_soff = rd(s.regs, rows[:, isa.F_E])
-        m_doff = rd(s.regs, rows[:, isa.F_B])
+        m_soff = r[isa.F_E]
+        m_doff = r[isa.F_B]
         out = dict(flags=flags, w_rid=w_rid, w_dev=w_dev, w_addr=w_addr,
                    m_drid=m_drid, m_srid=m_srid, m_ddev=m_ddev,
                    m_sdev=m_sdev, m_fail=m_fail, m_soff=m_soff,
                    m_doff=m_doff)
         if protect:
             # word-op fault columns (mirrors pyvm's word-op checks)
-            w_draw = torch.where(w_via, rd(s.regs, rows[:, isa.F_E]),
+            w_draw = torch.where(w_via, r[isa.F_E],
                                  rows[:, isa.F_E])
-            w_oob_dev = dev_oob_v(s.regs, rows[:, isa.F_E], w_via)
+            w_oob_dev = dev_oob_v(r[isa.F_E], w_via)
             w_flt = w_oob_dev | (w_off != (w_off & mask_c[w_rid])) | \
                 failed[w_dev]
             # memcpy fault columns (4-way priority, pre-fail-zero ln)
-            oob_dd = dev_oob_v(s.regs, rows[:, isa.F_DST], m_via_d)
-            oob_sd = dev_oob_v(s.regs, rows[:, isa.F_C], m_via_s)
+            oob_dd = dev_oob_v(r[isa.F_DST], m_via_d)
+            oob_sd = dev_oob_v(r[isa.F_C], m_via_s)
             d_oob = (m_doff != (m_doff & mask_c[m_drid])) | \
                 (m_doff + ln > mask_c[m_drid] + 1)
             s_oob = (m_soff != (m_soff & mask_c[m_srid])) | \
@@ -335,8 +445,8 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
             m_faddr = torch.where(oob_dd | (~oob_sd & d_oob), m_doff,
                                   m_soff)
             m_fdev = torch.where(
-                oob_dd, rd(s.regs, rows[:, isa.F_DST]),
-                torch.where(oob_sd, rd(s.regs, rows[:, isa.F_C]),
+                oob_dd, r[isa.F_DST],
+                torch.where(oob_sd, r[isa.F_C],
                             torch.where(d_oob, m_ddev, m_sdev)))
             m_fail = m_fail & ~m_flt
             ln = torch.where(m_flt, torch.zeros_like(ln), ln)
@@ -359,7 +469,7 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
         a memcpy whose *own* source and destination windows overlap
         (memmove within one request), which merely takes the exact
         serialized path.  Never unsound."""
-        d = _decode(s, rows, homes)
+        d = _decode(s, rows, homes, reads(s, rows))
         opv = rows[:, isa.F_OP]
         is_load = active & (opv == int(Op.LOAD))
         is_store = active & (opv == int(Op.STORE))
@@ -407,11 +517,19 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
         place and returns the new state.  ``gates`` = host-known
         ``(any word read, any word write, any memcpy)`` among the active
         lanes: a route no lane needs is skipped (None runs every route —
-        the result is the same either way)."""
+        the result is the same either way).  A fourth gate bounds the
+        loop-stack fixup: the most frames any active lane can hold after
+        this step (its live frames, plus one at a LOOP) — each pass of
+        the fixup pops or iterates at most one frame per lane, so that
+        many passes do all the work ``depth`` passes would, and none is
+        needed when no frame is live."""
         B = s.pc.shape[0]
-        g_read, g_write, g_mcpy = gates if gates is not None \
+        g_read, g_write, g_mcpy = gates[:3] if gates is not None \
             else (True, True, True)
-        d = _decode(s, rows, homes)
+        n_fix = depth if gates is None or len(gates) < 4 \
+            else min(int(gates[3]), depth)
+        r = reads(s, rows)
+        d = _decode(s, rows, homes, r)
         opv = rows[:, isa.F_OP]
         flags = d["flags"]
         imm = rows[:, isa.F_IMM]
@@ -442,16 +560,16 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
 
         # --- ALU / MOVI --------------------------------------------
         alu_rhs = torch.where((flags & FLAG_IMMB) != 0, imm,
-                              rd(s.regs, rows[:, isa.F_B]))
+                              r[isa.F_B])
         alu_val = alu_eval_v(rows[:, isa.F_D],
-                             rd(s.regs, rows[:, isa.F_A]), alu_rhs)
+                             r[isa.F_A], alu_rhs)
 
         # --- LOAD / CAS / CAA reads (step-start memory: the conflict
         # check guarantees no same-step writer touches these words)
         w_old = ops.readv(memx, d["w_dev"], d["w_addr"]) if g_read \
             else zero
-        hit = w_old == rd(s.regs, rows[:, isa.F_C])
-        swp = rd(s.regs, rows[:, isa.F_D])
+        hit = w_old == r[isa.F_C]
+        swp = r[isa.F_D]
         atom_new = torch.where(
             hit, torch.where(is_cas, swp, w_old + swp), w_old)
 
@@ -473,7 +591,7 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
         # --- single-word scatter (STORE / CAS / CAA) -----------------
         if g_write:
             sw_mask = (is_store | is_atom) & ~flt
-            sw_val = torch.where(is_store, rd(s.regs, rows[:, isa.F_DST]),
+            sw_val = torch.where(is_store, r[isa.F_DST],
                                  atom_new)
             ops.writev(memx, d["w_dev"], d["w_addr"], sw_val, sw_mask)
 
@@ -495,13 +613,13 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
             is_mcpy & ~flt & ((flags & FLAG_ASYNC) != 0),
             torch.clamp(s.inflight + 1, max=isa.MAX_INFLIGHT), s.inflight)
         thr = torch.where((flags & FLAG_THR_REG) != 0,
-                          rd(s.regs, rows[:, isa.F_A]), imm)
+                          r[isa.F_A], imm)
         inflight = torch.where(
             is_wait, torch.minimum(inflight, thr.clamp(min=0)), inflight)
 
         # --- RET / protection fault ----------------------------------
         halted = s.halted | is_ret | flt
-        ret = torch.where(is_ret, rd(s.regs, rows[:, isa.F_A]), s.ret)
+        ret = torch.where(is_ret, r[isa.F_A], s.ret)
         status = torch.where(
             is_ret, imm,
             torch.where(flt, torch.full_like(imm, isa.STATUS_PROT_FAULT),
@@ -509,9 +627,9 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
 
         # --- control flow -------------------------------------------
         jcond = rows[:, isa.F_D]
-        jlhs = rd(s.regs, rows[:, isa.F_A])
+        jlhs = r[isa.F_A]
         jrhs = torch.where((flags & FLAG_IMMB) != 0, imm,
-                           rd(s.regs, rows[:, isa.F_B]))
+                           r[isa.F_B])
         take = torch.where(
             jcond == int(Alu.ALWAYS), torch.ones_like(active),
             torch.where(jcond == int(Alu.EQ), jlhs == jrhs,
@@ -522,7 +640,7 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
         # LOOP push
         cap = imm
         m = torch.where((flags & FLAG_MREG) != 0,
-                        torch.minimum(rd(s.regs, rows[:, isa.F_B])
+                        torch.minimum(r[isa.F_B]
                                       .clamp(min=0), cap),
                         cap)
         skip = m <= 0
@@ -546,14 +664,14 @@ def _make_vector_step(*, base_c, mask_c, n_regions, n_dev, pool_words,
 
         # taken jump: pop every frame whose body the jump escaped
         pop_lsp = lsp
-        for _ in range(depth):
+        for _ in range(n_fix):
             cond = (pop_lsp > 0) & (top(1, lstack, pop_lsp) < pc_new)
             pop_lsp = torch.where(cond, pop_lsp - 1, pop_lsp)
 
         # normal advance: iterate / pop frames whose body just ended
         it_stack, it_lsp, it_pcn = lstack, lsp, pc_new
         done = torch.zeros(B, dtype=torch.bool, device=dev_t)
-        for _ in range(depth):
+        for _ in range(n_fix):
             idx = (it_lsp - 1).clamp(0, depth - 1)
             t_end = top(1, it_stack, it_lsp)
             cond = (~done) & (it_lsp > 0) & (it_pcn == t_end + 1)
@@ -600,13 +718,15 @@ def _make_scalar_step(vector_step):
     """The scalar (one-request) interpreter — the semantic reference the
     vectorized batch must match: the vectorized step on one lane's
     slice, so the two share one definition.  Returns ``step_one(s, memx,
-    b, rows, homes)`` executing request ``b`` in place of ``s``."""
+    b, rows, homes, gates=None)`` executing request ``b`` in place of
+    ``s`` (``gates`` as for the vector step)."""
 
-    def step_one(s: ReqState, memx, b: int, rows, homes) -> ReqState:
+    def step_one(s: ReqState, memx, b: int, rows, homes,
+                 gates=None) -> ReqState:
         sl = slice(b, b + 1)
         one = ReqState(*(f[sl] for f in s))
         active = torch.ones(1, dtype=torch.bool, device=rows.device)
-        s1 = vector_step(one, memx, rows[sl], active, homes[sl])
+        s1 = vector_step(one, memx, rows[sl], active, homes[sl], gates)
         for dst, src in zip(s, s1):
             dst[sl] = src
         return s
@@ -614,17 +734,44 @@ def _make_scalar_step(vector_step):
     return step_one
 
 
+def _lane_gates(op: int, lsp: int):
+    """One lane's vector-step gates from its opcode and loop depth before
+    the step (see ``vector_step``)."""
+    return (op in (int(Op.LOAD), int(Op.CAS), int(Op.CAA)),
+            op in (int(Op.STORE), int(Op.CAS), int(Op.CAA)),
+            op == int(Op.MEMCPY), lsp + (op == int(Op.LOOP)))
+
+
 def _serial_step_fn(step_one):
     """The contention-exact macro-step: requests 0..B-1 each execute one
-    instruction in lane order against the shared pool."""
-    def serial_step(s: ReqState, memx, rows, homes, active_host) -> ReqState:
+    instruction in lane order against the shared pool, each through the
+    routes its own opcode needs."""
+    def serial_step(s: ReqState, memx, rows, homes, active) -> ReqState:
         s = ReqState(*(f.clone() for f in s))
-        for b, act in enumerate(active_host):
-            if act:
-                s = step_one(s, memx, b, rows, homes)
+        B = int(active.shape[0])
+        host = torch.cat([active.to(_I64), rows[:, isa.F_OP],
+                          s.lsp]).tolist()
+        for b in range(B):
+            if host[b]:
+                s = step_one(s, memx, b, rows, homes,
+                             gates=_lane_gates(host[B + b],
+                                               host[2 * B + b]))
         return s
 
     return serial_step
+
+
+def _route_probe(active, opv, lsp, read_t, write_t):
+    """The per-step values a host loop reads in its one sync (int64):
+    any lane live, then the vector step's gates — any word read, any word
+    write, any memcpy, and the most loop frames an active lane can hold
+    after the step."""
+    frames = torch.where(active, lsp + (opv == int(Op.LOOP)).to(_I64),
+                         torch.zeros_like(lsp))
+    return [f.to(_I64) for f in (
+        active.any(), (active & torch.isin(opv, read_t)).any(),
+        (active & torch.isin(opv, write_t)).any(),
+        (active & (opv == int(Op.MEMCPY))).any())] + [frames.max()]
 
 
 def _program_statics(codes, fuels):
@@ -736,21 +883,18 @@ class _Engine:
             active = (~s.halted) & (s.pc < end_arr) & (s.steps < fuel_arr)
             rows = code[s.pc.clamp(0, self.n_instr - 1)]
             opv = rows[:, isa.F_OP]
-            probe = [active.any(),
-                     (active & torch.isin(opv, read_t)).any(),
-                     (active & torch.isin(opv, write_t)).any(),
-                     (active & (opv == int(Op.MEMCPY))).any()]
+            probe = _route_probe(active, opv, s.lsp, read_t, write_t)
             if sweep:
                 probe.append(_sweep_conflict(
-                    *lane_intervals(s, rows, active, homes)))
+                    *lane_intervals(s, rows, active, homes)).to(_I64))
             flags = torch.stack(probe).tolist()      # the step's one sync
             if not flags[0]:
                 break
-            if sweep and flags[4]:
-                s = serial_step(s, memx, rows, homes, active.tolist())
+            if sweep and flags[5]:
+                s = serial_step(s, memx, rows, homes, active)
             else:
                 s = vector_step(s, memx, rows, active, homes,
-                                gates=flags[1:4])
+                                gates=flags[1:5])
 
         status = torch.where(
             s.halted, s.status,
@@ -817,6 +961,223 @@ def build_mixed_batched_vm(ops: Sequence[VerifiedOperator],
                          [o.step_bound for o in ops],
                          regions, n_devices, batch, protect=protect,
                          static_noconflict=static_noconflict)
+
+
+class _ShardedEngine:
+    """The mesh-sharded lockstep engine (see :func:`_build_sharded_engine`).
+    Holds no mesh: each call runs on the mesh it is given, whose devices
+    it was keyed by."""
+
+    def __init__(self, codes, fuels, regions: RegionTable, n_devices: int,
+                 batch_per_device: int, axis: str, protect: bool,
+                 static_noconflict: bool):
+        self.dense = _Engine(codes, fuels, regions, n_devices,
+                             batch_per_device, protect, static_noconflict)
+        self.axis = axis
+
+    def __call__(self, mesh: "_mesh.Mesh", mem: "_mesh.Sharded", params,
+                 homes, failed, op_sel, arrival) -> VMResult:
+        e = self.dense
+        for d in set(mesh.flat_devices):     # constant tables, once each
+            e._const(d)
+        n_dev, Bp, axis = e.n_dev, e.B, self.axis
+        N = n_dev * Bp
+        t = torch.as_tensor
+        homes = t(np.asarray(homes, dtype=np.int64))
+        arrival = np.asarray(arrival, dtype=np.int64)
+        # every shard replays a contended macro-step in global arrival
+        # order; the order is known before the wave starts
+        perm = np.argsort(arrival.reshape(-1), kind="stable").tolist()
+        spec_l, spec_r = _mesh.P(axis, None), _mesh.P()
+        run = _mesh.shard_map(
+            lambda *a: self._shard(perm, *a), mesh,
+            in_specs=(spec_l, _mesh.P(axis, None, None), spec_l, spec_r,
+                      spec_l, spec_r),
+            out_specs=VMResult(mem=spec_l, ret=_mesh.P(axis),
+                               status=_mesh.P(axis), steps=_mesh.P(axis),
+                               regs=spec_l, fault=spec_l))
+        return run(mem, t(np.asarray(params, dtype=np.int64)), homes,
+                   t(np.asarray(failed, dtype=bool)),
+                   t(np.asarray(op_sel, dtype=np.int64)),
+                   homes.reshape(N))
+
+    def _shard(self, perm, mem, params, homes, failed, op_sel, homes_all
+               ) -> VMResult:
+        """One shard's run: its sub-wave of ``Bp`` lanes against its own
+        row, in lockstep with the other shards."""
+        e, axis = self.dense, self.axis
+        me = _mesh.axis_index(axis)
+        dev = mem.device
+        code, base_c, mask_c, start_c, end_c, fuel_c = e._const(dev)
+        n_dev, B, depth = e.n_dev, e.B, isa.LOOP_STACK_DEPTH
+        pool_words = int(mem.shape[1])
+        homes = homes.reshape(B)
+        homes_all = homes_all.to(dev)
+        failed = failed.to(dev)
+        op_sel = op_sel.reshape(B)
+        pad = op_sel < 0
+        sel = op_sel.clamp(0, e.n_ops - 1)
+        pc0, end_arr, fuel_arr = start_c[sel], end_c[sel], fuel_c[sel]
+        params = params.reshape(B, -1)
+        regs0 = torch.zeros((B, isa.NUM_REGS), dtype=_I64, device=dev)
+        k = min(int(params.shape[1]), isa.NUM_REGS)
+        if k:
+            regs0[:, :k] = params[:, :k]
+
+        memx = private_pool(mem)
+        common = dict(base_c=base_c, mask_c=mask_c, n_regions=e.n_regions,
+                      n_dev=n_dev, pool_words=pool_words,
+                      max_window=e.max_window, depth=depth, failed=failed,
+                      protect=e.protect)
+        vector_step, lane_intervals = _make_vector_step(
+            ops=_ShardOps(pool_words, axis, me), **common)
+        rep_step, _ = _make_vector_step(
+            ops=_ShardOps(pool_words, axis, me, replicated=True),
+            **common)
+        step_one = _make_scalar_step(rep_step)
+        op_read = (int(Op.LOAD), int(Op.CAS), int(Op.CAA))
+        op_write = (int(Op.STORE), int(Op.CAS), int(Op.CAA))
+
+        def gather(x):
+            return _mesh.all_gather(x, axis, tiled=True)
+
+        def serial_macro(s, rows, active, iv):
+            # contended macro-step.  A lane whose footprint overlaps no
+            # other lane's (``_lane_conflicts`` over the gathered
+            # intervals) commutes with every other lane, so those lanes
+            # take one vector step; the rest replay in GLOBAL ARRIVAL
+            # order (the home-bucketed wave order is not arrival order)
+            # with the whole wave's state replicated on every shard.
+            # Register state stays replicated through the replay — reads
+            # are psum-routed, so every shard computes identical values —
+            # and each shard applies only its own row's writes.
+            conf = _lane_conflicts(iv[0], iv[1], iv[2], iv[3])
+            s_all = ReqState(*(gather(f) for f in s))
+            rows_all, act_all = gather(rows), gather(active)
+            free = act_all & ~conf
+            ops_all = rows_all[:, isa.F_OP]
+            N = n_dev * B
+            host = torch.cat([
+                (act_all & conf).to(_I64), ops_all, s_all.lsp,
+                torch.stack(_route_probe(free, ops_all, s_all.lsp, read_t,
+                                         write_t))]).tolist()
+            replay, ops_h, lsp_h = host[:N], host[N:2 * N], host[2 * N:3 * N]
+            mine = slice(me * B, (me + 1) * B)
+            s_vec = s
+            if host[3 * N]:
+                s_vec = vector_step(s, memx, rows, free[mine], homes,
+                                    gates=host[3 * N + 1:])
+            for lane in perm:
+                if replay[lane]:
+                    s_all = step_one(s_all, memx, lane, rows_all,
+                                     homes_all,
+                                     gates=_lane_gates(ops_h[lane],
+                                                       lsp_h[lane]))
+            c = conf[mine]
+            return ReqState(*(
+                torch.where(c.reshape((B,) + (1,) * (a.dim() - 1)),
+                            a[mine], v)
+                for a, v in zip(s_all, s_vec)))
+
+        zb = torch.zeros(B, dtype=_I64, device=dev)
+        s = ReqState(
+            pc=pc0, regs=regs0,
+            lstack=torch.zeros((B, depth, 3), dtype=_I64, device=dev),
+            lsp=zb, inflight=zb,
+            halted=pad,                       # padding lanes never run
+            ret=zb, status=torch.full((B,), isa.STATUS_FELL_OFF,
+                                      dtype=_I64, device=dev),
+            steps=zb, ctrl=zb, pc_new=zb,
+            fault=torch.as_tensor(NO_FAULT, device=dev).repeat(B, 1))
+        sweep = n_dev * B > 1 and not e.static_noconflict
+        read_t = torch.as_tensor(op_read, dtype=_I64, device=dev)
+        write_t = torch.as_tensor(op_write, dtype=_I64, device=dev)
+
+        while True:
+            active = (~s.halted) & (s.pc < end_arr) & (s.steps < fuel_arr)
+            rows = code[s.pc.clamp(0, e.n_instr - 1)]
+            opv = rows[:, isa.F_OP]
+            # the loop condition and the routes a step needs are global
+            # questions: every shard must take the same branch, or the
+            # collectives inside would wait for a shard that never comes
+            probe = [_mesh.pmax(torch.stack(_route_probe(
+                active, opv, s.lsp, read_t, write_t)), axis)]
+            if sweep:
+                # conflict existence too: sweep every shard's footprint
+                iv = _mesh.all_gather(
+                    torch.stack(lane_intervals(s, rows, active, homes)),
+                    axis, axis=1, tiled=True)
+                probe.append(_sweep_conflict(iv[0], iv[1], iv[2],
+                                             iv[3]).to(_I64)[None])
+            flags = torch.cat(probe).tolist()       # the step's one sync
+            if not flags[0]:
+                break
+            if sweep and flags[5]:
+                s = serial_macro(s, rows, active, iv)
+            else:
+                s = vector_step(s, memx, rows, active, homes,
+                                gates=flags[1:5])
+
+        status = torch.where(
+            s.halted, s.status,
+            torch.where(s.steps >= fuel_arr,
+                        torch.full_like(s.status, isa.STATUS_FUEL),
+                        torch.full_like(s.status, isa.STATUS_FELL_OFF)))
+        return VMResult(mem=memx[:-1].view(1, pool_words), ret=s.ret,
+                        status=status, steps=s.steps, regs=s.regs,
+                        fault=s.fault)
+
+
+def _build_sharded_engine(codes: Sequence[np.ndarray], fuels: Sequence[int],
+                          regions: RegionTable, n_devices: int,
+                          batch_per_device: int, axis: str = "pool",
+                          protect: bool = True,
+                          static_noconflict: bool = False):
+    """Build the mesh-sharded lockstep engine: the pool's leading
+    ``n_devices`` axis is sharded over a 1-D device mesh (``shard_map``,
+    one host thread per shard), each shard executes the home-bucketed
+    sub-wave it owns against its own row, and remote LOAD/MEMCPY/STORE
+    traffic lowers to collectives across the mesh axis (``all_gather``
+    the requests, owning shards answer, ``psum`` routes the words back —
+    see :class:`_ShardOps`).
+
+    Semantics are *identical* to the dense mixed engine run over the
+    same wave in arrival order: macro-steps stay in lockstep across the
+    mesh (the loop condition, the routes a step needs and the conflict
+    predicate are globally agreed each step), conflict-free steps
+    vectorize per shard, and a contended macro-step falls back to a
+    replicated serialized replay in **global arrival order** — the
+    home-bucketed wave order is not the arrival order, so each lane
+    carries its arrival rank and the fallback replays by it.  That is
+    what lets deterministic round-robin STORE/CAS contention survive
+    sharding bit for bit.
+
+    Returns ``f(mesh, mem, params, homes, failed, op_sel, arrival) ->
+    VMResult`` with device-major fields: ``mem`` is the sharded
+    ``(n_devices, pool_words)`` pool (one private row per shard, never
+    gathered), ``ret/status/steps`` are ``(n_devices, batch_per_device)``
+    and ``regs`` is ``(n_devices, batch_per_device, 16)``, each kept per
+    shard.  Lanes with ``op_sel < 0`` are padding (sub-waves are ragged)
+    and start halted."""
+    return _ShardedEngine(codes, fuels, regions, n_devices,
+                          batch_per_device, axis, protect,
+                          static_noconflict)
+
+
+def build_sharded_mixed_vm(ops: Sequence[VerifiedOperator],
+                           regions: RegionTable, n_devices: int,
+                           batch_per_device: int, axis: str = "pool",
+                           protect: bool = True,
+                           static_noconflict: bool = False):
+    """The pod-scale engine: the pool's leading axis sharded over a 1-D
+    device mesh, one home-bucketed sub-wave per shard, cross-shard
+    LOAD/MEMCPY lowered to collectives (see :func:`_build_sharded_engine`
+    for the semantics contract)."""
+    return _build_sharded_engine([o.code for o in ops],
+                                 [o.step_bound for o in ops],
+                                 regions, n_devices, batch_per_device,
+                                 axis, protect=protect,
+                                 static_noconflict=static_noconflict)
 
 
 def build_vm(op: VerifiedOperator, regions: RegionTable, n_devices: int,
@@ -918,6 +1279,51 @@ def _cached_mixed_engine(ops: Sequence[VerifiedOperator],
     if fn is None:
         fn = build_mixed_batched_vm(ops, regions, n_dev, batch,
                                     protect=protect,
+                                    static_noconflict=static_noconflict)
+        _VM_CACHE[key] = fn
+    return fn
+
+
+def _sharded_engine_key(ops: Sequence[VerifiedOperator],
+                        regions: RegionTable, n_dev: int,
+                        batch_per_device: int, axis: str,
+                        protect: bool = True,
+                        static_noconflict: bool = False,
+                        mesh: Optional["_mesh.Mesh"] = None) -> Tuple:
+    dev_ids = None if mesh is None else tuple(
+        str(d) for d in mesh.flat_devices)
+    return mixed_engine_key(ops, regions, n_dev, batch_per_device,
+                            "sharded", axis, dev_ids, bool(protect),
+                            bool(static_noconflict))
+
+
+def sharded_engine_cached(ops: Sequence[VerifiedOperator],
+                          regions: RegionTable, n_dev: int,
+                          batch_per_device: int,
+                          axis: str = "pool",
+                          protect: bool = True,
+                          static_noconflict: bool = False,
+                          mesh: Optional["_mesh.Mesh"] = None) -> bool:
+    """True iff the sharded mesh engine for this (ops, sub-wave size,
+    mesh devices) is already built — the dispatch cost model charges a
+    miss, as the reference charges its compile."""
+    return _sharded_engine_key(ops, regions, n_dev, batch_per_device,
+                               axis, protect, static_noconflict,
+                               mesh) in _VM_CACHE
+
+
+def _cached_sharded_engine(ops: Sequence[VerifiedOperator],
+                           regions: RegionTable, n_dev: int,
+                           batch_per_device: int, axis: str = "pool",
+                           protect: bool = True,
+                           static_noconflict: bool = False,
+                           mesh: Optional["_mesh.Mesh"] = None):
+    key = _sharded_engine_key(ops, regions, n_dev, batch_per_device, axis,
+                              protect, static_noconflict, mesh)
+    fn = _VM_CACHE.get(key)
+    if fn is None:
+        fn = build_sharded_mixed_vm(ops, regions, n_dev, batch_per_device,
+                                    axis, protect=protect,
                                     static_noconflict=static_noconflict)
         _VM_CACHE[key] = fn
     return fn
@@ -1101,6 +1507,105 @@ def invoke_batched_mixed(ops: Sequence[VerifiedOperator],
     return run_batched_fn(fn, mem_t, p, h, failed, block=block)
 
 
+def invoke_sharded_mixed(ops: Sequence[VerifiedOperator],
+                         regions: RegionTable, mem,
+                         plan, params: Sequence[Sequence[int]], *,
+                         failed: Optional[Set[int]] = None,
+                         axis: str = "pool",
+                         protect: bool = True,
+                         static_noconflict: bool = False,
+                         mesh: Optional["_mesh.Mesh"] = None
+                         ) -> "BatchedInvokeResult":
+    """Run a mixed wave on the mesh-sharded engine.
+    ``static_noconflict=True`` asserts a registration-time conflict proof;
+    the engine then skips both the per-step footprint all_gather and the
+    sweep.
+
+    ``plan`` is a home-bucketed :class:`~repro_torch.core.compile.MixedPlan`
+    (built with ``plan_mixed_batch(op_ids, homes=..., n_devices=...)``):
+    its ``order`` lays the wave out device-major, each shard's ragged
+    sub-wave is padded to ``plan.batch_per_device`` lanes, and results
+    scatter back to arrival order through the same permutation.  The
+    result is bit-identical to :func:`invoke_batched_mixed` over the
+    arrival-order wave (contended STORE/CAS included — the engine's
+    serialized fallback replays by arrival rank).
+
+    ``mem`` is a sharded pool (kept per shard: the result's ``mem`` is
+    the new one, never gathered), a pool tensor or a numpy pool (placed
+    on ``mesh`` with :func:`~repro_torch.core.memory.shard_pool`).
+    ``mesh`` defaults to the sharded pool's, else a 1-D mesh over the
+    first ``n_devices`` cards (raising when fewer are visible).  The
+    per-request fields come back as host arrays."""
+    from repro_torch.core import memory as _memory
+    if getattr(plan, "device_counts", None) is None:
+        raise ValueError(
+            "plan carries no device placement; build it with "
+            "plan_mixed_batch(op_ids, homes=..., n_devices=...)")
+    n_dev = int(mem.shape[0])
+    if plan.n_devices != n_dev:
+        raise ValueError(
+            f"plan places {plan.n_devices} devices but the pool has "
+            f"{n_dev} rows")
+    if isinstance(mem, _mesh.Sharded):
+        if mesh is not None and mesh is not mem.mesh:
+            raise ValueError("the pool is sharded over another mesh")
+        mesh = mem.mesh
+    elif mesh is None:
+        mesh = _mesh.make_device_mesh(n_dev, axis)
+    if mesh.size != n_dev:
+        raise ValueError(f"a mesh of {mesh.size} shards for a pool of "
+                         f"{n_dev} rows")
+    p, h = _marshal_batch(params, plan.homes)
+    B = plan.batch
+    if p.shape[0] != B:
+        raise ValueError(f"{p.shape[0]} param rows for a {B}-request plan")
+    Bp = int(plan.batch_per_device)
+    width = p.shape[1]
+    # device-major marshal: plan.order is home-bucketed, so shard d's
+    # sub-wave is one contiguous slice of the sorted batch; pad lanes
+    # carry op_sel = -1 (start halted) and arrival ranks past the wave
+    sel = np.full((n_dev, Bp), -1, dtype=np.int64)
+    pz = np.zeros((n_dev, Bp, width), dtype=np.int64)
+    hz = np.zeros((n_dev, Bp), dtype=np.int64)
+    az = np.full((n_dev, Bp), B, dtype=np.int64)
+    pos = 0
+    for d in range(n_dev):
+        c = int(plan.device_counts[d])
+        lanes = plan.order[pos:pos + c]
+        sel[d, :c] = plan.op_ids[lanes]
+        pz[d, :c] = p[lanes]
+        hz[d, :c] = h[lanes]
+        hz[d, c:] = d
+        az[d, :c] = lanes            # arrival rank = arrival index
+        pos += c
+    eng = _cached_sharded_engine(tuple(ops), regions, n_dev, Bp, axis,
+                                 protect=protect,
+                                 static_noconflict=static_noconflict,
+                                 mesh=mesh)
+    mem_sh = _memory.shard_pool(mem, mesh, axis)
+    out = eng(mesh, mem_sh, pz, hz, _failed_mask(n_dev, failed), sel, az)
+    got = {f: _host(getattr(out, f).full("cpu"))
+           for f in ("ret", "status", "steps", "regs", "fault")}
+    got = {f: v.reshape((n_dev, Bp) + v.shape[1:]) for f, v in got.items()}
+    ret = np.zeros(B, dtype=np.int64)
+    status = np.zeros(B, dtype=np.int64)
+    steps = np.zeros(B, dtype=np.int64)
+    regs = np.zeros((B, isa.NUM_REGS), dtype=np.int64)
+    fault = np.tile(NO_FAULT, (B, 1))
+    pos = 0
+    for d in range(n_dev):
+        c = int(plan.device_counts[d])
+        lanes = plan.order[pos:pos + c]
+        ret[lanes] = got["ret"][d, :c]
+        status[lanes] = got["status"][d, :c]
+        steps[lanes] = got["steps"][d, :c]
+        regs[lanes] = got["regs"][d, :c]
+        fault[lanes] = got["fault"][d, :c]
+        pos += c
+    return BatchedInvokeResult(mem=out.mem, ret=ret, status=status,
+                               steps=steps, regs=regs, fault=fault)
+
+
 @dataclasses.dataclass
 class InvokeResult:
     mem: torch.Tensor
@@ -1117,7 +1622,7 @@ class InvokeResult:
 
 @dataclasses.dataclass
 class BatchedInvokeResult:
-    mem: torch.Tensor
+    mem: Union[torch.Tensor, "_mesh.Sharded"]   # sharded: per shard
     ret: Union[np.ndarray, torch.Tensor]       # i64 [B]
     status: Union[np.ndarray, torch.Tensor]    # i64 [B]
     steps: Union[np.ndarray, torch.Tensor]     # i64 [B]

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import List, Optional
 
@@ -116,9 +117,15 @@ def build() -> Path:
     return lib
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 def load() -> ctypes.CDLL:
-    """The loaded shared library, built on first use."""
+    """The loaded shared library, built on first use (once, when the
+    mesh's shard threads ask for it together)."""
     global _LIB
     if _LIB is None:
-        _LIB = ctypes.CDLL(str(build()))
+        with _LOAD_LOCK:
+            if _LIB is None:
+                _LIB = ctypes.CDLL(str(build()))
     return _LIB

@@ -24,6 +24,7 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Union
 
 import torch
@@ -31,6 +32,8 @@ import torch
 from repro_torch.kernels import _build
 
 COUNTS = {"tiara_gather": 0}
+# the mesh's shards launch from their own host threads
+_COUNT_LOCK = threading.Lock()
 
 _DTYPES = (torch.int64, torch.float32, torch.bfloat16, torch.int32)
 
@@ -90,7 +93,8 @@ def _launch(pool, table, ids, bases, masks, *, width: int, stride: int,
                      pool.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"tiara_gather launch failed: cudaError {err}")
-    COUNTS["tiara_gather"] += 1
+    with _COUNT_LOCK:
+        COUNTS["tiara_gather"] += 1
     return out
 
 

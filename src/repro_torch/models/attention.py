@@ -116,15 +116,20 @@ def attention_decode(params, x, cfg, kv: PagedKV, block_tables, lengths, *,
     b, s, _ = x.shape
     assert s == 1, "decode is one token per sequence"
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    if cfg.paged_attn_fn is not None:
-        raise NotImplementedError(
-            "the distributed paged decode (cfg.paged_attn_fn) comes with "
-            "the port's distributed slice")
     page = kv.k_pages.shape[1]
     q, k, v = _qkv(params, x, nh, nkv, hd)
     lengths = lengths.to(torch.int32)
     positions = lengths[:, None]
     q, k = _position_encode(q, k, cfg, positions, positions3)
+
+    if cfg.paged_attn_fn is not None:
+        # one-round sequence-parallel path (distributed/paged_decode):
+        # pages never move; the request ships to their owners
+        out, k_pages, v_pages = cfg.paged_attn_fn(
+            q[:, 0], kv.k_pages, kv.v_pages, k[:, 0], v[:, 0],
+            block_tables, lengths)
+        out = out.reshape(b, 1, nh * hd)
+        return out @ params["wo"], PagedKV(k_pages, v_pages)
 
     # the reference's take_along_axis clamps an index past the table
     col = (lengths // page).long().clamp(0, block_tables.shape[1] - 1)

@@ -127,10 +127,6 @@ def block_apply(params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
     cross KV (and stores it in the cache, in the cache's dtype), in decode
     it reads the cache; non-causal, keys masked past
     ``ctx["enc_lengths"]``."""
-    if spec.mlp == "moe" and cfg.moe_fn is not None:
-        raise NotImplementedError(
-            "the distributed expert-parallel MoE (cfg.moe_fn) comes with "
-            "the port's distributed slice")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     lengths = ctx.get("lengths") if mode == "prefill" else None
     h = apply_norm(cfg.norm, params["norm1"], x)
@@ -166,8 +162,12 @@ def block_apply(params, x: torch.Tensor, cfg: ArchConfig, spec: LayerSpec,
         x = x + _cross_attention(params, x, cfg, mode, ctx, cache)
     h = apply_norm(cfg.norm, params["norm2"], x)
     if spec.mlp == "moe":
-        out, aux = moe_apply(params["ffn"], h, spec.moe,
-                             hints=cfg.moe_hints)
+        if cfg.moe_fn is not None:
+            # local-dispatch expert parallelism (distributed/moe_ep)
+            out, aux = cfg.moe_fn(params["ffn"], h)
+        else:
+            out, aux = moe_apply(params["ffn"], h, spec.moe,
+                                 hints=cfg.moe_hints)
     elif spec.mlp == "rwkv_cm":
         rc = cache.rwkv if cache is not None else None
         out, last_c = rwkv_mod.rwkv_channel_mix(

@@ -148,7 +148,7 @@ class ServingEngine:
                  sleep: Optional[Callable[[float], None]] = None,
                  resolver_deadline_s: Optional[float] = None,
                  rehome: bool = True, rehome_every: int = 8,
-                 device=None) -> None:
+                 device=None, mesh=None) -> None:
         assert not cfg.enc_dec and all(s.kind == "attn"
                                        for s in cfg.pattern), \
             "engine serves decoder-only attention archs"
@@ -206,7 +206,7 @@ class ServingEngine:
                 moe=self._moe, deadline_s=resolver_deadline_s,
                 clock=clock, sleep=sleep, placement=placement,
                 rehome=rehome, rehome_every=rehome_every,
-                device=self.device)
+                device=self.device, mesh=mesh)
         elif resolver != "host":
             raise ValueError(
                 f"unknown resolver {resolver!r} (use 'host' or 'tiara')")

@@ -82,7 +82,9 @@ class TiaraResolver:
 
     ``device`` is where the endpoint keeps its pool — the CUDA card unless
     named (``device="cpu"`` in the tests); on the card every wave's
-    gather chain runs the ``tiara_gather`` kernel.
+    gather chain runs the ``tiara_gather`` kernel.  ``mesh`` is the
+    endpoint's: the ``n_homes``-shard mesh ``placement="sharded"`` (or
+    ``"auto"``) runs the waves on.
     """
 
     def __init__(self, allocator: BlockAllocator, *, max_slots: int,
@@ -95,7 +97,8 @@ class TiaraResolver:
                  qos: Optional[Dict[str, sl.TenantQoS]] = None,
                  placement: str = "single",
                  rehome: bool = True, rehome_every: int = 8,
-                 min_rehome_share: float = 0.5, device=None) -> None:
+                 min_rehome_share: float = 0.5, device=None,
+                 mesh=None) -> None:
         self.allocator = allocator
         self.max_slots = int(max_slots)
         self.pages_per_seq = int(pages_per_seq)
@@ -121,7 +124,8 @@ class TiaraResolver:
         if sleep is not None:
             kwargs["sleep"] = sleep
         self.ep, sessions = TiaraEndpoint.for_tenants(
-            named, n_devices=self.n_homes, device=device, **kwargs)
+            named, n_devices=self.n_homes, device=device, mesh=mesh,
+            **kwargs)
         self.kv_sessions: List[Session] = [
             sessions[self._kv_tenant(s)] for s in range(self.max_slots)]
         self.exp_sessions: List[Session] = [] if moe is None else [

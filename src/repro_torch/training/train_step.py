@@ -55,7 +55,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     tensors on the state's device (``tokens``, ``labels``, optional
     ``loss_mask`` and the model's extra inputs).  ``grad_compressor``:
     optional fn(grads) -> grads between the accumulation and the optimizer
-    (the reference's int8 all-reduce comes with the distributed slice)."""
+    (``distributed.compression.make_grad_compressor``: the int8
+    all-reduce over a mesh's pod axis)."""
     opt_init, opt_update = make_adamw(opt_cfg)
 
     def init_state(seed: int = 0, *, device=None,

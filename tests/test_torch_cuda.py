@@ -924,3 +924,85 @@ def test_cuda_init_params_defaults_to_the_card(cuda_device):
     from repro_torch.models.param import tree_leaves
     params = tf.init_params(reduce_config(get_config("tiny-lm")), seed=0)
     assert all(p.is_cuda for p in tree_leaves(params))
+
+
+# -- the sharded pool and the distributed layer on the card -------------------
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_wave_matches_cpu(cuda_device):
+    """A contended mixed wave with cross-home MEMCPYs on 4 shards of one
+    card: the same pool, rets, statuses, steps and registers as the same
+    wave on 4 CPU shards, with ``tiara_gather`` launched on the shards'
+    window reads."""
+    from repro_torch.core.endpoint import TiaraEndpoint
+    from repro_torch.core.program import OperatorBuilder
+    from repro_torch.distributed.mesh import Sharded, make_device_mesh
+    rt = memory.packed_table([("latch", 8), ("data", 64), ("reply", 64)])
+
+    def build(s):
+        b = OperatorBuilder("rcpy", n_params=3, regions=s.view)
+        b.memcpy(dst_region="reply", dst_off=b.param(1), src_region="data",
+                 src_off=b.param(0), n_words=4, src_dev=b.param(2))
+        b.ret(b.param(1))
+        s.register(b.build())
+        b = OperatorBuilder("rcas", n_params=2, regions=s.view)
+        zero = b.const(0)
+        old = b.reg()
+        b.cas(old, "latch", zero, cmp=zero, swap=b.param(0), disp=2,
+              dev=b.param(1))
+        b.ret(old)
+        s.register(b.build())
+
+    results = {}
+    for dev in ("cpu", cuda_device):
+        ep, ss = TiaraEndpoint.for_tenants(
+            [(f"t{i}", rt) for i in range(2)], n_devices=4, device=dev,
+            mesh=make_device_mesh(4, devices=[dev] * 4))
+        for s in ss.values():
+            build(s)
+            for d in range(4):
+                s.write_region("data", np.arange(64) * (d + 1) + 5, device=d)
+        rng = np.random.default_rng(0)
+        cs = []
+        for i in range(48):
+            s = ss[f"t{i % 2}"]
+            if i % 3:
+                cs.append(s.post("rcpy", [int(rng.integers(0, 60)),
+                                          4 * (i % 16),
+                                          int(rng.integers(0, 4))],
+                                 home=int(rng.integers(0, 4))))
+            else:
+                cs.append(s.post("rcas", [100 + i, int(rng.integers(0, 4))],
+                                 home=int(rng.integers(0, 4))))
+        kernels.reset_launch_counts()
+        ep.doorbell(placement="sharded")
+        assert isinstance(ep._dev_mem, Sharded)
+        launches = kernels.launch_counts()["tiara_gather"]
+        results[str(dev)] = (ep._host_view().copy(),
+                             [(c.ret, c.status, c.steps, tuple(c.regs))
+                              for c in cs], launches)
+    cpu, card = results["cpu"], results[str(cuda_device)]
+    assert np.array_equal(cpu[0], card[0]) and cpu[1] == card[1]
+    assert cpu[2] == 0 and card[2] >= 4
+
+
+@pytest.mark.gpu
+def test_cuda_tiara_fetch_launches_tiara_gather(cuda_device):
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.distributed import tiara_fetch as tfetch
+    mesh = dmesh.make_device_mesh(4, devices=[cuda_device] * 4)
+    rng = np.random.default_rng(0)
+    T = N = 256
+    table = np.concatenate([s * 64 + rng.permutation(64)
+                            for s in range(4)]).astype(np.int32)
+    pool = rng.standard_normal((N, 32)).astype(np.float32)
+    ids = rng.integers(0, T, 4 * 64).astype(np.int32)
+    fetch = tfetch.make_tiara_fetch(mesh, "pool", T, N, quota=64)
+    kernels.reset_launch_counts()
+    out = fetch(*(torch.from_numpy(a).to(cuda_device)
+                  for a in (table, pool, ids)))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["tiara_gather"] == 4     # one per owner
+    assert np.array_equal(out.full().cpu().numpy(),
+                          tfetch.reference_fetch(table, pool, ids))

@@ -31,6 +31,7 @@ from repro_torch.core import serving_loop as psl
 from repro_torch.core.endpoint import EndpointError, TiaraEndpoint
 from repro_torch.core.frontend import compile_source
 from repro_torch.core.program import OperatorBuilder
+from repro_torch.distributed.mesh import Sharded
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -216,13 +217,22 @@ def test_pool_stays_resident_between_waves():
 
 
 def test_placement():
+    """Both placements run: "auto" picks single on a one-row pool,
+    "sharded" runs the mesh engine (one CPU shard here; four shards in
+    ``tests/test_torch_sharded.py``) and leaves the pool per shard."""
     _, _, pep, pss = _pair()
     pss[0].post("sum2", [1, 0])
     pep.doorbell(placement="auto")
     assert pep.last_placement.mode == "single"
-    pss[0].post("sum2", [1, 0])
-    with pytest.raises(NotImplementedError, match="sharded"):
-        pep.doorbell(placement="sharded")
+    assert "sharded" not in pep.last_placement.costs
+    cs = [pss[0].post("sum2", [1, 2]), pss[1].post("sum2", [5, 3])]
+    pep.doorbell(placement="sharded")
+    assert pep.last_placement is None
+    # tenant i's data[k] is 10 + i + k
+    assert [c.ret for c in cs] == [11 + 12, 16 + 17]
+    assert all(c.ok for c in cs)
+    assert isinstance(pep._dev_mem, Sharded) and pep.mesh.size == 1
+    assert list(pss[1].read_region("reply", offset=3, count=1)) == [33]
     with pytest.raises(EndpointError):
         pep.doorbell(mode="batched", placement="auto")
 

@@ -231,12 +231,33 @@ def test_dense_forward_matches_reference(arch):
 
 
 def test_moe_block_refuses_the_distributed_moe(scout):
+    """The distributed MoE hook: with ``cfg.moe_fn`` set, ``block_apply``
+    hands the layer's MoE to it (the expert-parallel ``make_moe_ep`` on a
+    2 x 2 mesh of CPU shards) instead of refusing it, and the block equals
+    the one through ``moe_apply`` where no assignment drops.  (The name is
+    kept from when the port refused the hook.)"""
+    from repro_torch.distributed import mesh as dmesh
+    from repro_torch.distributed.moe_ep import make_moe_ep
     _, tcfg, _, tparams = scout
     bp = tree_map(lambda a: a[0], tparams["blocks"][0])
-    cfg = tcfg.replace(moe_fn=lambda p, h: (h, 0.0))
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        block_apply(bp, torch.zeros(1, 4, tcfg.d_model), cfg,
-                    cfg.pattern[0], mode="train", ctx={})
+    spec = dataclasses.replace(tcfg.pattern[0].moe, capacity_factor=8.0)
+    layer = dataclasses.replace(tcfg.pattern[0], moe=spec)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 4, tcfg.d_model)).astype(np.float32)).to(
+            tree_leaves(bp)[0].dtype)
+    calls = []
+    mesh = dmesh.make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    ep_fn = make_moe_ep(mesh, ("data",), spec)
+
+    def moe_fn(p, h):
+        calls.append(h.shape)
+        return ep_fn(p, h)
+
+    cfg = tcfg.replace(moe_fn=moe_fn)
+    got, _, _ = block_apply(bp, x, cfg, layer, mode="train", ctx={})
+    want, _, _ = block_apply(bp, x, tcfg, layer, mode="train", ctx={})
+    assert calls == [(2, 4, tcfg.d_model)]
+    torch.testing.assert_close(got, want, atol=LOGIT_TOL, rtol=LOGIT_TOL)
 
 
 def test_init_params_takes_an_explicit_generator():
