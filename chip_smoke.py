@@ -43,7 +43,10 @@ kernel against its plain PyTorch version on the card:
   measures the routing, not an interconnect): the endpoint with
   ``placement="sharded"`` at a 4 x 2.13 GiB pool, tiny-lm served over
   four homes, and ``tiara_fetch``, the sharded paged decode, the
-  expert-parallel MoE and the int8 gradient all-reduce at full width.
+  expert-parallel MoE and the int8 gradient all-reduce at full width;
+* the dry-run of every production cell on the meta device and its
+  roofline with the H100's constants, held against InternLM2-1.8B's
+  train, prefill and decode steps run for real on this card.
 
 Phases:
 
@@ -156,7 +159,19 @@ Phases:
    f32 within MOE_REL_TOL of ``moe_apply`` and Scout's 4-layer cut in bf16
    with ``cfg.moe_fn`` held as SCOUT_LOGIT_TOL holds the kernels, and
    tiny-lm's gradients through ``make_grad_compressor`` within
-   INT8_REL_TOL.
+   INT8_REL_TOL;
+14. the dry-run and an H100 roofline (``launch/{cells,dryrun}.py``,
+   ``roofline/analysis.py``): (a) the production cells on the single
+   16 x 16 mesh of meta shards, one line per record and the ok and skip
+   counts (each arch's decode_32k and long_500k, and train_4k and
+   prefill_32k of every arch but Jamba and RWKV-6, whose long cells the
+   CLI runs: their per-token scans take minutes each on meta), in
+   subprocesses after (b): InternLM2-1.8B in bf16 through ``make_cell``
+   on a 1 x 1 mesh of this card at CROSS_SHAPES, where the dry-run's
+   argument bytes and FLOPs equal the card step's exactly, its argument
+   + temp bytes are within 10% of the step's peak, and its roofline
+   floor is at most 1.05 x the median step wall on the plain route and
+   on the kernels' (``dryrun.card_check``).
 
 Any failure raises and the script exits non-zero.  It prints, before the
 last line, the card's name and power limit and one JSON object with each
@@ -171,6 +186,10 @@ error at larger logits, and the backward kernel at BWD_CASES, for the
 ``repro_torch`` under ``DIR`` (default: this checkout's), one JSON line
 per shape: run it on two trees in turns (parent, change, change, parent)
 in one call to compare them on one card.
+
+    python3 chip_smoke.py --dryrun-only
+
+runs phase 14 alone and prints its numbers as one JSON line.
 
     python3 chip_smoke.py --decode-only [--src DIR] [--label NAME]
 
@@ -402,6 +421,26 @@ DECODE_TOL = 2e-4
 MOE_TOKENS, MOE_REL_TOL = (2, 512), 1e-4
 MOE_PLENS, MOE_DECODE = (96, 200, 350, 512), 4
 INT8_REL_TOL = 0.02
+# Phase 14: the dry-run (launch/dryrun.py) and its cross-check on this
+# card.  (a) The cells on the single production mesh (16 x 16 shards on
+# the meta device): each arch's decode_32k and long_500k (run or skipped
+# by cell_applicable), and train_4k and prefill_32k of every arch but
+# DRYRUN_LONG_LEFT, whose recurrent scans run per token and take minutes
+# each on meta (the CLI runs them, experiments/dryrun_torch/); one
+# process per arch, DRYRUN_PROCS at a time, after (b).
+# (b) CROSS_ARCH in bf16 through make_cell on a 1 x 1 mesh of this card,
+# at CROSS_SHAPES cut to one card: the dry-run's argument bytes and FLOPs
+# equal the card step's exactly, its argument + temp bytes within
+# dryrun.MEM_TOL of the step's peak memory, and the roofline floor at most
+# dryrun.MAX_SHARE of the median wall of CROSS_REPS steps, on the plain
+# route and on the kernels'.
+DRYRUN_LONG_LEFT = ("jamba-v0.1-52b", "rwkv6-1.6b")
+DRYRUN_PROCS, DRYRUN_PROC_TIMEOUT_S = 7, 600
+CROSS_ARCH = "internlm2-1.8b"
+CROSS_SHAPES = (("train_1k", "train", 1024, 8),
+                ("prefill_4k", "prefill", 4096, 4),
+                ("decode_4k", "decode", 4096, 16))
+CROSS_REPS = 5
 
 
 def log(msg: str) -> None:
@@ -3968,6 +4007,93 @@ def phase_sharded(dev, single_step_ms):
     return out
 
 
+def _dryrun_cells(arch: str, out_dir: str):
+    """Phase 14(a)'s command for ``arch``: the dry-run CLI on the single
+    production mesh over the shapes of the docstring."""
+    shapes = ("decode_32k", "long_500k")
+    if arch not in DRYRUN_LONG_LEFT:
+        shapes = ("train_4k", "prefill_32k") + shapes
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", ",".join(shapes), "--mesh", "single", "--out",
+            out_dir], shapes
+
+
+def phase_dryrun(dev):
+    """Phase 14: (b) CROSS_ARCH's cells on the card, then (a) the dry-run
+    of the production cells on meta in subprocesses (after (b), so that
+    they take no host time from its timed steps)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import (ARCH_IDS, SHAPES, ShapeSpec,
+                                     cell_applicable, get_config)
+    from repro_torch.launch import dryrun
+    t = time.perf_counter()
+    cross = []
+    cfg = get_config(CROSS_ARCH)
+    for name, kind, seq, batch in CROSS_SHAPES:
+        rec = dryrun.card_check(cfg, ShapeSpec(name, kind, seq, batch), dev,
+                                reps=CROSS_REPS)
+        cross.append(rec)
+        log(f"[dryrun] (b) {rec['cell']}: argument bytes "
+            f"{rec['arg_bytes']} = {rec['card_arg_bytes']} on the card; "
+            f"FLOPs {rec['flops']} = {rec['card_flops']}; argument + temp "
+            f"{(rec['arg_bytes'] + rec['temp_bytes']) / 2**30:.3f} GiB "
+            f"against a peak of {rec['card_peak_bytes'] / 2**30:.3f} GiB "
+            f"(x{rec['mem_ratio']:.4f}); floor {rec['floor_s'] * 1e3:.3f} "
+            f"ms (compute {rec['compute_s'] * 1e3:.3f}, memory "
+            f"{rec['memory_s'] * 1e3:.3f}); median wall plain "
+            f"{rec['wall_plain_s'] * 1e3:.3f} ms (share "
+            f"{rec['share_plain']:.3f}, MFU {rec['mfu_plain']:.4f}), "
+            f"kernels {rec['wall_cuda_s'] * 1e3:.3f} ms (share "
+            f"{rec['share_cuda']:.3f}, MFU {rec['mfu_cuda']:.4f}); "
+            f"{card_line()}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    cross_s = time.perf_counter() - t
+
+    out_dir = os.path.join(HERE, "chiprun_out", "dryrun_phase14")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    want = {"ok": 0, "skip": 0, "fail": 0}
+    jobs = []
+    for arch in ARCH_IDS:
+        cmd, shapes = _dryrun_cells(arch, out_dir)
+        for name in shapes:
+            ok, _ = cell_applicable(get_config(arch), SHAPES[name])
+            want["ok" if ok else "skip"] += 1
+        jobs.append((arch, cmd))
+
+    def run(cmd):
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=DRYRUN_PROC_TIMEOUT_S)
+        return r, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=DRYRUN_PROCS) as pool:
+        done = [(arch, pool.submit(run, cmd)) for arch, cmd in jobs]
+        done = [(arch, fut.result()) for arch, fut in done]
+    walls, counts = {}, {"ok": 0, "skip": 0, "fail": 0}
+    for arch, (r, walls[arch]) in done:
+        for line in r.stdout.splitlines():
+            if line.startswith("["):
+                log(f"[dryrun] (a) {line}")
+                counts[line[1:5].strip()] += 1
+        if r.returncode != 0:
+            raise AssertionError(f"the dry-run of {arch} exited "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+    wall = time.perf_counter() - t
+    log(f"[dryrun] (a) {counts['ok']} ok, {counts['skip']} skip, "
+        f"{counts['fail']} fail (want {want['ok']} ok, {want['skip']} "
+        f"skip); per-arch walls (s) "
+        + ", ".join(f"{a} {w:.1f}" for a, w in walls.items()))
+    log(f"[dryrun] phase 14: {wall:.1f} s ((b) {cross_s:.1f} s)")
+    if counts != want:
+        raise AssertionError(f"phase 14(a): {counts}, want {want}")
+    return {"cells": counts, "proc_walls_s": walls, "cross": cross,
+            "cross_s": cross_s, "wall_s": wall}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--attention-only", action="store_true",
@@ -3977,6 +4103,9 @@ def main() -> int:
                     help="only time the decode steps that run no tiara "
                          "(tiny-lm host serving, Jamba) and print one JSON "
                          "line per path")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="only run phase 14 (the dry-run and its card "
+                         "cross-check) and print its numbers as JSON")
     ap.add_argument("--src", help="with --attention-only or --decode-only: "
                     "the src directory whose repro_torch is timed (another "
                     "tree, e.g. a parent commit unpacked with git archive)")
@@ -3997,6 +4126,11 @@ def main() -> int:
         return attention_only(dev, args.label)
     if args.decode_only:
         return decode_only(dev, args.label)
+    if args.dryrun_only:
+        log(f"[device] {torch.cuda.get_device_name(0)} | {card_line()}")
+        phase_build()
+        log(json.dumps(phase_dryrun(dev), default=str))
+        return 0
     from repro_torch import kernels
 
     card = card_line()
@@ -4044,6 +4178,9 @@ def main() -> int:
     # and so do the sharded paths, part by part
     sharded = phase_sharded(
         dev, float(np.median(runs["tiara"]["step_ms"])))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(dev)
     serving = {k: sum(r["counts"][k] for r in runs.values())
                for k in counts}
     scout_counts = {k: sum(r["counts"][k] for r in scout["runs"].values())
@@ -4117,7 +4254,8 @@ def main() -> int:
                        "logits": scout["logits"]},
                    "jamba": jamba, "rwkv": rwkv, "qwen": qwen,
                    "seamless": seamless, "simulator": simulated,
-                   "training": training, "sharded": sharded},
+                   "training": training, "sharded": sharded,
+                   "dryrun": dry},
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -19,15 +19,22 @@ eagerly, and the port's mesh is explicit (``distributed/mesh.py``).
 ``paged_attn_fn`` and ``moe_fn`` are where the distributed decode
 (``distributed/paged_decode.sharded_paged_attention``) and the
 expert-parallel MoE (``distributed/moe_ep.make_moe_ep``) plug in, as in
-the reference.  ``moe_hints`` (the reference's dispatch sharding
+the reference.  ``attn_fn`` has no counterpart there: it is the
+prefill/train attention a launcher may put in place of
+``flash_attention`` (``launch/cells.py`` puts the plain version there, so
+a cell runs the plain route on any device, the reference's
+``attn_impl="xla"``).  ``moe_hints`` (the reference's dispatch sharding
 constraints) is accepted and has nothing to shard on one device.
+
+``SHAPES`` carries the reference's input-shape suite and
+``cell_applicable`` its long_500k rule (own copies of the reference's).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.kernels import IMPLS as ATTN_IMPLS
 from repro_torch.models.mamba import MambaSpec
@@ -73,6 +80,7 @@ class ArchConfig:
     param_dtype: str = "bfloat16"
     page_size: int = 128          # paged-KV page (tokens)
     paged_attn_fn: Optional[Any] = None   # one-round sharded paged decode
+    attn_fn: Optional[Any] = None         # prefill/train attention hook
     moe_hints: bool = False       # dispatch-buffer shardings (no-op here)
     moe_fn: Optional[Any] = None  # local-dispatch expert-parallel MoE
 
@@ -101,6 +109,21 @@ class ArchConfig:
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
 
 ARCH_IDS = (
     "internlm2-1.8b",
@@ -165,3 +188,12 @@ def reduce_config(cfg: ArchConfig) -> ArchConfig:
         mrope_sections=(4, 6, 6),
         dtype="float32", param_dtype="float32", page_size=8,
     )
+
+
+def cell_applicable(cfg: ArchConfig, shape: ShapeSpec
+                    ) -> Tuple[bool, str]:
+    """(runnable, reason) for an (arch x shape) cell."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("pure full-attention arch: 500k-token dense KV "
+                       "decode excluded per assignment (DESIGN.md §4)")
+    return True, ""

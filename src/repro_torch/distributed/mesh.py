@@ -34,14 +34,21 @@ wait has a timeout, and a shard that returns while another makes a
 collective fails the call too, so no call hangs.  Nothing falls back: a
 mesh never shrinks and a failed collective raises.
 
-The mesh counts each collective call and the bytes its shards read from
-other shards (:attr:`Mesh.stats`) — the counterpart of counting the
-collectives in the reference's compiled HLO.  On one card those bytes
-are device copies (or no copy at all), not interconnect traffic.
+The mesh counts each collective call, the bytes its shards read from
+other shards, and each call's result bytes on one device
+(:attr:`Mesh.stats`) — the counterpart of counting the collectives in the
+reference's compiled HLO (``roofline/analysis.py`` reads the last as the
+reference reads the result shapes there).  On one card those bytes are
+device copies (or no copy at all), not interconnect traffic.
+
+A shard thread runs under the caller's grad mode and ``TorchDispatchMode``
+stack (a FLOP or byte counter entered around a ``shard_map`` call sees
+every shard's work), which are per thread in PyTorch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 from collections import Counter
@@ -49,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils._python_dispatch as _pydispatch
 
 DEFAULT_TIMEOUT_S = 600.0
 
@@ -125,7 +133,8 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names, arr.shape))
         self.size = int(arr.size)
         self.stats: Dict[str, Counter] = {"calls": Counter(),
-                                          "bytes": Counter()}
+                                          "bytes": Counter(),
+                                          "result_bytes": Counter()}
         self._stats_lock = threading.Lock()
         self._groups: Dict[Tuple[int, Tuple[str, ...]], List[int]] = {}
 
@@ -146,7 +155,8 @@ class Mesh:
 
     def reset_stats(self) -> None:
         with self._stats_lock:
-            self.stats = {"calls": Counter(), "bytes": Counter()}
+            self.stats = {"calls": Counter(), "bytes": Counter(),
+                          "result_bytes": Counter()}
 
     def collective_counts(self) -> Dict[str, int]:
         """Collective calls since the last :meth:`reset_stats`, by the
@@ -157,6 +167,13 @@ class Mesh:
     def collective_bytes(self) -> Dict[str, int]:
         """Bytes the shards read from other shards, by operation."""
         return dict(self.stats["bytes"])
+
+    def collective_result_bytes(self) -> Dict[str, int]:
+        """The result bytes of each collective call on one participating
+        shard, summed by operation: what the reference's
+        ``roofline.analysis.collective_bytes`` reads off each collective's
+        result shape in the compiled HLO."""
+        return dict(self.stats["result_bytes"])
 
     def put(self, x: torch.Tensor, spec: P) -> "Sharded":
         """Place a global tensor on the mesh by ``spec`` (the counterpart
@@ -518,14 +535,17 @@ def _nbytes(t) -> int:
         else 0
 
 
-def _count(c: _Shard, op: str, moved: int) -> None:
-    """Tally one collective (once, by rank 0) and the bytes this shard
-    read from other shards."""
+def _count(c: _Shard, op: str, moved: int,
+           result: torch.Tensor) -> torch.Tensor:
+    """Tally one collective and its result's bytes (once, by rank 0) and
+    the bytes this shard read from other shards; returns ``result``."""
     mesh = c.run.mesh
     with mesh._stats_lock:
         if c.rank == 0:
             mesh.stats["calls"][op] += 1
+            mesh.stats["result_bytes"][op] += _nbytes(result)
         mesh.stats["bytes"][op] += moved
+    return result
 
 
 def _reduce(x: torch.Tensor, axes: AxisNames, fn) -> torch.Tensor:
@@ -534,12 +554,11 @@ def _reduce(x: torch.Tensor, axes: AxisNames, fn) -> torch.Tensor:
     grp = _group(c, _axes(axes))
     if grp != sorted(grp):
         grp = sorted(grp)
-    _count(c, "all-reduce",
-           sum(_nbytes(vals[r]) for r in grp if r != c.rank))
     acc = vals[grp[0]].to(c.device)
     for r in grp[1:]:
         acc = fn(acc, vals[r].to(c.device))
-    return acc
+    return _count(c, "all-reduce",
+                  sum(_nbytes(vals[r]) for r in grp if r != c.rank), acc)
 
 
 def psum(x: torch.Tensor, axes: AxisNames) -> torch.Tensor:
@@ -563,11 +582,11 @@ def all_gather(x: torch.Tensor, axes: AxisNames, *, axis: int = 0,
     c = _ctx()
     vals = _exchange(x)
     grp = _group(c, _axes(axes))
-    _count(c, "all-gather",
-           sum(_nbytes(vals[r]) for r in grp if r != c.rank))
     parts = [vals[r].to(c.device) for r in grp]
-    return torch.cat(parts, dim=axis) if tiled \
+    out = torch.cat(parts, dim=axis) if tiled \
         else torch.stack(parts, dim=axis)
+    return _count(c, "all-gather",
+                  sum(_nbytes(vals[r]) for r in grp if r != c.rank), out)
 
 
 def all_to_all(x: torch.Tensor, axes: AxisNames, split_axis: int,
@@ -589,13 +608,14 @@ def all_to_all(x: torch.Tensor, axes: AxisNames, split_axis: int,
         raise ValueError("all_to_all without tiled needs the split "
                          "dimension's size to equal the group's")
     parts = [vals[r].narrow(split_axis, me * n, n) for r in grp]
-    _count(c, "all-to-all",
-           sum(_nbytes(p) for r, p in zip(grp, parts) if r != c.rank))
+    moved = sum(_nbytes(p) for r, p in zip(grp, parts) if r != c.rank)
     parts = [p.to(c.device) for p in parts]
     if tiled:
-        return torch.cat(parts, dim=concat_axis)
-    return torch.stack([p.squeeze(split_axis) for p in parts],
-                       dim=concat_axis)
+        out = torch.cat(parts, dim=concat_axis)
+    else:
+        out = torch.stack([p.squeeze(split_axis) for p in parts],
+                          dim=concat_axis)
+    return _count(c, "all-to-all", moved, out)
 
 
 def _is_spec(s) -> bool:
@@ -706,12 +726,35 @@ def shard_map(f: Callable, mesh: Mesh, in_specs, out_specs, *,
     return run
 
 
+@contextlib.contextmanager
+def _caller_modes(grad: bool, modes: List[Any]):
+    """The calling thread's grad mode and dispatch-mode stack, entered in
+    a shard thread (both are per thread in PyTorch)."""
+    with torch.set_grad_enabled(grad):
+        for m in modes:
+            _pydispatch._push_mode(m)
+        try:
+            yield
+        finally:
+            for _ in modes:
+                _pydispatch._pop_mode()
+
+
+def _on_device(dev: torch.device, f: Callable, args: List[Any]):
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            return f(*args)
+    return f(*args)
+
+
 def _run_shards(f: Callable, mesh: Mesh, local: List[List[Any]],
                 timeout: float) -> List[Any]:
     run = _Run(mesh, timeout)
     n = mesh.size
     results: List[Any] = [None] * n
     errors: List[Optional[BaseException]] = [None] * n
+    grad = torch.is_grad_enabled()
+    modes = list(_pydispatch._get_current_dispatch_mode_stack())
 
     def body(rank: int) -> None:
         c = _local.ctx = _Shard(run, rank)
@@ -723,11 +766,11 @@ def _run_shards(f: Callable, mesh: Mesh, local: List[List[Any]],
                     run.abort("shard_map: a shard never got its turn")
                 if run.aborted is not None:
                     raise _Aborted()
-            if dev.type == "cuda":
-                with torch.cuda.device(dev):
-                    results[rank] = f(*local[rank])
+            if n == 1:                      # the caller's own thread
+                results[rank] = _on_device(dev, f, local[rank])
             else:
-                results[rank] = f(*local[rank])
+                with _caller_modes(grad, modes):
+                    results[rank] = _on_device(dev, f, local[rank])
         except BaseException as e:          # noqa: BLE001 - re-raised
             errors[rank] = e
             state = "error"

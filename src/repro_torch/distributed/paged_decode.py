@@ -155,8 +155,18 @@ def sharded_paged_attention(mesh: dmesh.Mesh, dp_axes: Tuple[str, ...],
         poff = lengths.long() % page
         lp = pidx - base
         own = (lp >= 0) & (lp < pp_local)
-        k_pages[lp[own], poff[own]] = new_k[own].to(k_pages.dtype)
-        v_pages[lp[own], poff[own]] = new_v[own].to(v_pages.dtype)
+        # no data-dependent shapes (the dry-run traces this on meta): a
+        # row this shard does not own repeats the first owned row's
+        # write, or, with none owned, rewrites one slot as it is — equal
+        # values to one slot, so the result is exact whichever lands
+        src = torch.where(own, torch.arange(b, device=own.device),
+                          torch.argmax(own.int()))
+        tp, to = lp[src].clamp(0, pp_local - 1), poff[src]
+        any_own = own.any()
+        for pages, new in ((k_pages, new_k), (v_pages, new_v)):
+            keep = pages[tp, to]
+            pages[tp, to] = torch.where(any_own, new[src].to(pages.dtype),
+                                        keep)
 
         # -- partial attention over owned pages --------------------------
         qg = q.reshape(b, kvh, group, hd)

@@ -70,6 +70,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                            for t in (q, k, v)):
             return FlashAttentionFn.apply(*args, causal, scale)
         return flash_attention_kernel(*args, causal=causal, scale=scale)
+    return flash_attention_plain(q, k, v, lengths, causal=causal,
+                                 scale=scale)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor,
+                          lengths: Optional[torch.Tensor] = None, *,
+                          causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """The plain version :func:`flash_attention` runs on CPU tensors, on
+    any device: the query-chunked loop from ``CHUNKED_FROM`` rows on.
+    Differentiable through autograd.  Never a fallback for the kernel —
+    the dry-run's cells call it by name (``launch/cells.py``)."""
     if q.shape[2] >= CHUNKED_FROM:
         return flash_attention_chunked(q, k, v, lengths, causal=causal,
                                        scale=scale)

@@ -21,16 +21,20 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.layers import apply_mrope, apply_rope
+from repro_torch.distributed.mesh import P
 from repro_torch.models.param import ParamDef
 
 
 def attn_defs(d_model: int, n_heads: int, n_kv_heads: int, head_dim: int):
     return {
-        "wq": ParamDef((d_model, n_heads * head_dim)),
-        "wk": ParamDef((d_model, n_kv_heads * head_dim)),
-        "wv": ParamDef((d_model, n_kv_heads * head_dim)),
+        "wq": ParamDef((d_model, n_heads * head_dim),
+                       spec=P("data", "model")),
+        "wk": ParamDef((d_model, n_kv_heads * head_dim),
+                       spec=P("data", "model")),
+        "wv": ParamDef((d_model, n_kv_heads * head_dim),
+                       spec=P("data", "model")),
         "wo": ParamDef((n_heads * head_dim, d_model),
-                       fan_in=n_heads * head_dim),
+                       fan_in=n_heads * head_dim, spec=P("model", "data")),
     }
 
 
@@ -75,9 +79,14 @@ def attention_full(params, x, cfg, *, positions=None, positions3=None,
                                      device=x.device)[None]
         q, k, v = _qkv(params, x, nh, nkv, hd)
         q, k = _position_encode(q, k, cfg, positions, positions3)
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), lengths, causal=causal,
-                          impl=cfg.attn_impl)
+    if cfg.attn_fn is not None:
+        # a launcher's attention in place of the kernel's entry point
+        out = cfg.attn_fn(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), lengths, causal=causal)
+    else:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), lengths, causal=causal,
+                              impl=cfg.attn_impl)
     out = out.transpose(1, 2).reshape(b, s, nh * hd)
     return out @ params["wo"], (k, v)
 
@@ -109,6 +118,20 @@ def scatter_prefill_kv(kv: PagedKV, k: torch.Tensor, v: torch.Tensor,
     return kv
 
 
+def append_token_kv(kv: PagedKV, k: torch.Tensor, v: torch.Tensor,
+                    block_tables: torch.Tensor,
+                    lengths: torch.Tensor) -> None:
+    """Write each sequence's new token KV (B, KVH, hd) into its page at
+    position ``lengths``, in place."""
+    page = kv.k_pages.shape[1]
+    # the reference's take_along_axis clamps an index past the table
+    col = (lengths // page).long().clamp(0, block_tables.shape[1] - 1)
+    page_idx = block_tables.long().gather(1, col[:, None])[:, 0]
+    page_off = (lengths % page).long()
+    kv.k_pages[page_idx, page_off] = k.to(kv.k_pages.dtype)
+    kv.v_pages[page_idx, page_off] = v.to(kv.v_pages.dtype)
+
+
 def attention_decode(params, x, cfg, kv: PagedKV, block_tables, lengths, *,
                      positions3=None) -> Tuple[torch.Tensor, PagedKV]:
     """One-token decode: append this token's KV to its page (in place),
@@ -116,7 +139,6 @@ def attention_decode(params, x, cfg, kv: PagedKV, block_tables, lengths, *,
     b, s, _ = x.shape
     assert s == 1, "decode is one token per sequence"
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    page = kv.k_pages.shape[1]
     q, k, v = _qkv(params, x, nh, nkv, hd)
     lengths = lengths.to(torch.int32)
     positions = lengths[:, None]
@@ -131,13 +153,7 @@ def attention_decode(params, x, cfg, kv: PagedKV, block_tables, lengths, *,
         out = out.reshape(b, 1, nh * hd)
         return out @ params["wo"], PagedKV(k_pages, v_pages)
 
-    # the reference's take_along_axis clamps an index past the table
-    col = (lengths // page).long().clamp(0, block_tables.shape[1] - 1)
-    page_idx = block_tables.long().gather(1, col[:, None])[:, 0]
-    page_off = (lengths % page).long()
-    kv.k_pages[page_idx, page_off] = k[:, 0].to(kv.k_pages.dtype)
-    kv.v_pages[page_idx, page_off] = v[:, 0].to(kv.v_pages.dtype)
-
+    append_token_kv(kv, k[:, 0], v[:, 0], block_tables, lengths)
     out = paged_attention(q[:, 0], kv.k_pages, kv.v_pages,
                           block_tables.to(torch.int32),
                           lengths + 1, impl=cfg.attn_impl)

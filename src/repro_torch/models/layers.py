@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import P
 from repro_torch.models.param import ParamDef
 
 # ---------------------------------------------------------------------------
@@ -20,7 +21,7 @@ from repro_torch.models.param import ParamDef
 
 
 def rmsnorm_defs(d: int):
-    return {"scale": ParamDef((d,), init="ones")}
+    return {"scale": ParamDef((d,), init="ones", spec=P(None))}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -32,8 +33,8 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def layernorm_defs(d: int):
-    return {"scale": ParamDef((d,), init="ones"),
-            "bias": ParamDef((d,), init="zeros")}
+    return {"scale": ParamDef((d,), init="ones", spec=P(None)),
+            "bias": ParamDef((d,), init="zeros", spec=P(None))}
 
 
 def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -61,12 +62,12 @@ def apply_norm(kind: str, params, x: torch.Tensor) -> torch.Tensor:
 
 def mlp_defs(d_model: int, d_ff: int, kind: str):
     if kind == "swiglu":
-        return {"wi": ParamDef((d_model, d_ff)),
-                "wg": ParamDef((d_model, d_ff)),
-                "wo": ParamDef((d_ff, d_model))}
+        return {"wi": ParamDef((d_model, d_ff), spec=P("data", "model")),
+                "wg": ParamDef((d_model, d_ff), spec=P("data", "model")),
+                "wo": ParamDef((d_ff, d_model), spec=P("model", "data"))}
     # relu2 (squared ReLU, Nemotron-4) and gelu share the 2-matrix shape
-    return {"wi": ParamDef((d_model, d_ff)),
-            "wo": ParamDef((d_ff, d_model))}
+    return {"wi": ParamDef((d_model, d_ff), spec=P("data", "model")),
+            "wo": ParamDef((d_ff, d_model), spec=P("model", "data"))}
 
 
 def mlp(params, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -140,9 +141,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
 
 
 def embed_defs(vocab_padded: int, d_model: int, tie: bool):
-    defs = {"tokens": ParamDef((vocab_padded, d_model), init="embed")}
+    defs = {"tokens": ParamDef((vocab_padded, d_model), init="embed",
+                               spec=P("model", "data"))}
     if not tie:
-        defs["head"] = ParamDef((d_model, vocab_padded))
+        defs["head"] = ParamDef((d_model, vocab_padded),
+                               spec=P("data", "model"))
     return defs
 
 

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import P
 from repro_torch.models.param import ParamDef
 
 # Bytes of each f32 chunk coefficient (a, bx): the scan runs in chunks of
@@ -52,15 +53,17 @@ class MambaSpec:
 def mamba_defs(d_model: int, spec: MambaSpec):
     d_inner, dt_rank = spec.dims(d_model)
     return {
-        "in_proj": ParamDef((d_model, 2 * d_inner)),
-        "conv_w": ParamDef((spec.d_conv, d_inner)),
-        "conv_b": ParamDef((d_inner,), init="zeros"),
-        "x_proj": ParamDef((d_inner, dt_rank + 2 * spec.d_state)),
-        "dt_proj": ParamDef((dt_rank, d_inner)),
-        "dt_bias": ParamDef((d_inner,), init="zeros"),
-        "A_log": ParamDef((d_inner, spec.d_state), init="zeros"),
-        "D_skip": ParamDef((d_inner,), init="ones"),
-        "out_proj": ParamDef((d_inner, d_model)),
+        "in_proj": ParamDef((d_model, 2 * d_inner), spec=P("data", "model")),
+        "conv_w": ParamDef((spec.d_conv, d_inner), spec=P(None, "model")),
+        "conv_b": ParamDef((d_inner,), init="zeros", spec=P("model")),
+        "x_proj": ParamDef((d_inner, dt_rank + 2 * spec.d_state),
+                           spec=P("model", None)),
+        "dt_proj": ParamDef((dt_rank, d_inner), spec=P(None, "model")),
+        "dt_bias": ParamDef((d_inner,), init="zeros", spec=P("model")),
+        "A_log": ParamDef((d_inner, spec.d_state), init="zeros",
+                          spec=P("model", None)),
+        "D_skip": ParamDef((d_inner,), init="ones", spec=P("model")),
+        "out_proj": ParamDef((d_inner, d_model), spec=P("model", "data")),
     }
 
 

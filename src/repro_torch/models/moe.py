@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import P
 from repro_torch.models.param import ParamDef
 
 
@@ -37,16 +38,17 @@ class MoESpec:
 def moe_defs(d_model: int, spec: MoESpec):
     e, f = spec.n_experts, spec.d_ff_expert
     defs = {
-        "router": ParamDef((d_model, e)),
-        "wi": ParamDef((e, d_model, f)),
-        "wg": ParamDef((e, d_model, f)),
-        "wo": ParamDef((e, f, d_model), fan_in=f),
+        "router": ParamDef((d_model, e), spec=P("data", None)),
+        "wi": ParamDef((e, d_model, f), spec=P("model", "data", None)),
+        "wg": ParamDef((e, d_model, f), spec=P("model", "data", None)),
+        "wo": ParamDef((e, f, d_model), fan_in=f,
+                       spec=P("model", None, "data")),
     }
     if spec.shared_expert:
         defs["shared"] = {
-            "wi": ParamDef((d_model, f)),
-            "wg": ParamDef((d_model, f)),
-            "wo": ParamDef((f, d_model)),
+            "wi": ParamDef((d_model, f), spec=P("data", "model")),
+            "wg": ParamDef((d_model, f), spec=P("data", "model")),
+            "wo": ParamDef((f, d_model), spec=P("model", "data")),
         }
     return defs
 

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.mesh import P
 from repro_torch.models.param import ParamDef
 
 # Bytes of each f32 chunk tensor of the time-mix scan: it runs in chunks
@@ -43,26 +44,26 @@ def rwkv_time_defs(d_model: int, spec: RWKVSpec):
     dl = spec.decay_lora
     return {
         # token-shift interpolation coefficients for r/k/v/w/g
-        "mu": ParamDef((5, d_model), init="zeros"),
-        "wr": ParamDef((d_model, d_model)),
-        "wk": ParamDef((d_model, d_model)),
-        "wv": ParamDef((d_model, d_model)),
-        "wg": ParamDef((d_model, d_model)),
-        "wo": ParamDef((d_model, d_model)),
+        "mu": ParamDef((5, d_model), init="zeros", spec=P(None, None)),
+        "wr": ParamDef((d_model, d_model), spec=P("data", "model")),
+        "wk": ParamDef((d_model, d_model), spec=P("data", "model")),
+        "wv": ParamDef((d_model, d_model), spec=P("data", "model")),
+        "wg": ParamDef((d_model, d_model), spec=P("data", "model")),
+        "wo": ParamDef((d_model, d_model), spec=P("model", "data")),
         # data-dependent decay LoRA (Finch): w_t = exp(-softplus(...))
-        "w_base": ParamDef((d_model,), init="zeros"),
-        "w1": ParamDef((d_model, dl)),
-        "w2": ParamDef((dl, d_model)),
-        "u_bonus": ParamDef((d_model,), init="zeros"),
+        "w_base": ParamDef((d_model,), init="zeros", spec=P("model")),
+        "w1": ParamDef((d_model, dl), spec=P("data", None)),
+        "w2": ParamDef((dl, d_model), spec=P(None, "model")),
+        "u_bonus": ParamDef((d_model,), init="zeros", spec=P("model")),
     }
 
 
 def rwkv_channel_defs(d_model: int, d_ff: int):
     return {
-        "mu": ParamDef((2, d_model), init="zeros"),
-        "wk": ParamDef((d_model, d_ff)),
-        "wv": ParamDef((d_ff, d_model)),
-        "wr": ParamDef((d_model, d_model)),
+        "mu": ParamDef((2, d_model), init="zeros", spec=P(None, None)),
+        "wk": ParamDef((d_model, d_ff), spec=P("data", "model")),
+        "wv": ParamDef((d_ff, d_model), spec=P("model", "data")),
+        "wr": ParamDef((d_model, d_model), spec=P("data", "model")),
     }
 
 

@@ -49,8 +49,8 @@ from repro_torch.models.blocks import (BlockCache, block_apply, block_defs,
                                        init_block_cache)
 from repro_torch.models.layers import (apply_norm, embed, embed_defs,
                                        norm_defs, unembed)
-from repro_torch.models.param import (materialize, stack_defs, tree_leaves,
-                                      tree_map)
+from repro_torch.models.param import (materialize, shape_tree, spec_tree,
+                                      stack_defs, tree_leaves, tree_map)
 
 
 def model_dtype(name: str) -> torch.dtype:
@@ -88,13 +88,27 @@ def init_params(cfg: ArchConfig, seed: int = 0, dtype=None, device=None,
     device.  A caller may pass its own seeded ``generator`` instead
     (``seed`` is then unused), for example one on the card, which draws a
     full-width model there without a pass through host memory; its values
-    are that generator's."""
+    are that generator's.  On ``device="meta"`` nothing is drawn: the
+    tensors are built there directly (:func:`param_shapes`)."""
     device = resolve_device(device)
+    dtype = dtype or model_dtype(cfg.param_dtype)
+    if device.type == "meta":
+        # the structure only, built on meta directly: nothing is drawn
+        return param_shapes(cfg, dtype)
     gen = generator if generator is not None \
         else torch.Generator().manual_seed(int(seed))
-    params = materialize(model_defs(cfg), gen,
-                         dtype or model_dtype(cfg.param_dtype))
+    params = materialize(model_defs(cfg), gen, dtype)
     return tree_map(lambda a: a.to(device), params)
+
+
+def param_specs(cfg: ArchConfig):
+    """The partition-spec tree of the weights (the reference's)."""
+    return spec_tree(model_defs(cfg))
+
+
+def param_shapes(cfg: ArchConfig, dtype=None):
+    """The weights as empty tensors on ``meta`` (no allocation)."""
+    return shape_tree(model_defs(cfg), dtype or model_dtype(cfg.param_dtype))
 
 
 def trainable(params):

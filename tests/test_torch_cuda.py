@@ -1006,3 +1006,22 @@ def test_cuda_tiara_fetch_launches_tiara_gather(cuda_device):
     assert kernels.launch_counts()["tiara_gather"] == 4     # one per owner
     assert np.array_equal(out.full().cpu().numpy(),
                           tfetch.reference_fetch(table, pool, ids))
+
+
+@pytest.mark.gpu
+def test_cuda_dryrun_cross_check_at_a_small_cell(cuda_device):
+    """The chip smoke's phase 14(b) at one small cell: tiny-lm's decode
+    step over 4 x 512 tokens.  ``card_check`` raises where the dry-run's
+    argument bytes or FLOPs differ from the card step's, its argument +
+    temp bytes are off the step's peak by more than 10%, or its roofline
+    floor exceeds 1.05 x the median wall on either route."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    kernels.reset_launch_counts()
+    rec = dryrun.card_check(get_config("tiny-lm"),
+                            ShapeSpec("decode_512", "decode", 512, 4),
+                            cuda_device, reps=3)
+    assert rec["card_flops"] == rec["flops"] > 0
+    assert rec["card_arg_bytes"] == rec["arg_bytes"]
+    # the kernels' route launched the paged kernel, 12 layers per step
+    assert kernels.launch_counts()["paged_attention"] >= 12

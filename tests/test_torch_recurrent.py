@@ -436,7 +436,11 @@ def test_config_matches_reference(arch):
                        (jax_reduce_config(jax_get_config(arch)),
                         reduce_config(get_config(arch)))):
         for f in dataclasses.fields(tcfg):
-            want, got = getattr(jcfg, f.name), getattr(tcfg, f.name)
+            got = getattr(tcfg, f.name)
+            if f.name == "attn_fn":     # the port's own hook: unset
+                assert got is None
+                continue
+            want = getattr(jcfg, f.name)
             if f.name == "pattern":
                 assert [dataclasses.asdict(s) for s in got] == \
                     [dataclasses.asdict(s) for s in want]
