@@ -80,13 +80,17 @@ Phases:
 6. Scout: both attention kernels at its exact bf16 path shapes against
    their plain versions (within ``SCOUT_ATTN_TOL``, two bf16 ulps, the
    same bits twice), timed with
-   their bounds and PyTorch's SDPA; 8 requests (prompts 16..1536, the
+   their bounds and PyTorch's SDPA; bf16 flash's own kernel
+   (FLASH_BF16_SOURCE) without a spill in the ``-Xptxas=-v`` log and
+   within SCOUT_ATTN_TOL at logits of standard deviation 1, 4 and 16
+   (LOGIT_STDS); 8 requests (prompts 16..1536, the
    buckets 128..2048) under both resolvers: identical tokens,
    ``flash_attention`` 4 times per prefill, ``paged_attention`` 4 times
    per decode step, ``tiara_gather`` in every tiara decode step and never
    under host, expert gathers executed; the prefill logits of the CUDA
-   kernels against the plain versions on the card, position by position
-   (see ``SCOUT_LOGIT_TOL``); then ``tiara_gather`` timed at the shapes
+   kernels against the plain versions on the card, position by position,
+   the plain run on the kernel run's expert choices (see
+   ``SCOUT_LOGIT_TOL``); then ``tiara_gather`` timed at the shapes
    the two serving resolvers gave it;
 7. Jamba, after Scout's weights are freed: both attention kernels at its
    bf16 path shapes against their plain versions (within
@@ -182,10 +186,12 @@ CUDA card and refuses to run without one.
     python3 chip_smoke.py --attention-only [--src DIR] [--label NAME]
 
 times only the attention kernels at phase 2's timed shapes, with flash's
-error at larger logits, and the backward kernel at BWD_CASES, for the
-``repro_torch`` under ``DIR`` (default: this checkout's), one JSON line
-per shape: run it on two trees in turns (parent, change, change, parent)
-in one call to compare them on one card.
+error at larger logits, bf16 flash at FLASH_BF16_CASES with its error at
+larger logits at Scout's shape, and the forward with ``lse`` and the
+backward kernel at BWD_CASES, for the ``repro_torch`` under ``DIR``
+(default: this checkout's), one JSON line per shape: run it on two trees
+in turns (parent, change, change, parent) in one call to compare them on
+one card.
 
     python3 chip_smoke.py --dryrun-only
 
@@ -269,10 +275,13 @@ SCOUT_PLENS = tuple(int(n) for n in np.round(np.geomspace(16, 1536, 8)))
 # round their f32 sums to bf16 at different points, so the 4 layers carry a
 # few ulps of difference to the logits; and where the router's top two
 # experts of a token are within an ulp, such a difference can flip the
-# top-1 route, which makes that token's FFN a different function.  So the
-# check is per position: a position whose route matched in all 4 layers
-# holds |kernel - plain| <= tol (1 + |plain|) with tol = 2**-3; positions
-# with a flipped route are counted and may be at most 5% of the prompt.
+# top-1 route, which makes that token's FFN a different function, and
+# through the later layers' attention moves the positions after it.  So
+# the plain run takes the kernel run's expert choices (``_Routes``), both
+# compute the same function, and every position holds |kernel - plain| <=
+# tol (1 + |plain|) with tol = 2**-3; the positions whose own route in the
+# plain run differed in some layer are counted and may be at most 5% of
+# the prompt.
 SCOUT_LOGIT_TOL = 2 ** -3
 SCOUT_MAX_FLIP_SHARE = 0.05
 # Jamba v0.1 at its published widths (d_model 4096, 32/8 heads of 128, no
@@ -334,11 +343,27 @@ QWEN_PLENS = tuple(int(n) for n in np.round(np.geomspace(300, 1024, 8)))
 SEAMLESS_S_ENC = 1024
 SEAMLESS_ENC_LENS = tuple(int(n) for n in
                           np.round(np.geomspace(256, 1024, 8)))
-# flash_attention in bf16 issues two TF32 passes per product (bf16 K and V
-# are exact in TF32, so their small parts are 0 and those passes skipped):
-# the design's own floor, printed beside the function's bound (the bf16
-# tensor-core rate), which it does not replace
-FLASH_BF16_PASSES = 2
+FLASH_BF16_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention_bf16.cu")
+# flash_attention in bf16 (FLASH_BF16_SOURCE) takes one bf16
+# pass for S = Q K^T and two for P V (P split hi + lo): 1.5 passes of the
+# function's flops at the bf16 tensor-core rate, the design's own floor,
+# printed beside the function's bound, which it does not replace
+FLASH_BF16_PASSES = (1 + 2) / 2
+# bf16 flash_attention's forward at the main paths' shapes (PERF.md's
+# kernel table, row 3), timed by --attention-only on any tree: (label, (B,
+# QH, KVH, Sq, Sk, D), causal, lengths)
+FLASH_BF16_CASES = (
+    ("Jamba", (8, 32, 8, 1024, 1024, 128), True, None),
+    ("Qwen2-VL", (8, 28, 4, 1024, 1024, 128), True, None),
+    ("Scout", (1, 40, 8, 2048, 2048, 128), True, None),
+    ("SeamlessM4T encoder", (8, 16, 16, 1024, 1024, 64), False, None),
+    ("SeamlessM4T decoder self", (8, 16, 16, 1024, 1024, 64), True, None),
+    ("SeamlessM4T cross, prefill", (8, 16, 16, 1024, 1024, 64), False,
+     SEAMLESS_ENC_LENS),
+    ("SeamlessM4T cross, decode", (8, 16, 16, 1, 1024, 64), False,
+     SEAMLESS_ENC_LENS),
+)
 # The backward's passes of 2 Sq Sk D flops (csrc/flash_attention_bwd.cu):
 # S and dP in both of its kernels, one bf16 pass each or three TF32 ones;
 # dV, dK and dQ with P and dS split in two bf16 parts, or in 3xTF32.  The
@@ -492,17 +517,16 @@ def phase_build():
     return dt
 
 
-def bwd_registers():
-    """The backward kernels' registers and spills, one dict per kernel
-    (name, dtype, D) from the ``-Xptxas=-v`` build log; fails on a
-    spill."""
+def _ptxas_rows(pattern):
+    """Registers and spills of every kernel whose mangled name matches
+    ``pattern`` (groups: kernel, dtype as ``f`` or ``13__nv_bfloat16``, D),
+    from the ``-Xptxas=-v`` build log, one dict per kernel."""
     from repro_torch.kernels import _build
     rows, name, spill = [], None, None
     for line in _build.log_path().read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = re.search(r"flash_attention_bwd_(dkdv|dq|delta)_kernelI"
-                             r"(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
+            name = re.search(pattern, m.group(1))
             spill = None
         elif name and spill is None and "spill stores" in line:
             spill = [int(x) for x in
@@ -516,6 +540,33 @@ def bwd_registers():
                                         line).group(1)),
                 spill_stores=spill[0], spill_loads=spill[1]))
             name = None
+    return rows
+
+
+def flash_bf16_registers():
+    """The bf16 forward kernel's registers and spills at each D (its
+    consumers raise their own to 240 with setmaxnreg; ptxas reports the
+    launch's 168); fails on a spill."""
+    rows = _ptxas_rows(r"(flash_bf16)_kernelI()Li(\d+)E")
+    if not rows:
+        raise AssertionError("the build log names no bf16 forward kernel")
+    log("[kernel] flash_attention bf16 forward kernels: " + ", ".join(
+        f"D = {r['head_dim']} {r['registers']} registers, spills "
+        f"{r['spill_stores']}/{r['spill_loads']} bytes" for r in rows))
+    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"the bf16 forward kernels spill: {spilled}")
+    for r in rows:
+        r["dtype"] = "bfloat16"
+    return rows
+
+
+def bwd_registers():
+    """The backward kernels' registers and spills, one dict per kernel
+    (name, dtype, D) from the ``-Xptxas=-v`` build log; fails on a
+    spill."""
+    rows = _ptxas_rows(r"flash_attention_bwd_(dkdv|dq|delta)_kernelI"
+                       r"(f|13__nv_bfloat16)Li(\d+)E")
     if not rows:
         raise AssertionError("the build log names no backward kernel")
     for key in sorted({(r["dtype"], r["head_dim"]) for r in rows}):
@@ -955,6 +1006,55 @@ def phase_attention(dev, scratch):
     return paged, flash
 
 
+def flash_bf16_logit_shares(dev, fail=True):
+    """bf16 flash_attention at Scout's prefill shape (1 x 40/8 x 2048 x
+    128, causal) with q scaled so that the logits' standard deviation is
+    each of LOGIT_STDS (unit-normal q and k give 1; the factors are powers
+    of two, exact in bf16): the kernel's largest error against its plain
+    version as a share of SCOUT_ATTN_TOL, by std.  With ``fail``, a share
+    above 1 fails the run."""
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_ref)
+    bf = torch.bfloat16
+    rng = np.random.default_rng(35)
+    b, qh, kvh, s, d = 1, 40, 8, SERVE_MAX_SEQ, 128
+    q = _randn(rng, (b, qh, s, d), bf, dev)
+    k, v = (_randn(rng, (b, kvh, s, d), bf, dev) for _ in range(2))
+    shares = {}
+    for std in LOGIT_STDS:
+        qs = q * std
+        shares[std] = _limit_share(flash_attention_kernel(qs, k, v),
+                                   flash_attention_ref(qs, k, v),
+                                   SCOUT_ATTN_TOL)
+    log("[kernel] flash_attention bf16 at Scout's shape, max |kernel - "
+        "plain| as a share of SCOUT_ATTN_TOL by logit std: " + "; ".join(
+            f"{std}: {x:.3f}" for std, x in shares.items()))
+    if fail and max(shares.values()) > 1:
+        raise AssertionError(f"flash_attention bf16 misses two ulps at "
+                             f"larger logits: {shares}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return shares
+
+
+def flash_bf16_rows(dev, scratch):
+    """bf16 flash_attention's forward at each of FLASH_BF16_CASES through
+    ``attention_cases`` (within SCOUT_ATTN_TOL, the same bits twice, its
+    time, the plain version's, SDPA's, its bound over the live keys and
+    the design's floor); one dict per case."""
+    rng = np.random.default_rng(36)
+    cases = []
+    for label, (b, qh, kvh, sq, sk, d), causal, lens in FLASH_BF16_CASES:
+        q = _randn(rng, (b, qh, sq, d), torch.bfloat16, dev)
+        k, v = (_randn(rng, (b, kvh, sk, d), torch.bfloat16, dev)
+                for _ in range(2))
+        kw = dict(causal=causal)
+        if lens is not None:
+            kw["lengths"] = torch.tensor(lens, dtype=torch.int32, device=dev)
+        cases.append((label, "flash", (q, k, v), kw))
+    return attention_cases("flash bf16", cases, dev, scratch)
+
+
 def attention_only(dev, label):
     """``--attention-only``: the timed attention shapes and flash's error
     at larger logits, then the backward kernel's time at each of
@@ -972,14 +1072,22 @@ def attention_only(dev, label):
         else:
             row = dict(kernel=key[0], shape=key[1], **r)
         log(json.dumps(dict(label=label, card=card, **row)))
+    for case, r in flash_bf16_rows(dev, scratch).items():
+        log(json.dumps(dict(label=label, card=card, kernel="flash_bf16",
+                            case=case, **r)))
+    log(json.dumps(dict(label=label, card=card, kernel="flash_bf16",
+                        limit_share_by_logit_std=flash_bf16_logit_shares(
+                            dev, fail=False))))
     for case, shape, causal, lens, dtype in BWD_CASES:
         q, k, v, do, ln = _bwd_inputs(dev, shape, lens, dtype)
         out, lse = flash_attention_kernel(q, k, v, ln, causal=causal,
                                           return_lse=True)
+        fwd_ms = time_cuda(lambda: flash_attention_kernel(
+            q, k, v, ln, causal=causal, return_lse=True), scratch)
         ms = time_cuda(lambda: flash_attention_bwd_kernel(
             q, k, v, out, lse, do, ln, causal=causal), scratch)
         log(json.dumps(dict(label=label, card=card, kernel="flash_bwd",
-                            shape=case, ms=ms)))
+                            shape=case, ms=ms, fwd_with_lse_ms=fwd_ms)))
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return 0
@@ -1435,11 +1543,11 @@ def scout_kernels(cfg, dev, scratch):
             r["flops"] = 2 * 2 * (s * (s + 1) // 2) * d * qh
             moved = (2 * fq.numel() + 2 * fk.numel()) * 2
             # the function's bound: its bf16 products at the card's bf16
-            # tensor-core rate; the design's TF32 passes only beside it
+            # tensor-core rate; the design's passes only beside it
             r["bound_ms"] = max(r["flops"] / BF16_FLOPS_PER_S,
                                 moved / HBM_BYTES_PER_S) * 1e3
-            r["tf32_design_floor_ms"] = \
-                FLASH_BF16_PASSES * r["flops"] / TF32_FLOPS_PER_S * 1e3
+            r["design_floor_ms"] = \
+                FLASH_BF16_PASSES * r["flops"] / BF16_FLOPS_PER_S * 1e3
             r["bound_by"] = "operations"
             r["shape"] = list(fq.shape) + list(fk.shape)
             log(f"[scout] flash_attention, q {tuple(fq.shape)} k/v "
@@ -1450,48 +1558,39 @@ def scout_kernels(cfg, dev, scratch):
                 f"{r['library_ms'] * 1e3:.1f} us, bound "
                 f"{r['bound_ms'] * 1e3:.1f} us (operations, "
                 f"{r['flops'] / 1e9:.2f} GFLOP at the bf16 tensor-core "
-                f"rate; the design's {FLASH_BF16_PASSES} TF32 passes per "
-                f"product alone take {r['tf32_design_floor_ms'] * 1e3:.1f} "
-                f"us)")
+                f"rate; the design's {FLASH_BF16_PASSES:g} bf16 passes "
+                f"alone take {r['design_floor_ms'] * 1e3:.1f} us)")
         res[kernel] = r
         del out, ref, args
     torch.cuda.empty_cache()
+    res["flash"]["registers"] = flash_bf16_registers()
+    res["flash"]["limit_share_by_logit_std"] = flash_bf16_logit_shares(dev)
     return res
 
 
 def scout_logits(cfg, params, dev):
     """Scout's prefill logits with the CUDA attention kernels
     (``attn_impl="cuda"``) against the same model with the plain versions
-    on the card, with every token's top-1 route recorded in every layer;
-    see SCOUT_LOGIT_TOL.  ``attn_impl="torch"`` takes CPU tensors only, so
-    the plain run swaps the attention module's kernel entry point for the
+    on the card, the plain run on the kernel run's expert choices
+    (``_Routes``; the positions whose own route differed are counted); see
+    SCOUT_LOGIT_TOL.  ``attn_impl="torch"`` takes CPU tensors only, so the
+    plain run swaps the attention module's kernel entry point for the
     plain function."""
     from repro_torch.kernels.flash_attention import (flash_attention_chunked,
                                                      flash_attention_ref)
     from repro_torch.kernels.flash_attention.ops import CHUNKED_FROM
     from repro_torch.models import attention as am
-    from repro_torch.models import blocks as bm
     from repro_torch.models import transformer as tf
-    from repro_torch.models.moe import moe_route
 
     def plain_flash(q, k, v, lengths=None, *, causal=True, impl="auto"):
         fn = flash_attention_chunked if q.shape[2] >= CHUNKED_FROM \
             else flash_attention_ref
         return fn(q, k, v, lengths, causal=causal)
 
-    routes = []
-    moe_apply = bm.moe_apply
-
-    def recorded(p, h, spec, *, hints=False):
-        routes.append(moe_route(p, h.reshape(-1, h.shape[-1]), spec)
-                      .eidx[:, 0])
-        return moe_apply(p, h, spec, hints=hints)
-
     kcfg = cfg.replace(attn_impl="cuda")
     rng = np.random.default_rng(14)
     res = []
     saved_flash = am.flash_attention
-    bm.moe_apply = recorded
     try:
         for plen in (100, 1536):
             bucket = max(cfg.page_size, 1 << int(np.ceil(np.log2(plen))))
@@ -1499,11 +1598,13 @@ def scout_logits(cfg, params, dev):
             toks[0, :plen] = rng.integers(1, cfg.vocab, plen)
             maxp = bucket // cfg.page_size
             got = {}
-            for name in ("cuda", "plain"):
-                am.flash_attention = saved_flash if name == "cuda" \
-                    else plain_flash
-                routes.clear()
-                with torch.no_grad():
+            with torch.no_grad(), _Routes() as routes:
+                for name in ("cuda", "plain"):
+                    am.flash_attention = saved_flash if name == "cuda" \
+                        else plain_flash
+                    if name == "plain":
+                        n = len(routes.own)
+                        routes.pin = lambda i, own, n=n: routes.own[i - n]
                     out = tf.apply_model(params, kcfg, {
                         "tokens": torch.from_numpy(toks).to(dev),
                         "caches": tf.init_caches(cfg, 1, maxp, device=dev),
@@ -1512,38 +1613,38 @@ def scout_logits(cfg, params, dev):
                         "lengths": torch.tensor([plen], dtype=torch.int32,
                                                 device=dev)},
                         mode="prefill")
-                got[name] = (out.logits[0, :plen, :cfg.vocab],
-                             torch.stack(routes)[:, :plen])
-            (a, ra), (b, rb) = got["cuda"], got["plain"]
-            flip = (ra != rb).any(0)
+                    got[name] = out.logits[0, :plen, :cfg.vocab]
+            n = len(routes.own) // 2
+            flip = torch.zeros(plen, dtype=torch.bool, device=dev)
+            for i in range(n):
+                flip |= (_route_sets(routes.own[i])
+                         != _route_sets(routes.own[n + i])).any(-1)[:plen]
+            a, b = got["cuda"], got["plain"]
             diff = (a - b).abs()
             ok = (diff <= SCOUT_LOGIT_TOL * (1 + b.abs())).all(-1)
-            n_flip, n_bad = int(flip.sum()), int((~ok & ~flip).sum())
-            clean = diff[~flip]
-            r = dict(prompt=plen, bucket=bucket, flipped=n_flip,
-                     max_abs_err_unflipped=float(clean.max())
-                     if clean.numel() else 0.0,
+            n_flip, n_bad = int(flip.sum()), int((~ok).sum())
+            r = dict(prompt=plen, bucket=bucket, routes_pinned=n_flip,
+                     max_abs_err=float(diff.max()),
                      rel_l2_all=float((a - b).norm() / b.norm()),
                      max_abs_logit=float(b.abs().max()))
             res.append(r)
             log(f"[scout] prefill logits, {plen}-token prompt (bucket "
-                f"{bucket}), CUDA kernels vs plain versions on the card: "
-                f"{n_flip} of {plen} positions routed differently in some "
-                f"layer; the others max |diff| "
-                f"{r['max_abs_err_unflipped']:.4g} (tolerance "
+                f"{bucket}), CUDA kernels vs plain versions on the card, "
+                f"the plain run on the kernel run's routes: {n_flip} of "
+                f"{plen} positions whose own route differed in some layer; "
+                f"max |diff| {r['max_abs_err']:.4g} (tolerance "
                 f"{SCOUT_LOGIT_TOL} (1 + |plain|), max |logit| "
                 f"{r['max_abs_logit']:.2f}); relative L2 over all "
                 f"{r['rel_l2_all']:.3g}")
             if not bool(torch.isfinite(a).all()) or n_bad \
                     or n_flip > SCOUT_MAX_FLIP_SHARE * plen:
                 raise AssertionError(
-                    f"scout logits, {plen}-token prompt: {n_bad} unflipped "
-                    f"positions over the tolerance, {n_flip} flipped "
-                    f"routes (at most {SCOUT_MAX_FLIP_SHARE:.0%})")
+                    f"scout logits, {plen}-token prompt: {n_bad} positions "
+                    f"over the tolerance, {n_flip} routes pinned (at most "
+                    f"{SCOUT_MAX_FLIP_SHARE:.0%})")
             del got, a, b
     finally:
         am.flash_attention = saved_flash
-        bm.moe_apply = moe_apply
     torch.cuda.empty_cache()
     return res
 
@@ -2148,6 +2249,8 @@ def attention_cases(tag, cases, dev, scratch):
                  flops=flops, bytes_moved=moved,
                  bound_ms=max(t_ops, t_bytes) * 1e3,
                  bound_by="operations" if t_ops > t_bytes else "bytes")
+        if kernel == "flash":
+            r["design_floor_ms"] = FLASH_BF16_PASSES * t_ops * 1e3
         lib = "" if r["library_ms"] is None else \
             f", sdpa {r['library_ms'] * 1e3:.2f} us"
         log(f"[{tag}] {kernel}_attention, {label}: shapes {r['shape']}"
@@ -2157,7 +2260,9 @@ def attention_cases(tag, cases, dev, scratch):
             f"same bits; kernel {r['ms'] * 1e3:.2f} us, plain "
             f"{r['plain_ms'] * 1e3:.2f} us{lib}, bound "
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
-            f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)")
+            f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)"
+            + ("" if kernel == "paged" else f", the design's floor "
+               f"{r['design_floor_ms'] * 1e3:.2f} us"))
         res[label] = r
     torch.cuda.empty_cache()
     return res
@@ -2461,7 +2566,8 @@ def multimodal_rows(qwen, seamless, paged, flash):
             base = paged if key.startswith("paged") else flash
             rows.append(dict(
                 name=base["name"], route=base["route"],
-                source=base["source"], replaces=base["replaces"],
+                source=base["source"] if base is paged else
+                FLASH_BF16_SOURCE, replaces=base["replaces"],
                 launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -3036,7 +3142,9 @@ def training_rows(train):
         f = r["fwd"]
         rows.append(dict(
             name="flash_attention", route="cuda",
-            source=fa_src + "flash_attention.cu",
+            source=fa_src + ("flash_attention_bf16.cu"
+                             if r["dtype"] == "bfloat16" else
+                             "flash_attention.cu"),
             replaces="src/repro/kernels/flash_attention/kernel.py:73",
             launches=n, max_abs_err=f["max_abs_err"], ms=f["ms"],
             plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
@@ -4211,10 +4319,11 @@ def main() -> int:
                    training["seamless"]["counts"]]
     log(f"[launches] training paths (tiny-lm {TRAIN_STEPS} steps, "
         f"SeamlessM4T {SEAMLESS_TRAIN_STEPS} steps): {train_paths}")
-    # the training paths' forward launches have rows of their own
+    # tiny-lm's f32 prefills (served, and over 4 homes) run the f32 route;
+    # the bf16 paths' launches and the training paths' have rows of their
+    # own
     flash["launches"] = serving["flash_attention"] \
-        + scout_counts["flash_attention"] \
-        + sum(c["flash_attention"] for c in model_paths)
+        + sharded["serving"]["counts"]["flash_attention"]
 
     # tiara_gather at the serving resolvers' own shapes, as recorded
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
@@ -4264,6 +4373,15 @@ def main() -> int:
                      (kinfo, "the endpoint path's 4096 rows of 8 KiB"),
                      (paged, "tiny-lm's decode step"),
                      (flash, "tiny-lm's 2048-token prefill"))]
+    for tag, ki, n in (("Scout", scout["kernels"]["flash"],
+                        scout_counts["flash_attention"]),
+                       ("Jamba", jamba["kernels"]["flash"],
+                        jamba_counts["flash_attention"])):
+        rows.append(dict({k: ki[k] for k in keys if k in ki},
+                         name=flash["name"], route=flash["route"],
+                         source=FLASH_BF16_SOURCE,
+                         replaces=flash["replaces"], launches=n,
+                         shape=f"{tag}'s prefill: {ki['shape']} bf16"))
     rows += multimodal_rows(qwen, seamless, paged, flash)
     rows += training_rows(training)
     log(json.dumps({"kernels": rows}))

@@ -1,4 +1,5 @@
-// Tiled prefill attention, causal or full, GQA-aware, for Hopper (sm_90a):
+// Tiled prefill attention, causal or full, GQA-aware, for Hopper (sm_90a),
+// the f32 route (bf16: flash_attention_bf16.cu):
 //
 //     out[b, h, i, :] = softmax_j(scale q[b, h, i, :] . k[b, hk, j, :])
 //                       v[b, hk, j, :],   hk = h / group
@@ -81,9 +82,10 @@
 //     q rows past Sq load 0 and are not stored, keys past Sk load 0 and
 //     are masked.
 //
-// bf16 runs the same code: bf16 values are exact in TF32, so the small
-// parts of K and V are 0 and their two passes are skipped (q is scaled in
-// f32 and P is f32, so theirs stay).
+// bf16 has a route of its own, flash_attention_bf16.cu (bf16 MMAs, TMA
+// tiles, a producer warp), to which flash_attention_launch dispatches
+// dtype 1; this kernel's bf16 branches (kSplitKV false) are no longer
+// instantiated.
 //
 // Masking uses -1e30 as the Pallas kernel does (q carries log2(e) in its
 // scale, so scores are in base 2 and the softmax takes exp2; the function
@@ -466,6 +468,13 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// The bf16 route (flash_attention_bf16.cu).
+cudaError_t flash_attention_bf16_launch(
+    const void* q, const void* k, const void* v, const int32_t* lengths,
+    void* out, float* lse, int64_t batch, int64_t qh, int64_t kvh,
+    int64_t seq_q, int64_t seq_k, int64_t head_dim, float scale, int causal,
+    cudaStream_t stream);
+
 // dtype: 0 = float32, 1 = bfloat16.  lse may be null.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, const int32_t* lengths,
@@ -489,7 +498,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                               batch, qh, kvh, seq_q, seq_k,
                                               head_dim, scale, c, s));
     case 1:
-      return static_cast<int>(launch_d<__nv_bfloat16>(
+      return static_cast<int>(flash_attention_bf16_launch(
           q, k, v, lengths, out, lse, batch, qh, kvh, seq_q, seq_k, head_dim,
           scale, c, s));
     default:

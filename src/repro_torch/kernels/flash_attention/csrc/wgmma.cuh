@@ -7,8 +7,9 @@
 //   Wgmma<N>      m64nNk8  .f32.tf32.tf32 (3xTF32 routes: the forward, the
 //                 backward in f32): ss (A and B from shared memory through
 //                 descriptors; N up to 64) and rs (A from registers);
-//   WgmmaBf16<N>  m64nNk16 .f32.bf16.bf16 (the backward in bf16): ss (N =
-//                 32, 64) and rs_mn (A from registers, B read MN-major).
+//   WgmmaBf16<N>  m64nNk16 .f32.bf16.bf16 (both kernels in bf16): ss (N =
+//                 32, 64, 128; both K-major, optionally not accumulating)
+//                 and rs_mn (A from registers, B read MN-major).
 //
 // The K-major layout is the same in bytes for both types: a 16-byte chunk
 // holds 4 TF32 or 8 bf16 values along k, and one MMA k step (k8 TF32, k16
@@ -99,6 +100,9 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // Keep the compiler from moving a register's uses across a wgmma wait.
 __device__ __forceinline__ void reg_fence(float& r) {
   asm volatile("" : "+f"(r)::"memory");
@@ -138,6 +142,27 @@ __device__ __forceinline__ uint64_t mnmajor_desc(const void* tile, int step) {
   return static_cast<uint64_t>((a >> 4) & 0x3fff) |
          static_cast<uint64_t>(128 >> 4) << 16 |
          static_cast<uint64_t>((16 * R) >> 4) << 32;
+}
+
+// A tile in the swizzled layouts that TMA writes (CU_TENSOR_MAP_SWIZZLE_
+// 32B/64B/128B): rows of SW bytes, 8-row atoms of 8 SW bytes, the XOR
+// pattern on the address bits, so a tile starts on a 1024-byte boundary.
+// A tile wider than SW bytes is stored as column blocks of SW bytes, one
+// after the other.  The descriptor of such a tile at shared address a:
+//   K-major (k along a row): leading byte offset unused (16), stride byte
+//     offset 8 SW (8 rows to the next 8); a k16 step is 32 bytes along the
+//     row, into the next column block every SW / 32 steps;
+//   MN-major (n along a row, k down the rows): leading byte offset the
+//     column block's size (the next SW / 2 of n), stride byte offset 8 SW;
+//     a k16 step is 16 rows, 16 SW bytes.
+template <int SW>
+__device__ __forceinline__ uint64_t swizzle_desc(uint32_t a, uint32_t lbo,
+                                                 uint32_t sbo) {
+  static_assert(SW == 32 || SW == 64 || SW == 128, "swizzle bytes");
+  constexpr uint64_t mode = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  return static_cast<uint64_t>((a >> 4) & 0x3fff) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32 | mode << 62;
 }
 
 template <int N>
@@ -318,10 +343,11 @@ struct WgmmaBf16<16> {
 
 template <>
 struct WgmmaBf16<32> {
-  // d += a b, a and b from shared memory (descriptors)
+  // d = a b + (acc ? d : 0), a and b from shared memory (descriptors),
+  // both K-major
   __device__ __forceinline__ static void ss(float (&d)[16],
                                             uint64_t a,
-                                            uint64_t b) {
+                                            uint64_t b, int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -332,7 +358,7 @@ struct WgmmaBf16<32> {
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(acc));
   }
   // d += a b, a from registers (the A fragment), b from shared memory read
   // MN-major (imm-trans-b 1: n along a chunk)
@@ -355,10 +381,11 @@ struct WgmmaBf16<32> {
 
 template <>
 struct WgmmaBf16<64> {
-  // d += a b, a and b from shared memory (descriptors)
+  // d = a b + (acc ? d : 0), a and b from shared memory (descriptors),
+  // both K-major
   __device__ __forceinline__ static void ss(float (&d)[32],
                                             uint64_t a,
-                                            uint64_t b) {
+                                            uint64_t b, int acc = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -375,7 +402,7 @@ struct WgmmaBf16<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(1));
+        : "l"(a), "l"(b), "r"(acc));
   }
   // d += a b, a from registers (the A fragment), b from shared memory read
   // MN-major (imm-trans-b 1: n along a chunk)
@@ -404,6 +431,41 @@ struct WgmmaBf16<64> {
 
 template <>
 struct WgmmaBf16<128> {
+  // d = a b + (acc ? d : 0), a and b from shared memory (descriptors),
+  // both K-major
+  __device__ __forceinline__ static void ss(float (&d)[64],
+                                            uint64_t a,
+                                            uint64_t b, int acc = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc));
+  }
   // d += a b, a from registers (the A fragment), b from shared memory read
   // MN-major (imm-trans-b 1: n along a chunk)
   __device__ __forceinline__ static void rs_mn(float (&d)[64],

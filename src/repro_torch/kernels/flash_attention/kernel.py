@@ -5,11 +5,14 @@
 ``h // group``), keys masked past ``lengths[b]``, in f32 or bf16 with
 ``D`` in {16, 32, 64, 128}.  It replaces the Pallas TPU kernel
 ``flash_attention_kernel`` (``src/repro/kernels/flash_attention/
-kernel.py``); see ``csrc/flash_attention.cu`` for its design: both
-products run on the tensor cores in 3xTF32 (Hopper's ``wgmma``), their
-sums ordered and cut so that the error against f64 stays at the plain
-f32 version's.  With ``return_lse`` it also gives each row's
-log-sum-exp, which :func:`flash_attention_bwd_kernel` reads.
+kernel.py``) with one route per input type, both on Hopper's tensor
+cores (``wgmma``): f32 in 3xTF32 (``csrc/flash_attention.cu``), its sums
+ordered and cut so that the error against f64 stays at the plain f32
+version's; bf16 in a kernel of its own (``csrc/flash_attention_bf16.cu``):
+one bf16 pass for Q K^T, two for P V with P split into two bf16 parts,
+K and V read by wgmma straight from the tiles TMA lands, a producer warp
+and two consumer warpgroups.  With ``return_lse`` it also gives each
+row's log-sum-exp, which :func:`flash_attention_bwd_kernel` reads.
 
 :func:`flash_attention_bwd_kernel` is the gradient of the same function
 (``csrc/flash_attention_bwd.cu``): ``dq``, ``dk`` and ``dv`` from the

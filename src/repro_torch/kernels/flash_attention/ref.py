@@ -162,3 +162,68 @@ def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     x = x.float()
     hi = x.to(torch.bfloat16)
     return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def flash_attention_bf16_split(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               lengths: Optional[torch.Tensor] = None, *,
+                               causal: bool = True,
+                               scale: Optional[float] = None,
+                               block_k: int = 128, p_passes: int = 2,
+                               return_lse: bool = False):
+    """The arithmetic of the bf16 forward kernel
+    (``csrc/flash_attention_bf16.cu``) in plain PyTorch, on bf16 ``q``,
+    ``k``, ``v`` laid out as :func:`flash_attention_ref` takes them.  Key
+    tiles of ``block_k`` go through an online softmax in f32:
+
+    * S = Q K^T from the raw bf16 operands, summed in f32 (each product of
+      two bf16 values is exact in f32), then scaled: x = S scale log2(e);
+    * m = the running row max of x, P = exp2(x - m) on live keys, 0
+      elsewhere; the running sum l and the output are rescaled by
+      exp2(m_old - m);
+    * P V with P split ``hi + lo`` (:func:`split_bf16`), two bf16 passes
+      against the same V tile, lo first (``p_passes=1``: P rounded once to
+      bf16, the route the kernel rejects);
+    * out = O / l rounded to bf16 once; a row with no live key gives 0.
+
+    With ``return_lse`` also each row's log-sum-exp in natural log,
+    ``(m + log2 l) ln 2``, ``+inf`` for a row with no live key.  A test
+    helper: no serving or training path calls it."""
+    if p_passes not in (1, 2):
+        raise ValueError(f"p_passes must be 1 or 2, got {p_passes}")
+    batch, qh, seq_q, head_dim = q.shape
+    seq_k = k.shape[2]
+    group = qh // k.shape[1]
+    if scale is None:
+        scale = head_dim ** -0.5
+    c = scale * 1.4426950408889634
+    qf = q.float()
+    kr = k.float().repeat_interleave(group, dim=1)
+    vr = v.float().repeat_interleave(group, dim=1)
+    keep = _mask(seq_q, seq_k, 0, lengths, causal, q.device)
+    if keep is None:
+        keep = torch.ones((1, 1, seq_q, seq_k), dtype=torch.bool)
+    keep = keep.expand(batch, qh, seq_q, seq_k)
+    m = torch.full((batch, qh, seq_q, 1), -1e30)
+    l = torch.zeros((batch, qh, seq_q, 1))
+    o = torch.zeros((batch, qh, seq_q, head_dim))
+    for k0 in range(0, seq_k, block_k):
+        sl = slice(k0, k0 + block_k)
+        live = keep[..., sl]
+        x = torch.einsum("bhqd,bhkd->bhqk", qf, kr[:, :, sl]) * c
+        x = torch.where(live, x, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.where(live, torch.exp2(x - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        parts = split_bf16(p) if p_passes == 2 else (p.to(torch.bfloat16),)
+        o = o * alpha
+        for part in parts[::-1]:            # lo first, as the kernel
+            o = o + part.float() @ vr[:, :, sl]
+        m = m_new
+    out = (o / l.clamp(min=1e-30)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, (m + torch.log2(l.clamp(min=1e-30)))
+                      * 0.6931471805599453, float("inf"))
+    return out, lse[..., 0]

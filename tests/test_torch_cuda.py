@@ -425,6 +425,58 @@ def test_cuda_flash_attention_tf32_shapes(cuda_device, dtype, causal, sq,
         assert torch.equal(out, again)
 
 
+# bf16 flash_attention (csrc/flash_attention_bf16.cu) against its plain
+# version within two bf16 ulps, chip_smoke.py's SCOUT_ATTN_TOL (atol, rtol):
+# both sum in f32 and round the output to bf16 once, the kernel's P split
+# in two bf16 parts (tests/test_torch_flash_bf16_split.py); its lse within
+# LSE_TOL of the plain log-sum-exp.
+BF16_ATTN_TOL = (1e-4, 2 ** -6)
+LSE_TOL = (1e-5, 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,qh,kvh,sq,sk,d,causal,lens", [
+    (2, 10, 2, 300, 300, 128, True, (300, 0)),        # G = 5, D = 128
+    (2, 14, 2, 257, 257, 128, True, (257, 100)),      # G = 7, ragged
+    (3, 8, 4, 200, 333, 64, False, (333, 0, 150)),    # Sq != Sk, full
+    (3, 16, 16, 1, 1000, 64, False, (1000, 0, 300)),  # Sq = 1, ragged
+    (2, 14, 2, 1, 257, 128, True, None),              # Sq = 1, G = 7
+    (2, 4, 2, 130, 77, 32, True, None),               # D = 32, Sq > Sk
+    (1, 2, 1, 70, 70, 16, False, (70,)),              # D = 16
+])
+def test_cuda_flash_attention_bf16_route(cuda_device, b, qh, kvh, sq, sk, d,
+                                         causal, lens):
+    """The bf16 route at G = 5 and 7, D from 16 to 128, Sq != Sk, Sq = 1,
+    ragged S and a length of 0 (its rows 0, their lse +inf): out within
+    two bf16 ulps of the plain version, lse within LSE_TOL, and the same
+    bits on every call, with or without lse."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_kernel, flash_attention_lse_ref, flash_attention_ref)
+    rng = np.random.default_rng(sq * 1000 + sk + d)
+    q = _randn(rng, (b, qh, sq, d), torch.bfloat16, cuda_device)
+    k = _randn(rng, (b, kvh, sk, d), torch.bfloat16, cuda_device)
+    v = _randn(rng, (b, kvh, sk, d), torch.bfloat16, cuda_device)
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=cuda_device)
+    out, lse = flash_attention_kernel(q, k, v, ln, causal=causal,
+                                      return_lse=True)
+    again = flash_attention_kernel(q, k, v, ln, causal=causal)
+    torch.cuda.synchronize()
+    atol, rtol = BF16_ATTN_TOL
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, ln, causal=causal).float(),
+        atol=atol, rtol=rtol)
+    assert torch.equal(out, again)
+    want = flash_attention_lse_ref(q, k, ln, causal=causal)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    live = torch.isfinite(want)
+    torch.testing.assert_close(lse[live], want[live], atol=LSE_TOL[0],
+                               rtol=LSE_TOL[1])
+    if lens is not None and 0 in lens:
+        row = lens.index(0)
+        assert torch.all(out[row] == 0) and torch.all(torch.isinf(lse[row]))
+
+
 # -- the serving engine on the card ------------------------------------------
 
 
