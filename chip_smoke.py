@@ -70,6 +70,25 @@ Phases:
    the engine its doorbell ran and its kernel launches;
 4. the serving loop on a virtual clock with its exactly-one-CQE
    identity;
+15. (run here, after phase 4) the main path's contracts on the card, on
+   phase 3's layout at real size over two device rows (4.25 GiB): a
+   wild device register, an out-of-region offset and a word op on a
+   failed device through the interp, batched, compiled, mixed,
+   segmented and serial engines; an out-of-region translation in the
+   middle of a block table through the compiled and double-buffered
+   gather chains (``tiara_gather`` launched once and once per chunk,
+   exactly the iterations before the fault committed); MEMCPY to and
+   from a failed device, sync and async (``ERR_REG``, no copy); a
+   session's flush until ``reset()`` and the healed post after;
+   ``doorbell(wait=False)`` pairs, a poisoned materialization and lost
+   doorbells; the serving loop's EAGAIN (token bucket, admitted queue,
+   bounded SQ), shedding, TIMEOUT at admission, pump and drain and at a
+   statically infeasible deadline; the certificates at registration and
+   in ``wave_us`` on the card's measured ``EngineCost``.  Every wave's
+   posts are held to pyvm replayed on a host mirror, the whole pool to
+   the mirror bit for bit, and every post to exactly one CQE; one line
+   per row with the engine, the ``tiara_gather`` launches and the
+   wave's wall.  Then ``examples/quickstart_torch.py`` on the card;
 5. tiny-lm serving under both resolvers: identical tokens, every handle
    ok, ``flash_attention`` launched 12 times per prefill and
    ``paged_attention`` 12 times per decode step, ``tiara_gather`` at
@@ -3383,6 +3402,686 @@ def phase_endpoint(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: the main path's contracts on the card
+# ---------------------------------------------------------------------------
+
+#: The engines the word-op fault rows run through (``interp`` takes one
+#: post a wave, ``batched`` and ``compiled`` one operator a wave).
+CONTRACT_ENGINES = ("interp", "batched", "compiled", "mixed", "segmented",
+                    "serial")
+#: An out-of-region translation for the gather chain's block table.
+WILD_TRANSLATION = 10 ** 12
+
+
+def _contract_ops(view):
+    """Extra operators on phase 3's graph tenant: ``wload`` (reply[p1] =
+    graph[p0] read on device p2, a device register), ``rload`` (returns
+    reply[p0]) and four 8-word MEMCPYs from graph[0] to reply[p1] whose
+    source (``*_src``) or destination (``*_dst``) device is p0, sync and
+    async."""
+    from repro_torch.core.program import OperatorBuilder as B
+    b = B("wload", n_params=3, regions=view)
+    x = b.reg()
+    b.load(x, "graph", b.param(0), dev=b.param(2))
+    b.store(x, "reply", b.param(1))
+    b.ret(x)
+    out = [b.build()]
+    b = B("rload", n_params=1, regions=view)
+    x = b.reg()
+    b.load(x, "reply", b.param(0))
+    b.ret(x)
+    out.append(b.build())
+    for name in ("rcpy_src", "arcpy_src", "rcpy_dst", "arcpy_dst"):
+        b = B(name, n_params=2, regions=view)
+        zero = b.const(0)
+        dev = {name.split("_")[1] + "_dev": b.param(0)}
+        b.memcpy(dst_region="reply", dst_off=b.param(1), src_region="graph",
+                 src_off=zero, n_words=8, is_async=name[0] == "a", **dev)
+        if name[0] == "a":
+            b.wait(0)
+        b.ret(b.const(7))
+        out.append(b.build())
+    return out
+
+
+def _hog(view):
+    """About 2.5M certified cycles (4096 x 4 loads): over the default
+    budget of 2**21."""
+    from repro_torch.core.program import OperatorBuilder as B
+    b = B("hog", n_params=1, regions=view)
+    z = b.const(0)
+    r = b.reg()
+    with b.loop(4096):
+        for _ in range(4):
+            b.load(r, "graph", z)
+    b.ret(r)
+    return b.build()
+
+
+class _Recorded(np.ndarray):
+    """A pool that records the ``(device, word)`` of every scalar write
+    (pyvm writes the pool only as ``mem[device, word] = value``)."""
+
+    def __setitem__(self, key, value):
+        self.writes.append(key)
+        super().__setitem__(key, value)
+
+
+class _Contracts:
+    """Phase 15's endpoint: phase 3's layout at real size (the paged-KV
+    tenant over 131072 blocks of 8 KiB and the graph tenant over 2**20
+    nodes) on two device rows, so that one of them can fail; a host
+    mirror of the pool that pyvm replays every wave on; and the checks
+    every row shares."""
+
+    def __init__(self, dev, card):
+        from repro_torch.core import costmodel as cm
+        from repro_torch.core import operators as ops
+        from repro_torch.core.endpoint import TiaraEndpoint
+        from repro_torch.core.serving_loop import VirtualClock
+        from repro_torch.kernels.tiara_gather import kernel as tg
+        self.dev, self.card, self.tg = dev, card, tg
+        self.kv = ops.PagedKVFetch(n_blocks_pool=131072, block_bytes=8192,
+                                   max_req_blocks=16, reply_slots=256)
+        self.gw = ops.GraphWalk(n_nodes=1 << 20, reply_words=8 * 256)
+        self.vc = VirtualClock()
+        self.slept = []
+
+        def sleep(s):
+            self.slept.append(s)
+            self.vc.sleep(s)
+
+        t0 = time.perf_counter()
+        self.cost = cm.DispatchCostModel(cm.EngineCost.measured(device=dev))
+        self.ep, ss = TiaraEndpoint.for_tenants(
+            [("kv", self.kv.regions()), ("gw", self.gw.regions())],
+            n_devices=2, device=dev, clock=self.vc, sleep=sleep,
+            cost_model=self.cost, retry_limit=3, retry_backoff_s=0.001,
+            retry_jitter=0.5, retry_jitter_seed=7)
+        self.kvs, self.gws = ss["kv"], ss["gw"]
+        host = self.kvs.pool
+        self.table = self.kv.populate(host, self.kvs.view, seed=1)
+        self.orders = [self.gw.populate(host, self.gws.view, device=d,
+                                        seed=2 + d) for d in range(2)]
+        self.kvs.register(self.kv.build(self.kvs.view, reply_param=True))
+        self.gws.register(self.gw.build(self.gws.view, reply_param=True))
+        for prog in _contract_ops(self.gws.view):
+            self.gws.register(prog)
+        self.blocks = np.random.default_rng(3).choice(
+            self.kv.n_blocks_pool, 16, replace=False)
+        self.kvs.write_region("req", self.blocks)
+        # the host copy the pool was populated in becomes pyvm's mirror
+        # (the endpoint lets go of it at the first wave); the words pyvm
+        # writes into it are recorded and written into a copy of the
+        # pool on the card, which is held to the pool after every wave
+        self.mirror_np = host.view(_Recorded)
+        self.mirror_np.writes = []
+        pool = self.ep.mem                           # upload once
+        self.ref = pool.clone()
+        self.sync()
+        self.rows = {}
+        self.slot = 16 * self.kv.block_words
+        self.graph_words = self.gws.view["graph"].size
+        log(f"[contracts] pool {tuple(pool.shape)} int64 = "
+            f"{pool.numel() * 8 / 2**30:.2f} GiB resident on {pool.device} "
+            f"(phase 3's layout on two device rows); set-up "
+            f"{time.perf_counter() - t0:.1f} s; the card's EngineCost "
+            f"launch {self.cost.cost.launch_us:.1f} us")
+
+    # -- shared checks ------------------------------------------------------
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def hold(self, row, cs, failed=(), decision=None, launches=None,
+             wall=None, polled=()):
+        """Hold the posts of ``cs`` that ran (``event.wave >= 0``) to pyvm
+        on the mirror in (wave, seq) order — ret, status, steps,
+        registers, FaultInfo — then the whole pool to the mirror bit for
+        bit, and every post to exactly one CQE (``polled``: those the
+        row already took from the completion queues)."""
+        from repro_torch.core import pyvm
+        ep = self.ep
+        vops = ep.registry.store_ops()
+        ran = sorted((c for c in cs if c.event is not None
+                      and c.event.wave >= 0),
+                     key=lambda c: (c.event.wave, c.seq))
+        for c in ran:
+            r = pyvm.run(vops[c.op_id], ep.regions, self.mirror_np,
+                         list(c.params), home=c.home, failed=set(failed))
+            got = (c.ret, c.status, c.steps, c.fault,
+                   [int(v) for v in c.regs])
+            want = (r.ret, r.status, r.steps, r.fault,
+                    [int(v) for v in r.regs])
+            if got != want:
+                raise AssertionError(f"[contracts] {row}: seq {c.seq} "
+                                     f"({c.op_name} {c.params}) {got} != "
+                                     f"pyvm {want}")
+        self.check_pool(row)
+        polled = list(polled) + self.kvs.poll_cq() + self.gws.poll_cq()
+        if sorted(c.seq for c in polled) != sorted(c.seq for c in cs) or \
+                not all(c.done for c in cs):
+            raise AssertionError(f"[contracts] {row}: not exactly one CQE "
+                                 f"per post")
+        if self.kvs.poll_cq() or self.gws.poll_cq():
+            raise AssertionError(f"[contracts] {row}: a CQE retired twice")
+        self.rows[row] = dict(
+            engine=decision, tiara_gather=launches,
+            wall_ms=None if wall is None else wall * 1e3, posts=len(cs),
+            ran=len(ran), statuses=sorted({int(c.status) for c in cs}))
+        log(f"[contracts] {row}: engine {decision}; tiara_gather "
+            f"{launches}; wave {self.rows[row]['wall_ms']:.1f} ms; "
+            f"{len(cs)} posts, {len(ran)} ran, == pyvm and the pool bit "
+            f"for bit; {self.card}" if wall is not None else
+            f"[contracts] {row}: {len(cs)} posts, {len(ran)} ran, == pyvm "
+            f"and the pool bit for bit, one CQE each; {self.card}")
+
+    def check_pool(self, row):
+        """The whole pool against the pyvm mirror, bit for bit: the words
+        written into the mirror since the last check go into its copy on
+        the card, and the two pools are compared there."""
+        w = self.mirror_np.writes
+        if w:
+            at = np.unique(np.asarray(w, dtype=np.int64), axis=0)
+            vals = np.asarray(self.mirror_np[at[:, 0], at[:, 1]])
+            at_t = torch.as_tensor(at, device=self.ref.device)
+            self.ref[at_t[:, 0], at_t[:, 1]] = torch.as_tensor(
+                vals, device=self.ref.device)
+            del w[:]
+        pool = self.ep.mem
+        if not torch.equal(self.ref, pool):
+            bad = torch.nonzero(self.ref != pool)[:4].tolist()
+            raise AssertionError(f"[contracts] {row}: pool differs from "
+                                 f"the pyvm replay at {bad}")
+
+    def ring(self, **kw):
+        """One doorbell: the engine the doorbell ran, its tiara_gather
+        launches and its wall."""
+        ep = self.ep
+        self.sync()
+        d0, n0 = ep.last_decision, self.tg.COUNTS["tiara_gather"]
+        t = time.perf_counter()
+        ep.doorbell(**kw)
+        ep.wait_all()
+        self.sync()
+        wall = time.perf_counter() - t
+        return (self.picked(kw.get("mode", "auto"), d0),
+                self.tg.COUNTS["tiara_gather"] - n0, wall)
+
+    def picked(self, mode, before):
+        """The mode asked for and the engine ``ep.last_decision`` names
+        (the last sub-launch's, for a wave run in segments)."""
+        d = self.ep.last_decision
+        return mode if d is None or d is before else f"{mode} -> {d.mode}"
+
+    def write(self, sess, region, words, offset=0, device=0):
+        """A control-path write, to the pool and to the mirror."""
+        sess.write_region(region, words, offset=offset, device=device)
+        r = sess.view[region]
+        for i, v in enumerate(words):
+            self.mirror_np[device, r.base + offset + i] = v
+
+    def corrupt(self, triples):
+        from repro_torch.core import faults
+        self.ep.inject(faults.corrupt_words(triples))
+        for d, w, v in triples:          # applied before the next wave
+            self.mirror_np[d, w] = v
+
+    def wload(self, k, dev=0, off=None, slot=None):
+        off = 8 * k + 3 if off is None else off
+        return self.gws.post("wload", [off, 8 * k if slot is None else slot,
+                                       dev])
+
+    def expect_fault(self, row, c, *, opcode, device=None, addr=None):
+        from repro_torch.core import isa
+        f = c.fault
+        if c.status != isa.STATUS_PROT_FAULT or f is None or \
+                f.opcode != int(opcode) or \
+                (device is not None and f.device != device) or \
+                (addr is not None and f.addr != addr):
+            raise AssertionError(f"[contracts] {row}: seq {c.seq} should "
+                                 f"fault ({opcode}, device {device}, addr "
+                                 f"{addr}); got status {c.status}, {f}")
+
+
+def contract_word_faults(K):
+    """A wild device register, an out-of-region offset and a word op on a
+    failed device, through every engine: the faulting lane halts with
+    its writes suppressed, the other lanes' writes land, and the session
+    enters the error state with the first fault's FaultInfo."""
+    from repro_torch.core import faults
+    from repro_torch.core.isa import Op
+    kinds = {"wild_device": dict(dev=7), "out_of_region":
+             dict(off=K.graph_words + 5), "failed_device": dict(dev=1)}
+    for kind, bad in kinds.items():
+        for engine in CONTRACT_ENGINES:
+            row = f"{kind} / {engine}"
+            failed = {1} if kind == "failed_device" else set()
+            if failed:
+                K.ep.inject(faults.fail_devices(1))
+            cs = []
+            if engine == "interp":
+                cs.append(K.wload(0, **bad))
+            else:
+                for k in range(8):
+                    cs.append(K.wload(k, **bad) if k in (2, 5) else
+                              K.wload(k, dev=k % 2 if not failed else 0))
+            if engine in ("mixed", "segmented", "serial"):
+                o = K.orders[0]
+                cs += [K.gws.post("graph_walk", [int(o[i]) * 8, 6,
+                                                 512 + 8 * i])
+                       for i in range(2)]
+                cs += [K.kvs.post("paged_kv_fetch", [16, i * K.slot])
+                       for i in range(2)]
+            picked, n, wall = K.ring(mode=engine)
+            faulted = [c for c in cs if c.faulted]
+            want = [cs[0]] if engine == "interp" else [cs[2], cs[5]]
+            if faulted != want:
+                raise AssertionError(f"[contracts] {row}: faulted "
+                                     f"{[c.seq for c in faulted]}")
+            for c in want:
+                K.expect_fault(row, c, opcode=Op.LOAD,
+                               device=7 if kind == "wild_device" else
+                               (1 if failed else None))
+            if K.gws.error != want[0].fault or K.kvs.in_error:
+                raise AssertionError(f"[contracts] {row}: session state")
+            if engine in ("mixed", "segmented", "serial") and n < 1:
+                raise AssertionError(f"[contracts] {row}: the kv posts "
+                                     f"launched no tiara_gather")
+            K.hold(row, cs, failed, picked, n, wall)
+            K.gws.reset()
+            K.ep.revive()
+
+
+def contract_gather_chain(K):
+    """An out-of-region translation in the middle of the block table: the
+    compiled gather chain launches tiara_gather and commits exactly the
+    iterations before the fault, for the lanes that reach it."""
+    from repro_torch.core import compile as tc
+    from repro_torch.core.isa import Op
+    bt = K.kvs.view["blocktable"]
+    j = 8
+    target = int(K.blocks[j])
+    orig = int(K.mirror_np[0, bt.base + target])
+    n_blocks = (4, 8, 9, 12, 16, 16, 2, 10)
+    for mode, want_n in (("compiled", 1),
+                         ("compiled_dbuf", -(-16 // tc.DBUF_CHUNK))):
+        row = f"gather_chain_partial_commit / {mode}"
+        K.corrupt([(0, bt.base + target, WILD_TRANSLATION)])
+        cs = [K.kvs.post("paged_kv_fetch", [n, i * K.slot])
+              for i, n in enumerate(n_blocks)]
+        picked, n, wall = K.ring(mode=mode)
+        if n != want_n:
+            raise AssertionError(f"[contracts] {row}: tiara_gather "
+                                 f"launched {n} times, expected {want_n}")
+        for c, nb in zip(cs, n_blocks):
+            if nb > j:
+                K.expect_fault(row, c, opcode=Op.MEMCPY, device=0,
+                               addr=WILD_TRANSLATION)
+            elif not c.ok or c.ret != nb:
+                raise AssertionError(f"[contracts] {row}: seq {c.seq}")
+        # the faulting lanes committed their first j blocks
+        for c in cs[2:4]:
+            done = K.kvs.read_region("reply", offset=c.params[1],
+                                     count=(j + 1) * K.kv.block_words)
+            first = K.kv.reference(K.mirror_np, K.kvs.view, K.table,
+                                   K.blocks[:j])
+            if not np.array_equal(done[:j * K.kv.block_words], first):
+                raise AssertionError(f"[contracts] {row}: partial commit")
+        K.hold(row, cs, (), picked, n, wall)
+        K.write(K.kvs, "blocktable", [orig], offset=target)
+        K.kvs.reset()
+
+
+def contract_failed_memcpy(K):
+    """MEMCPY to or from a failed device, sync and async: STATUS_OK,
+    ERR_REG bit 0 set, the copy dropped, execution continues; the same
+    copies on the healthy device land."""
+    from repro_torch.core import faults, isa
+    for engine in ("auto", "serial"):
+        row = f"failed_device_memcpy / {engine}"
+        K.ep.inject(faults.fail_devices(1))
+        cs = []
+        for dev in (1, 0):
+            for i, op in enumerate(("rcpy_src", "arcpy_src", "rcpy_dst",
+                                    "arcpy_dst")):
+                cs.append(K.gws.post(op, [dev, 64 + 32 * dev + 8 * i]))
+        picked, n, wall = K.ring(mode=engine)
+        for c in cs:
+            err = int(c.regs[isa.ERR_REG]) & 1
+            if not c.ok or c.ret != 7 or err != (c.params[0] == 1):
+                raise AssertionError(f"[contracts] {row}: seq {c.seq} "
+                                     f"status {c.status} ERR_REG {err}")
+        if K.gws.in_error:
+            raise AssertionError(f"[contracts] {row}: degraded mode must "
+                                 f"not error the session")
+        K.hold(row, cs, {1}, picked, n, wall)
+        K.ep.revive()
+
+
+def contract_session_state(K):
+    """A torn next-pointer faults a graph walk; the session's later posts
+    retire STATUS_FLUSHED at once (``event.wave == -1``) until
+    ``reset()``; after the reset and the repair the same walk is ok."""
+    from repro_torch.core import isa
+    row = "flush_until_reset"
+    o = K.orders[0]
+    g = K.gws.view["graph"]
+    start = int(o[0])
+    word = g.base + start * 8 + 1
+    orig = int(K.mirror_np[0, word])
+    K.corrupt([(0, word, -999_999)])
+    bad = K.gws.post("graph_walk", [start * 8, 4, 0])
+    picked, n, wall = K.ring()
+    if not bad.faulted or K.gws.error != bad.fault:
+        raise AssertionError(f"[contracts] {row}: the torn walk")
+    flushed = [K.gws.post("graph_walk", [start * 8, 2, 8 * i])
+               for i in range(3)]
+    if any(not c.done or c.status != isa.STATUS_FLUSHED
+           or c.event.wave != -1 for c in flushed):
+        raise AssertionError(f"[contracts] {row}: posts in error state")
+    if K.ep.outstanding:
+        raise AssertionError(f"[contracts] {row}: a flushed post queued")
+    K.hold(row, [bad] + flushed, (), picked, n, wall)
+    K.gws.reset()
+    K.write(K.gws, "graph", [orig], offset=start * 8 + 1)
+    healed = K.gws.post("graph_walk", [start * 8, 12, 0])
+    picked, n, wall = K.ring()
+    if not healed.ok or healed.ret != K.gw.reference(o, start, 12):
+        raise AssertionError(f"[contracts] {row}: the healed walk")
+    K.hold("reset_and_repair", [healed], (), picked, n, wall)
+
+
+def contract_split_phase(K):
+    """Split-phase retirement of card waves: a ``wait=False`` pair whose
+    second wave reads the first's writes, retired by ``wait_any`` then
+    ``poll_cq``; a poisoned materialization requeues the wave intact and
+    loses no CQE; lost doorbells retry with the seeded jitter, and their
+    exhaustion raises with the wave requeued and the pool untouched."""
+    from repro_torch.core import faults
+    ep = K.ep
+    # 1. the pair
+    row = "split_phase_pair"
+    K.sync()
+    n0 = K.tg.COUNTS["tiara_gather"]
+    t = time.perf_counter()
+    off = 8 * 77 + 5
+    a = [K.wload(0, off=off, slot=200)] + \
+        [K.kvs.post("paged_kv_fetch", [16, i * K.slot]) for i in range(2)]
+    d0 = ep.last_decision
+    h1 = ep.doorbell(wait=False)
+    picked = K.picked("auto", d0)
+    b = [K.gws.post("rload", [200])]
+    h2 = ep.doorbell(wait=False)
+    first = ep.wait_any()
+    if sorted(c.seq for c in first) != sorted(c.seq for c in a) or \
+            not h1.done or any(c.done for c in b):
+        raise AssertionError(f"[contracts] {row}: wait_any retired "
+                             f"{[c.seq for c in first]}")
+    got = K.gws.poll_cq()
+    while b[0] not in got:                  # non-blocking, until it lands
+        got += K.gws.poll_cq()
+    K.sync()
+    wall = time.perf_counter() - t
+    if not h2.done or b[0].ret != K.mirror_np[0, K.gws.view["graph"].base
+                                             + off]:
+        raise AssertionError(f"[contracts] {row}: the second wave did not "
+                             f"read the first's write")
+    if [c.seq for c in got] != [a[0].seq, b[0].seq]:
+        raise AssertionError(f"[contracts] {row}: poll_cq gave "
+                             f"{[c.seq for c in got]}")
+    K.hold(row, a + b, (), picked, K.tg.COUNTS["tiara_gather"] - n0, wall,
+           polled=got)
+    # 2. a poisoned materialization
+    row = "poison_materialize"
+    cs = [K.kvs.post("paged_kv_fetch", [16, 0]),
+          K.gws.post("graph_walk", [int(K.orders[0][3]) * 8, 5, 0])]
+    n0, d0 = K.tg.COUNTS["tiara_gather"], ep.last_decision
+    t = time.perf_counter()
+    ep.doorbell(wait=False)
+    picked = K.picked("auto", d0)
+    ep.inject(faults.poison_materialize(1))
+    try:
+        ep.wait_all()
+    except faults.InjectedEngineError:
+        pass
+    else:
+        raise AssertionError(f"[contracts] {row}: the poison did not fire")
+    if any(c.done for c in cs) or ep.in_flight_waves != 1:
+        raise AssertionError(f"[contracts] {row}: the wave was lost")
+    if ep.wait_all() != len(cs):
+        raise AssertionError(f"[contracts] {row}: retry retired the wrong "
+                             f"count")
+    K.sync()
+    K.hold(row, cs, (), picked, K.tg.COUNTS["tiara_gather"] - n0,
+           time.perf_counter() - t)
+    # 3. lost doorbells
+    row = "dropped_doorbells"
+    del K.slept[:]
+    c = K.gws.post("graph_walk", [int(K.orders[0][9]) * 8, 3, 0])
+    ep.inject(faults.drop_doorbells(2))
+    picked, n, wall = K.ring()
+    if not c.ok or len(K.slept) != 2 or \
+            not (0.001 <= K.slept[0] <= 0.0015) or \
+            not (0.002 <= K.slept[1] <= 0.003):
+        raise AssertionError(f"[contracts] {row}: backoffs {K.slept}")
+    K.hold(f"{row} / absorbed", [c], (), picked, n, wall)
+    c2 = K.kvs.post("paged_kv_fetch", [16, 2 * K.slot])
+    ep.inject(faults.drop_doorbells(4))
+    try:
+        ep.doorbell()
+    except faults.TransientError:
+        pass
+    else:
+        raise AssertionError(f"[contracts] {row}: exhaustion did not raise")
+    if c2.done or ep.outstanding != 1 or len(K.slept) != 2 + 3:
+        raise AssertionError(f"[contracts] {row}: the wave was not "
+                             f"requeued")
+    K.check_pool(row)                       # untouched by the lost launch
+    picked, n, wall = K.ring()
+    K.hold(f"{row} / exhausted, then rung", [c2], (), picked, n, wall)
+
+
+def _drive_loop(K, loop, ceilings):
+    """Drain a serving loop by forced pumps, holding each launched wave's
+    cost-model price to its summed certified ceiling."""
+    while loop.backlog:
+        rep = loop.pump(force=True)
+        if rep.launched:
+            picked = loop._launched[-rep.launched:]
+            ceiling = sum(K.ep.registry[c.op_id].certificate.wcet_latency_us
+                          for c in picked)
+            if rep.predicted_us > ceiling:
+                raise AssertionError(f"wave priced {rep.predicted_us} us "
+                                     f"over its certified {ceiling} us")
+            ceilings.append((rep.predicted_us, ceiling))
+        elif loop.backlog:
+            K.vc.advance(0.001)
+    return loop.drain()
+
+
+def contract_serving_loop(K):
+    """The serving loop on the virtual clock: EAGAIN from an empty token
+    bucket, a full admitted queue and a full bounded SQ; shedding over
+    the watermark (lowest weight, newest first); TIMEOUT at admission,
+    pump and drain; a statically infeasible deadline never launched;
+    and the exactly-one-CQE identity."""
+    from repro_torch.core import isa
+    from repro_torch.core.serving_loop import (ServingConfig, ServingLoop,
+                                               TenantQoS)
+    ep = K.ep
+    ceilings = []
+
+    def identity(row, st, n):
+        total = st.executed + st.flushed + st.timed_out + st.rejected \
+            + st.shed
+        if st.submitted != n or total != st.submitted:
+            raise AssertionError(f"[contracts] {row}: CQE identity {st}")
+
+    def run(row, cs, loop, n_submitted):
+        K.sync()
+        d0, n0 = ep.last_decision, K.tg.COUNTS["tiara_gather"]
+        t = time.perf_counter()
+        st = _drive_loop(K, loop, ceilings)
+        ep.wait_all()
+        K.sync()
+        identity(row, st, n_submitted)
+        K.hold(row, cs, (), K.picked("auto", d0),
+               K.tg.COUNTS["tiara_gather"] - n0, time.perf_counter() - t)
+        return st
+
+    # 1. admission rejects
+    row = "admission_eagain"
+    loop = ServingLoop(ep, ServingConfig(max_pending=4, ring_size=64,
+                                         ring_age_s=1e9, min_efficiency=2.0),
+                       qos={"gw": TenantQoS(rate=10.0, burst=2)})
+    ep.max_sq_depth = 1
+    a = [loop.submit("gw", "wload", [8 * i + 1, 8 * i, 0])
+         for i in range(3)]                          # the bucket empties
+    b = [loop.submit("kv", "paged_kv_fetch", [4, i * K.slot])
+         for i in range(5)]                          # the queue fills
+    d = [K.kvs.post("paged_kv_fetch", [4, (5 + i) * K.slot])
+         for i in range(2)]                          # the SQ fills
+    ep.max_sq_depth = None
+    eagain = [c.rejected and c.event.wave == -1 for c in a + b + d]
+    if eagain != [False, False, True] + [False] * 4 + [True, False, True]:
+        raise AssertionError(f"[contracts] {row}: EAGAIN {eagain}")
+    K.vc.advance(0.1)                                # one token back
+    a.append(loop.submit("gw", "wload", [8 * 3 + 1, 8 * 3, 0]))
+    run(row, a + b + d, loop, 9)
+    # 2. load shedding
+    row = "load_shed"
+    loop = ServingLoop(ep, ServingConfig(ring_size=64, ring_age_s=1e9,
+                                         min_efficiency=2.0,
+                                         shed_watermark=6),
+                       qos={"gw": TenantQoS(weight=2.0),
+                            "kv": TenantQoS(weight=1.0)})
+    g = [loop.submit("gw", "wload", [8 * i + 2, 8 * i, 0])
+         for i in range(4)]
+    k = [loop.submit("kv", "paged_kv_fetch", [4, i * K.slot])
+         for i in range(4)]
+    rep = loop.pump()
+    if rep.shed != 2 or not (k[3].rejected and k[2].rejected) or \
+            any(c.done for c in g + k[:2]):
+        raise AssertionError(f"[contracts] {row}: shed {rep.shed}")
+    st = run(row, g + k, loop, 8)
+    if st.shed != 2:
+        raise AssertionError(f"[contracts] {row}: stats {st}")
+    # 3. deadlines at admission, pump and drain
+    row = "deadline_timeout"
+    loop = ServingLoop(ep, ServingConfig(ring_size=64, ring_age_s=1e9,
+                                         min_efficiency=2.0))
+    cs = [loop.submit("gw", "wload", [1, 0, 0], deadline_s=0.0)]
+    cs.append(loop.submit("gw", "wload", [2, 8, 0], deadline_s=0.01))
+    cs += [loop.submit("kv", "paged_kv_fetch", [16, i * K.slot])
+           for i in range(2)]
+    K.vc.advance(0.02)
+    if loop.pump().timed_out != 1 or not cs[1].timed_out:
+        raise AssertionError(f"[contracts] {row}: the pump's sweep")
+    late = K.gws.post("wload", [3, 16, 0], deadline_s=0.01)
+    K.vc.advance(0.02)
+    if ep.doorbell() != 1 or not late.timed_out or late.event.wave != -1:
+        raise AssertionError(f"[contracts] {row}: the drain's check")
+    if not (cs[0].timed_out and cs[0].event.wave == -1):
+        raise AssertionError(f"[contracts] {row}: admission")
+    st = run(row, cs + [late], loop, 4)
+    if st.timed_out != 2:
+        raise AssertionError(f"[contracts] {row}: stats {st}")
+    # 4. a statically infeasible deadline, and the check switched off
+    op = K.kvs.op_id("paged_kv_fetch")
+    wcet_s = ep.registry[op].certificate.wcet_latency_us * 1e-6
+    for check in (True, False):
+        row = f"wcet_deadline / admission_wcet={check}"
+        loop = ServingLoop(ep, ServingConfig(ring_size=2, ring_age_s=0.0,
+                                             admission_wcet=check))
+        c = loop.submit("kv", "paged_kv_fetch", [16, 0],
+                        deadline_s=0.25 * wcet_s)
+        if check != (c.done and c.status == isa.STATUS_TIMEOUT
+                     and c.event.wave == -1 and loop.stats.launched == 0):
+            raise AssertionError(f"[contracts] {row}: {c.status}")
+        st = run(row, [c], loop, 1)
+        if check == (st.launched != 0):
+            raise AssertionError(f"[contracts] {row}: launched "
+                                 f"{st.launched}")
+    return ceilings
+
+
+def contract_certificates(K, ceilings):
+    """Registration refuses an operator over the budget, naming its pc
+    and resource; ``wave_us`` clamps to the certified ceiling on the
+    card's measured EngineCost, as every loop wave above was."""
+    from repro_torch.core.registry import RegistrationError
+    row = "certificate_registration"
+    try:
+        K.gws.register(_hog(K.gws.view))
+    except RegistrationError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"[contracts] {row}: the hog registered")
+    if not all(s in msg for s in ("hog", "pc", "cycles", "LOAD")):
+        raise AssertionError(f"[contracts] {row}: {msg}")
+    log(f"[contracts] {row}: refused: {msg.splitlines()[0][:160]}")
+    row = "certificate_wave_us"
+    m = K.ep.cost_model
+    op = K.kvs.op_id("paged_kv_fetch")
+    cert_us = K.ep.registry[op].certificate.wcet_latency_us
+    vop = K.ep.registry[op].verified
+    clamps = []
+    for batch in (1, 8, 256):
+        free = m.wave_us(batch=batch, step_bound=vop.step_bound, key=op)
+        for ceiling in (0.5 * free, batch * cert_us, 10 * free):
+            got = m.wave_us(batch=batch, step_bound=vop.step_bound, key=op,
+                            cert_ceiling_us=ceiling)
+            if got != min(free, ceiling):
+                raise AssertionError(f"[contracts] {row}: {got} for "
+                                     f"{free} under {ceiling}")
+            clamps.append((batch, free, ceiling, got))
+    if not ceilings or any(p > c for p, c in ceilings):
+        raise AssertionError(f"[contracts] {row}: loop waves {ceilings}")
+    log(f"[contracts] {row}: on the card's EngineCost (launch "
+        f"{m.cost.launch_us:.1f} us) a paged_kv_fetch wave of 1 / 8 / 256 "
+        f"prices {', '.join(f'{c[1]:.1f}' for c in clamps[::3])} us, each "
+        f"clamped to its ceiling; {len(ceilings)} loop waves priced at "
+        f"most their summed certified WCET; {K.card}")
+    K.rows[row] = dict(clamps=clamps, loop_waves=ceilings)
+
+
+def phase_contracts(dev, card):
+    """Phase 15: the fault table, split-phase completion, the serving
+    loop's admission and the certificates on a card-resident pool, every
+    wave held to pyvm; then the port's quickstart on the card."""
+    import importlib.util
+    t0 = time.perf_counter()
+    K = _Contracts(dev, card)
+    contract_word_faults(K)
+    contract_gather_chain(K)
+    contract_failed_memcpy(K)
+    contract_session_state(K)
+    contract_split_phase(K)
+    ceilings = contract_serving_loop(K)
+    contract_certificates(K, ceilings)
+    rows, n_rows = K.rows, len(K.rows)
+    rows_s = time.perf_counter() - t0
+    del K                                  # the pool and its mirror
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", os.path.join(HERE, "examples",
+                                         "quickstart_torch.py"))
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    quick = qs.main(["--device", str(dev)])
+    quick_s = time.perf_counter() - t
+    log(f"[contracts] phase 15: {rows_s:.1f} s for {n_rows} rows "
+        f"(set-up included), quickstart_torch on the card {quick_s:.1f} s "
+        f"({quick['walls']}); {card}")
+    return dict(rows=rows, seconds=rows_s, quickstart=quick,
+                quickstart_s=quick_s)
+
+
+# ---------------------------------------------------------------------------
 # Phase 13: the sharded pool and the distributed layer
 # ---------------------------------------------------------------------------
 
@@ -4257,6 +4956,13 @@ def main() -> int:
     if counts["tiara_gather"] < 1:
         raise AssertionError("the endpoint path never launched tiara_gather")
     log(f"[launches] endpoint path: {counts}")
+    kernels.reset_launch_counts()           # the contracts' path starts here
+    contracts = phase_contracts(dev, card)
+    ccounts = kernels.launch_counts()       # ... and ends here
+    if ccounts["tiara_gather"] < 1:
+        raise AssertionError("the contracts' path never launched "
+                             "tiara_gather")
+    log(f"[launches] contracts' path: {ccounts}")
     # the serving paths reset and read the counts around each resolver's
     # run; their host runs launch no tiara_gather
     runs, cpu_err, tiny_gathers = phase_serving(dev)
@@ -4301,7 +5007,8 @@ def main() -> int:
         for k in counts:
             if k != "flash_attention_bwd" and path[k] < 1:
                 raise AssertionError(f"a serving path never launched {k}")
-    kinfo["launches"] = counts["tiara_gather"] + serving["tiara_gather"] \
+    kinfo["launches"] = counts["tiara_gather"] + ccounts["tiara_gather"] \
+        + serving["tiara_gather"] \
         + scout_counts["tiara_gather"] + sharded["tiara_gather_launches"]
     jamba_counts = jamba["run"]["counts"]
     log(f"[launches] Jamba path (prefill + {RECURRENT_STEPS} decode steps): "
@@ -4351,6 +5058,7 @@ def main() -> int:
                    "kernels": [kinfo, paged, flash],
                    "wave_wall_s": walls, "wave_launches": launches,
                    "wave_engine": ran, "endpoint_launches": counts,
+                   "contracts": contracts, "contracts_launches": ccounts,
                    "serving": {r: {k: v for k, v in run.items() if k != "out"}
                                for r, run in runs.items()},
                    "card_vs_cpu_max_abs_err": cpu_err,

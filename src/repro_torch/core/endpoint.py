@@ -980,10 +980,10 @@ class TiaraEndpoint:
                 f"'mixed'); got mode {mode!r}")
         if self._pending_corrupt:
             # injected pre-wave corruption (stale translations, torn
-            # pointers) lands in the pool before any request sees it
-            mem = self.host_mem()
+            # pointers) lands in the pool before any request sees it,
+            # word by word where the pool lies (no download of the pool)
             for d, w, v in self._pending_corrupt:
-                mem[d, w] = v
+                self._write_words(d, w, np.asarray([v], dtype=np.int64))
             self._pending_corrupt = []
         now = self._clock()
         wave: List[Completion] = []

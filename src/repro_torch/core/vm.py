@@ -903,7 +903,17 @@ class _Engine:
                         torch.full_like(s.status, isa.STATUS_FELL_OFF)))
         return VMResult(mem=memx[:-1].view(n_dev, pool_words), ret=s.ret,
                         status=status, steps=s.steps, regs=s.regs,
-                        fault=s.fault)
+                        fault=_op_local_fault(s.fault, pc0))
+
+
+def _op_local_fault(fault: torch.Tensor, pc0: torch.Tensor) -> torch.Tensor:
+    """FaultInfo rows with each faulting pc counted from the lane's own
+    operator entry (the merged store's pc less ``pc0``), as pyvm and the
+    single-op engines report it: the same post gets the same FaultInfo
+    whichever engine the cost model picks."""
+    pc = fault[:, 0]
+    local = torch.where(pc >= 0, pc - pc0, pc)
+    return torch.cat([local[:, None], fault[:, 1:]], dim=1)
 
 
 def _build_engine(codes: Sequence[np.ndarray], fuels: Sequence[int],
@@ -1125,7 +1135,7 @@ class _ShardedEngine:
                         torch.full_like(s.status, isa.STATUS_FELL_OFF)))
         return VMResult(mem=memx[:-1].view(1, pool_words), ret=s.ret,
                         status=status, steps=s.steps, regs=s.regs,
-                        fault=s.fault)
+                        fault=_op_local_fault(s.fault, pc0))
 
 
 def _build_sharded_engine(codes: Sequence[np.ndarray], fuels: Sequence[int],

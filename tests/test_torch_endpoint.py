@@ -305,7 +305,7 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py"]
+        [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
     assert len(files) > 15
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     for mod in ("configs/__init__", "models/transformer", "models/attention",

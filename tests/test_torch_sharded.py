@@ -303,9 +303,16 @@ def test_jax_sharded_engine_at_one_device_matches_port():
     want = jvm.invoke_sharded_mixed(jops, pair.jep.regions, pool, jplan,
                                     params)
     assert np.array_equal(np.asarray(want.mem), got.mem.full().numpy())
-    for f in ("ret", "status", "steps", "regs", "fault"):
+    for f in ("ret", "status", "steps", "regs"):
         assert np.array_equal(np.asarray(getattr(want, f)),
                               getattr(got, f)), f
+    # the reference's mixed engines report a fault's pc in the merged
+    # store; the port counts it from the operator's entry, as pyvm does
+    fault = np.array(want.fault)
+    entry = pair.jep.registry.dispatch_table()[ids]
+    fault[:, 0] = np.where(fault[:, 0] >= 0, fault[:, 0] - entry, -1)
+    assert fault[:, 0].max() >= 0                  # a lane did fault
+    assert np.array_equal(fault, got.fault)
 
 
 def test_sharded_per_session_fifo_and_repeat_doorbells():
