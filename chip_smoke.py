@@ -65,9 +65,22 @@ Phases:
    tokens, and flash's error against f64 at larger logits;
 3. the endpoint at real size: a compiled and a double-buffered compiled
    paged-KV wave (which must launch the kernel once and once per chunk),
-   a mixed auto wave, a split-phase pair, and a pyvm replay against a
-   downloaded copy of the pool, every result checked; each wave prints
-   the engine its doorbell ran and its kernel launches;
+   a mixed auto wave, the same wave forced onto the lockstep engine (one
+   ``lockstep_vm`` launch for 512 posts, replayed after on the kernel
+   and on the host loop side by side, bit-equal), a split-phase pair,
+   and a pyvm replay against a downloaded copy of the pool, every result
+   checked; each wave prints the engine its doorbell ran and its kernel
+   launches;
+16. (run here, after phase 3) ``lockstep_vm``, the lockstep engine as
+   one kernel per wave, against its plain version, the host loop, on the
+   card, bit for bit (mem, ret, status, steps, regs, fault), over the
+   seeded corpus of ``core/lockstep_corpus.py``: every stock operator
+   (``PagedKVFetch`` and ``MoEExpertGather`` with remote replies among
+   them), a contended CAS lock, the fault-table rows under interp,
+   batched and mixed, fuel below the verified bound, zero-trip and
+   nested loops, and random verified operators, at B of 1, 7, 64, 1024
+   and 1500; per wave the macro-steps, both routes' walls and the
+   launches (one ``lockstep_vm``, no ``tiara_gather``);
 4. the serving loop on a virtual clock with its exactly-one-CQE
    identity;
 15. (run here, after phase 4) the main path's contracts on the card, on
@@ -87,13 +100,17 @@ Phases:
    in ``wave_us`` on the card's measured ``EngineCost``.  Every wave's
    posts are held to pyvm replayed on a host mirror, the whole pool to
    the mirror bit for bit, and every post to exactly one CQE; one line
-   per row with the engine, the ``tiara_gather`` launches and the
-   wave's wall.  Then ``examples/quickstart_torch.py`` on the card;
+   per row with the engine, the ``tiara_gather`` and ``lockstep_vm``
+   launches and the wave's wall; the interp, batched and mixed rows (one
+   ``lockstep_vm`` launch each) are replayed after on both routes side
+   by side.  Then ``examples/quickstart_torch.py`` on the card;
 5. tiny-lm serving under both resolvers: identical tokens, every handle
    ok, ``flash_attention`` launched 12 times per prefill and
    ``paged_attention`` 12 times per decode step, ``tiara_gather`` at
    least once in every tiara decode step; prefill time per bucket,
-   decode-step time and tokens/s; then the port on the card against the
+   decode-step time and tokens/s (a tiara kernel in every tiara step:
+   ``tiara_gather`` for the compiled traces the cost model picks, or
+   ``lockstep_vm`` for a lockstep wave); then the port on the card against the
    port on the CPU, same weights, on a 64-token prompt and 8
    teacher-forced decode steps;
 6. Scout: both attention kernels at its exact bf16 path shapes against
@@ -105,12 +122,17 @@ Phases:
    (LOGIT_STDS); 8 requests (prompts 16..1536, the
    buckets 128..2048) under both resolvers: identical tokens,
    ``flash_attention`` 4 times per prefill, ``paged_attention`` 4 times
-   per decode step, ``tiara_gather`` in every tiara decode step and never
-   under host, expert gathers executed; the prefill logits of the CUDA
+   per decode step, a tiara kernel in every tiara decode step (its
+   16-tenant waves run as one ``lockstep_vm`` launch) and never under
+   host, expert gathers executed; the tiara run again with its lockstep
+   waves on the host loop, the kernel's plain version (the same tokens,
+   its step walls beside the kernel's); the prefill logits of the CUDA
    kernels against the plain versions on the card, position by position,
    the plain run on the kernel run's expert choices (see
    ``SCOUT_LOGIT_TOL``); then ``tiara_gather`` timed at the shapes
-   the two serving resolvers gave it;
+   the two serving resolvers gave it, and ``lockstep_vm`` at Scout's
+   resolver wave (the launch alone, the whole call, the host loop, the
+   wave's byte bound and the launch floor of a one-lane wave);
 7. Jamba, after Scout's weights are freed: both attention kernels at its
    bf16 path shapes against their plain versions (within
    ``SCOUT_ATTN_TOL``), timed with their bounds and SDPA; 8 greedy
@@ -1157,12 +1179,13 @@ def decode_only(dev, label):
 
 class _Timed:
     """Wall time of an engine's prefills (by bucket) and decode steps,
-    each ended by ``torch.cuda.synchronize()``, and the tiara_gather
-    launches of every decode step."""
+    each ended by ``torch.cuda.synchronize()``, and the tiara_gather and
+    lockstep_vm launches of every decode step."""
 
     def __init__(self, eng):
         from repro_torch import kernels
         self.prefill_ms, self.step_ms, self.step_gathers = {}, [], []
+        self.step_waves = []
         self._in_prefill = 0.0
         prefill, step = eng._prefill, eng.step
 
@@ -1183,15 +1206,20 @@ class _Timed:
             decoding = bool(eng.waiting) or any(eng.active)
             torch.cuda.synchronize()
             self._in_prefill = 0.0
-            n0 = kernels.launch_counts()["tiara_gather"]
+            c0 = kernels.launch_counts()
             t = time.perf_counter()
             out = step()
             torch.cuda.synchronize()
             if decoding:
                 self.step_ms.append((time.perf_counter() - t) * 1e3
                                     - self._in_prefill)
-                self.step_gathers.append(
-                    kernels.launch_counts()["tiara_gather"] - n0)
+                c1 = kernels.launch_counts()
+                self.step_gathers.append(c1["tiara_gather"]
+                                         - c0["tiara_gather"])
+                # (.get: a parent tree timed by --decode-only may have no
+                # lockstep_vm)
+                self.step_waves.append(c1.get("lockstep_vm", 0)
+                                       - c0.get("lockstep_vm", 0))
             return out
         eng._prefill, eng.step = timed_prefill, timed_step
 
@@ -1202,16 +1230,19 @@ def serve_both(tag, cfg, params, prompts, max_new, dev, *,
     max_seq=SERVE_MAX_SEQ), greedy, under resolver="host" then "tiara".
     Fails unless every sequence finishes ok with ``max_new`` tokens,
     ``flash_attention`` launched ``n_layers`` times per prefill and
-    ``paged_attention`` ``n_layers`` times per decode step,
-    ``tiara_gather`` in every tiara decode step and never under host, an
-    MoE model's tiara run executed expert gathers, and both runs gave the
-    same tokens.  The launch counts are set to 0 just before each run and
-    read just after it.  With ``profile_prompts``, one decode step of
-    those prompts is profiled after each run.  Returns the runs and the
-    tiara run's first window gather of each engine."""
+    ``paged_attention`` ``n_layers`` times per decode step, a tiara
+    kernel (``tiara_gather`` for the compiled trace's waves, one
+    ``lockstep_vm`` launch for a lockstep wave) in every tiara decode step
+    and neither under host, an MoE model's tiara run executed expert
+    gathers, and both runs gave the same tokens.  The launch counts are
+    set to 0 just before each run and read just after it.  With
+    ``profile_prompts``, one decode step of those prompts is profiled
+    after each run.  Returns the runs, the tiara run's first window
+    gather of each engine and its first lockstep wave (None if it ran
+    none)."""
     from repro_torch import kernels
     from repro_torch.serving import ServingEngine
-    runs, gathers = {}, None
+    runs, gathers, first_wave = {}, None, None
     for resolver in ("host", "tiara"):
         eng = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
                             max_seq=SERVE_MAX_SEQ, eos_id=-1,
@@ -1227,7 +1258,8 @@ def serve_both(tag, cfg, params, prompts, max_new, dev, *,
                 return kv, ex
             eng.resolver.resolve_step = counted
         rec = _GatherCalls()
-        with rec:
+        waves = _LockstepWaves(keep_first=True)
+        with rec, waves:
             kernels.reset_launch_counts()    # the serving path starts here
             t = time.perf_counter()
             handles = [eng.submit(p, max_new=max_new) for p in prompts]
@@ -1252,15 +1284,17 @@ def serve_both(tag, cfg, params, prompts, max_new, dev, *,
                 f"{tag} {resolver}: paged_attention launched "
                 f"{counts['paged_attention']} times in {n_steps} decode "
                 f"steps, expected {cfg.n_layers} per step")
-        if resolver == "host" and counts["tiara_gather"] != 0:
-            raise AssertionError(f"{tag} host: tiara_gather launched")
+        if resolver == "host" and (counts["tiara_gather"]
+                                   or counts["lockstep_vm"]):
+            raise AssertionError(f"{tag} host: a tiara kernel launched")
         # copies: a profiled step below would add to the live lists
         run = dict(out=out, counts=counts, wall_s=wall,
                    tokens=sum(len(v) for v in out.values()),
                    prefill_ms={int(k): list(v)
                                for k, v in sorted(timed.prefill_ms.items())},
                    step_ms=list(timed.step_ms),
-                   step_gathers=list(timed.step_gathers))
+                   step_gathers=list(timed.step_gathers),
+                   step_waves=list(timed.step_waves))
         plens = [len(p) for p in prompts]
         log(f"[{tag}] resolver={resolver}: {len(prompts)} requests "
             f"(prompts {min(plens)}-{max(plens)} tokens), {run['tokens']} "
@@ -1274,18 +1308,21 @@ def serve_both(tag, cfg, params, prompts, max_new, dev, *,
             f"min {min(timed.step_ms):.2f}, max {max(timed.step_ms):.2f}")
         if resolver == "tiara":
             st = eng.resolver.loop.stats
-            if min(timed.step_gathers) < 1:
+            if min(g + w for g, w in zip(timed.step_gathers,
+                                         timed.step_waves)) < 1:
                 raise AssertionError(f"{tag} tiara: a decode step launched "
-                                     f"no tiara_gather")
+                                     f"no tiara kernel")
             if eng.resolver.moe is not None and expert_gathers[0] < 1:
                 raise AssertionError(f"{tag} tiara: no expert gather")
             run.update(executed=st.executed, expert_gathers=expert_gathers[0],
                        gather_calls=rec.counts)
-            gathers = rec.first
-            log(f"[{tag}] resolver=tiara: tiara_gather launches per decode "
-                f"step median {int(np.median(timed.step_gathers))} (by "
-                f"engine: {rec.counts}); resolver.loop.stats.executed "
-                f"{st.executed}, expert gathers checked {expert_gathers[0]}")
+            gathers, first_wave = rec.first, waves.first
+            log(f"[{tag}] resolver=tiara: per decode step median "
+                f"{int(np.median(timed.step_gathers))} tiara_gather (by "
+                f"engine: {rec.counts}) and "
+                f"{int(np.median(timed.step_waves))} lockstep_vm launches; "
+                f"resolver.loop.stats.executed {st.executed}, expert "
+                f"gathers checked {expert_gathers[0]}")
         if profile_prompts is not None:
             prof = run["profile"] = profile_step(eng, profile_prompts)
             # the profiled step's wall carries the profiler's host cost
@@ -1307,7 +1344,51 @@ def serve_both(tag, cfg, params, prompts, max_new, dev, *,
                              f"'host'")
     log(f"[{tag}] tiara tokens == host tokens for all {len(prompts)} "
         f"requests")
-    return runs, gathers
+    return runs, gathers, first_wave
+
+
+def tiara_on_host_loop(tag, cfg, params, prompts, max_new, dev, want):
+    """The tiara run again with every lockstep wave on the kernel's plain
+    version, the host loop, on the card (``_Engine.run_kernel`` swapped
+    for ``run_host_loop`` for this run only): its decode-step walls
+    beside the kernel's, and the same tokens.  A comparison, not the main
+    path: its launches are taken back out of the counts."""
+    from repro_torch import kernels
+    from repro_torch.core import vm
+    from repro_torch.serving import ServingEngine
+    saved = kernels.launch_counts()
+    kernel = vm._Engine.run_kernel
+    vm._Engine.run_kernel = vm._Engine.run_host_loop
+    try:
+        eng = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
+                            max_seq=SERVE_MAX_SEQ, eos_id=-1,
+                            temperature=0.0, resolver="tiara", device=dev)
+        timed = _Timed(eng)
+        for p in prompts:
+            eng.submit(p, max_new=max_new)
+        out = eng.run_to_completion()
+        torch.cuda.synchronize()
+        waves = kernels.launch_counts()["lockstep_vm"] \
+            - saved["lockstep_vm"]
+    finally:
+        vm._Engine.run_kernel = kernel
+        _restore_counts(saved)
+    if out != want:
+        raise AssertionError(f"{tag} tiara on the host loop: tokens differ")
+    if waves:
+        raise AssertionError(f"{tag} tiara on the host loop launched "
+                             f"lockstep_vm")
+    r = dict(step_ms=list(timed.step_ms),
+             step_ms_median=float(np.median(timed.step_ms)),
+             step_gathers_median=float(np.median(timed.step_gathers)))
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[{tag}] resolver=tiara with its lockstep waves on the host loop "
+        f"(the kernel's plain version): decode step ms median "
+        f"{r['step_ms_median']:.2f}, min {min(timed.step_ms):.2f}, max "
+        f"{max(timed.step_ms):.2f}; {r['step_gathers_median']:.0f} "
+        f"tiara_gather launches a step; the same tokens")
+    return r
 
 
 def _tiny_prompts(cfg):
@@ -1333,10 +1414,10 @@ def phase_serving(dev):
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
         f"{cfg.vocab}, {n_params / 1e6:.1f}M f32 params from seed 0 "
         f"({time.perf_counter() - t:.1f} s)")
-    runs, gathers = serve_both("serving", cfg, params, _tiny_prompts(cfg),
-                               SERVE_NEW, dev)
+    runs, gathers, wave = serve_both("serving", cfg, params,
+                                     _tiny_prompts(cfg), SERVE_NEW, dev)
     cpu_err = card_vs_cpu(cfg, params, dev)
-    return runs, cpu_err, gathers
+    return runs, cpu_err, gathers, wave
 
 
 def card_vs_cpu(cfg, params, dev) -> float:
@@ -1700,12 +1781,16 @@ def phase_scout(dev):
     rng = np.random.default_rng(13)
     prompts = [list(map(int, rng.integers(1, cfg.vocab, n)))
                for n in rng.permutation(SCOUT_PLENS)]
-    runs, gathers = serve_both("scout", cfg, params, prompts, SCOUT_NEW,
-                               dev, profile_prompts=[p[:100]
-                                                     for p in prompts])
+    runs, gathers, wave = serve_both("scout", cfg, params, prompts,
+                                     SCOUT_NEW, dev,
+                                     profile_prompts=[p[:100]
+                                                      for p in prompts])
+    host_loop = tiara_on_host_loop("scout", cfg, params, prompts, SCOUT_NEW,
+                                   dev, runs["tiara"]["out"])
     logits = scout_logits(cfg, params, dev)
     return dict(n_params=n_params, weight_bytes=n_bytes, kernels=kern,
-                runs=runs, logits=logits), gathers
+                runs=runs, host_loop=host_loop, logits=logits), gathers, \
+        wave
 
 
 class _Routes:
@@ -2897,7 +2982,7 @@ def train_tiny(dev, root):
     losses = [m["loss"] for m in tr.metrics_log]
     want = dict(flash_attention=2 * cfg.n_layers * TRAIN_STEPS,
                 flash_attention_bwd=cfg.n_layers * TRAIN_STEPS,
-                paged_attention=0, tiara_gather=0)
+                paged_attention=0, tiara_gather=0, lockstep_vm=0)
     if counts != want:
         raise AssertionError(f"tiny-lm training launches {counts}, expected "
                              f"{want}: per step 12 forward, 12 under the "
@@ -3062,7 +3147,7 @@ def train_seamless(dev):
     n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
     want = dict(flash_attention=n_attn + 2 * cfg.n_layers,
                 flash_attention_bwd=n_attn, paged_attention=0,
-                tiara_gather=0)
+                tiara_gather=0, lockstep_vm=0)
     if any(c != want for c in step_counts):
         raise AssertionError(f"seamless training launches per step "
                              f"{step_counts}, expected {want}")
@@ -3269,8 +3354,9 @@ def phase_endpoint(dev):
     slot = 16 * kv.block_words
 
     from repro_torch.core import compile as tc
+    from repro_torch.kernels.lockstep_vm import kernel as lv
     from repro_torch.kernels.tiara_gather import kernel as tg
-    launches, ran = {}, {}
+    launches, ran, lockstep = {}, {}, {}
 
     def picked(asked, before):
         d = ep.last_decision
@@ -3283,14 +3369,17 @@ def phase_endpoint(dev):
         picked and the kernel launches it made."""
         torch.cuda.synchronize()
         d0, n0 = ep.last_decision, tg.COUNTS["tiara_gather"]
+        l0 = lv.COUNTS["lockstep_vm"]
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t
         launches[name] = tg.COUNTS["tiara_gather"] - n0
+        lockstep[name] = lv.COUNTS["lockstep_vm"] - l0
         ran[name] = picked(asked, d0)
         log(f"[wave] {name}: mode={asked} -> {ran[name]}; tiara_gather "
-            f"launches {launches[name]}; {walls[name] * 1e3:.1f} ms")
+            f"launches {launches[name]}, lockstep_vm {lockstep[name]}; "
+            f"{walls[name] * 1e3:.1f} ms")
         return out
 
     # 1. compiled paged-KV wave: the gather chain through the kernel, once
@@ -3325,6 +3414,25 @@ def phase_endpoint(dev):
     check_kv_slots(kvs, kv, host0, table, blocks, 256, slot)
     log("[endpoint] mixed wave (256 kv + 256 graph walk): every ret == "
         "reference")
+
+    # 2b. the same wave forced onto the lockstep engine: one lockstep_vm
+    #     launch runs all 512 posts (32 MiB of 8 KiB blocks copied inside
+    #     the wave); replayed after on both routes, side by side
+    kvs.write_region("reply", np.zeros(256 * slot, dtype=np.int64))
+    kc = [kvs.post("paged_kv_fetch", [16, i * slot]) for i in range(256)]
+    gc = [gws.post("graph_walk", [s * 8, 10, 8 * i])
+          for i, s in enumerate(starts)]
+    with _LockstepWaves() as rec:
+        wave("mixed_lockstep", "mixed", lambda: ep.doorbell(mode="mixed"))
+    if lockstep["mixed_lockstep"] != 1 or launches["mixed_lockstep"]:
+        raise AssertionError("the mixed wave did not run as one "
+                             "lockstep_vm launch")
+    if any(c.ret != 16 or not c.ok for c in kc) or \
+            [c.ret for c in gc] != want or not all(c.ok for c in gc):
+        raise AssertionError("lockstep mixed wave: rets wrong")
+    check_kv_slots(kvs, kv, host0, table, blocks, 256, slot)
+    sides = {"mixed_lockstep": side_by_side(
+        "phase 3's mixed wave (256 kv + 256 graph walk)", rec.take())}
 
     # 3. split-phase pair
     def split():
@@ -3398,7 +3506,236 @@ def phase_endpoint(dev):
         f"+ rejected {st.rejected} + shed {st.shed}; ok {st.ok}; "
         f"tiara_gather launches {launches['serving_64']}; "
         f"{walls['serving_64'] * 1e3:.1f} ms for the whole phase")
-    return walls, launches, ran
+    return walls, dict(tiara_gather=launches, lockstep_vm=lockstep), ran, \
+        sides
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the lockstep engine as one kernel per wave
+# ---------------------------------------------------------------------------
+
+#: the lockstep_vm kernel's source and the JAX engine it replaces (the
+#: dense engine's lax.while_loop over a wave)
+LOCKSTEP_SOURCE = "src/repro_torch/kernels/lockstep_vm/csrc/lockstep_vm.cu"
+LOCKSTEP_REPLACES = "src/repro/core/vm.py:1122"
+
+
+class _LockstepWaves:
+    """Keeps the operands of the last lockstep wave launched on the card
+    (``_Engine.run_kernel``): the engine, the input pool (the engine
+    never writes its input, so a reference keeps it as it was) and the
+    wave's arguments, so the wave can be replayed on both routes after
+    the run.  With ``keep_first`` it also keeps the first wave, with a
+    copy of its pool."""
+
+    def __init__(self, keep_first=False):
+        self.last = self.first = None
+        self.keep_first = keep_first
+
+    def __enter__(self):
+        from repro_torch.core import vm
+        self._orig = orig = vm._Engine.run_kernel
+
+        def run_kernel(eng, mem, params, homes, failed, op_sel):
+            snap = [np.array(a) if not isinstance(a, torch.Tensor)
+                    else a.clone() for a in (params, homes, failed, op_sel)]
+            self.last = dict(engine=eng, mem=mem, args=tuple(snap))
+            if self.keep_first and self.first is None:
+                self.first = dict(self.last, mem=mem.clone())
+            return orig(eng, mem, params, homes, failed, op_sel)
+        vm._Engine.run_kernel = run_kernel
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import vm
+        vm._Engine.run_kernel = self._orig
+
+    def take(self):
+        w, self.last = self.last, None
+        return w
+
+
+def _restore_counts(saved):
+    """Set every kernel's launch count back to ``saved`` (launches made to
+    compare a kernel with its plain version are not the main path's)."""
+    from repro_torch import kernels
+    for mod in kernels._modules():
+        for name in mod.COUNTS:
+            mod.COUNTS[name] = saved[name]
+
+
+def _same_wave(got, want) -> bool:
+    return torch.equal(got.mem, want.mem) and all(
+        torch.equal(getattr(got, f), getattr(want, f))
+        for f in ("ret", "status", "steps", "regs", "fault"))
+
+
+def side_by_side(tag, wave):
+    """Replay one wave on both routes, each timed by the host wall to
+    ``torch.cuda.synchronize()``: the kernel (one ``lockstep_vm`` launch)
+    and its plain version (the host loop).  Bit-equal, or raise.  The
+    replays' launches are taken back out of the counts."""
+    from repro_torch import kernels
+    saved = kernels.launch_counts()
+    eng, mem, args = wave["engine"], wave["mem"], wave["args"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = eng.run_kernel(mem, *args)
+    torch.cuda.synchronize()
+    k_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    want = eng.run_host_loop(mem, *args)
+    torch.cuda.synchronize()
+    h_ms = (time.perf_counter() - t) * 1e3
+    host_gathers = kernels.launch_counts()["tiara_gather"] \
+        - saved["tiara_gather"]
+    _restore_counts(saved)
+    if not _same_wave(got, want):
+        raise AssertionError(f"[lockstep] {tag}: the kernel differs from "
+                             f"the host loop")
+    row = dict(B=eng.B, macro_steps=int(got.steps.max()), kernel_ms=k_ms,
+               host_loop_ms=h_ms, host_loop_tiara_gather=host_gathers)
+    log(f"[lockstep] {tag}: B {eng.B}, {row['macro_steps']} macro-steps: "
+        f"kernel {k_ms:.2f} ms (1 launch), host loop {h_ms:.2f} ms "
+        f"({host_gathers} tiara_gather launches); bit-equal")
+    return row
+
+
+def wave_bytes(eng, mem, params, homes, failed, op_sel) -> int:
+    """The bytes one wave must move, from pyvm's trace of each lane run in
+    lane order on a host copy of the pool: the instruction store, the
+    region and slot tables and the wave's inputs read once, the outputs
+    written once, and every word each executed instruction reads or
+    writes in the pool (8 a LOAD or STORE, 16 a CAS or CAA, 16 a MEMCPY
+    word)."""
+    import types
+    from repro_torch.core import pyvm
+    from repro_torch.core.isa import Op
+    host = mem.cpu().numpy().copy()
+    p = np.asarray(_host_arr(params)).reshape(eng.B, -1)
+    h = np.asarray(_host_arr(homes)).reshape(eng.B)
+    f = {int(i) for i in np.flatnonzero(np.asarray(_host_arr(failed)))}
+    sel = np.asarray(_host_arr(op_sel)).reshape(eng.B)
+    rt = types.SimpleNamespace(
+        as_arrays=lambda: (eng.base_np, eng.mask_np, None))
+    n = eng.code_np.nbytes + eng.base_np.nbytes * 2 + 3 * eng.fuel_np.nbytes
+    n += p.nbytes + 3 * 8 * eng.B + eng.B * (3 + 16 + 4) * 8
+    per_op = {Op.LOAD: 8, Op.STORE: 8, Op.CAS: 16, Op.CAA: 16}
+    for b in range(eng.B):
+        s = int(np.clip(sel[b], 0, eng.n_ops - 1))
+        op = types.SimpleNamespace(
+            code=eng.code_np[eng.start_np[s]:eng.end_np[s]],
+            step_bound=int(eng.fuel_np[s]))
+        r = pyvm.run(op, rt, host, list(p[b]), home=int(h[b]), failed=f,
+                     record_trace=True, protect=eng.protect)
+        for ev in r.trace:
+            n += 16 * ev.n_words if ev.op == Op.MEMCPY else \
+                per_op.get(ev.op, 0)
+    return int(n)
+
+
+def _host_arr(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def lockstep_row(wave, scratch):
+    """The lockstep_vm row at one recorded main-path wave: the kernel's
+    device time (the launch alone, on operands prepared once: the wave
+    writes only its private pool, and the resolvers' waves read nothing
+    they write), the whole call's (operands and launch) and its plain
+    version's (CUDA events, L2 flushed), the byte bound of the wave, and
+    the launch floor: the kernel's device time for a one-lane wave that
+    retires at its first instruction."""
+    from repro_torch import kernels
+    from repro_torch.core import vm
+    from repro_torch.core.memory import Grant, packed_table
+    from repro_torch.core.program import OperatorBuilder
+    from repro_torch.core.verifier import verify
+    from repro_torch.kernels.lockstep_vm.kernel import lockstep_vm_kernel
+    saved = kernels.launch_counts()
+    eng, mem, args = wave["engine"], wave["mem"], wave["args"]
+    got = eng.run_kernel(mem, *args)
+    want = eng.run_host_loop(mem, *args)
+    torch.cuda.synchronize()
+    if not _same_wave(got, want):
+        raise AssertionError("[lockstep] the timed wave differs from the "
+                             "host loop")
+    err = max(int((getattr(got, f) - getattr(want, f)).abs().max())
+              for f in ("ret", "status", "steps", "regs", "fault"))
+    ops = eng.kernel_operands(mem, *args)
+    ms = time_cuda(lambda: lockstep_vm_kernel(**ops), scratch)
+    call_ms = time_cuda(lambda: eng.run_kernel(mem, *args), scratch)
+    plain_ms = time_cuda(lambda: eng.run_host_loop(mem, *args), scratch,
+                         reps=5, warmup=1)
+    rt = packed_table([("w", 64)])
+    b = OperatorBuilder("ret", n_params=1, regions=rt)
+    b.ret(b.param(0))
+    one = verify(b.build(), grant=Grant.all_of(rt), regions=rt)
+    e1 = vm._build_engine([one.code], [one.step_bound], rt, 1, 1)
+    m1 = torch.zeros((1, rt.pool_words), dtype=torch.int64, device=mem.device)
+    a1 = (np.zeros((1, 1), np.int64), np.zeros(1, np.int64),
+          np.zeros(1, bool), np.zeros(1, np.int64))
+    ops1 = e1.kernel_operands(m1, *a1)
+    floor_ms = time_cuda(lambda: lockstep_vm_kernel(**ops1), scratch)
+    moved = wave_bytes(eng, mem, *args)
+    _restore_counts(saved)
+    return dict(B=eng.B, macro_steps=int(got.steps.max()), ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
+                bytes_moved=moved,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                launch_floor_ms=floor_ms)
+
+
+def phase_lockstep(dev, card):
+    """Phase 16: the lockstep_vm kernel against the host loop on the
+    card, bit for bit (mem, ret, status, steps, regs, fault), over the
+    seeded corpus of ``core/lockstep_corpus.py``: every stock operator
+    (remote replies among them), a contended lock, the fault-table rows
+    under interp, batched and mixed, fuel below the bound, zero-trip and
+    nested loops, and random verified operators, at B of 1, 7, 64, 1024
+    and 1500.  Per wave: the macro-steps, both routes' walls and the
+    launches."""
+    from repro_torch import kernels
+    from repro_torch.core import lockstep_corpus as lc
+    t0 = time.perf_counter()
+    waves = lc.corpus(sizes=lc.SIZES, n_random=40)
+    rows, worst = [], 0
+    for w in waves:
+        eng = w.engine()
+        mem = torch.from_numpy(w.mem).to(dev)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        got = eng(mem, *w.args())                   # the main-path call
+        torch.cuda.synchronize()
+        k_ms = (time.perf_counter() - t) * 1e3
+        counts = kernels.launch_counts()
+        if counts["lockstep_vm"] != 1 or counts["tiara_gather"]:
+            raise AssertionError(f"[lockstep] {w.name}: launches {counts}")
+        t = time.perf_counter()
+        want = eng.run_host_loop(mem, *w.args())
+        torch.cuda.synchronize()
+        h_ms = (time.perf_counter() - t) * 1e3
+        if not _same_wave(got, want):
+            raise AssertionError(f"[lockstep] {w.name}: the kernel differs "
+                                 f"from the host loop")
+        rows.append(dict(name=w.name, B=w.B,
+                         macro_steps=int(got.steps.max()),
+                         statuses=sorted({int(s) for s in
+                                          got.status.tolist()}),
+                         kernel_ms=k_ms, host_loop_ms=h_ms,
+                         launches=counts["lockstep_vm"]))
+        worst = max(worst, int(got.steps.max()))
+        log(f"[lockstep] {w.name}: {rows[-1]['macro_steps']} macro-steps, "
+            f"statuses {rows[-1]['statuses']}; kernel {k_ms:.2f} ms "
+            f"({counts['lockstep_vm']} launch), host loop {h_ms:.2f} ms; "
+            f"bit-equal")
+    secs = time.perf_counter() - t0
+    log(f"[lockstep] phase 16: {len(rows)} waves (B {min(r['B'] for r in rows)}"
+        f"..{max(r['B'] for r in rows)}, up to {worst} macro-steps), each "
+        f"one lockstep_vm launch and no tiara_gather, bit-equal to the "
+        f"host loop; {secs:.1f} s; {card}")
+    return dict(rows=rows, seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -3479,8 +3816,9 @@ class _Contracts:
         from repro_torch.core import operators as ops
         from repro_torch.core.endpoint import TiaraEndpoint
         from repro_torch.core.serving_loop import VirtualClock
+        from repro_torch.kernels.lockstep_vm import kernel as lv
         from repro_torch.kernels.tiara_gather import kernel as tg
-        self.dev, self.card, self.tg = dev, card, tg
+        self.dev, self.card, self.tg, self.lv = dev, card, tg, lv
         self.kv = ops.PagedKVFetch(n_blocks_pool=131072, block_bytes=8192,
                                    max_req_blocks=16, reply_slots=256)
         self.gw = ops.GraphWalk(n_nodes=1 << 20, reply_words=8 * 256)
@@ -3534,13 +3872,23 @@ class _Contracts:
         if self.dev.type == "cuda":
             torch.cuda.synchronize()
 
+    def snap(self):
+        """The launch counts of the wave kernels now."""
+        return {"tiara_gather": self.tg.COUNTS["tiara_gather"],
+                "lockstep_vm": self.lv.COUNTS["lockstep_vm"]}
+
+    def since(self, c0):
+        """The wave kernels' launches since the snapshot ``c0``."""
+        return {k: v - c0[k] for k, v in self.snap().items()}
+
     def hold(self, row, cs, failed=(), decision=None, launches=None,
              wall=None, polled=()):
         """Hold the posts of ``cs`` that ran (``event.wave >= 0``) to pyvm
         on the mirror in (wave, seq) order — ret, status, steps,
         registers, FaultInfo — then the whole pool to the mirror bit for
         bit, and every post to exactly one CQE (``polled``: those the
-        row already took from the completion queues)."""
+        row already took from the completion queues).  ``launches``: the
+        row's launches of each wave kernel (:meth:`since`)."""
         from repro_torch.core import pyvm
         ep = self.ep
         vops = ep.registry.store_ops()
@@ -3566,12 +3914,16 @@ class _Contracts:
                                  f"per post")
         if self.kvs.poll_cq() or self.gws.poll_cq():
             raise AssertionError(f"[contracts] {row}: a CQE retired twice")
+        launches = launches or {}
         self.rows[row] = dict(
-            engine=decision, tiara_gather=launches,
+            engine=decision, tiara_gather=launches.get("tiara_gather"),
+            lockstep_vm=launches.get("lockstep_vm"),
             wall_ms=None if wall is None else wall * 1e3, posts=len(cs),
             ran=len(ran), statuses=sorted({int(c.status) for c in cs}))
         log(f"[contracts] {row}: engine {decision}; tiara_gather "
-            f"{launches}; wave {self.rows[row]['wall_ms']:.1f} ms; "
+            f"{launches.get('tiara_gather')}, lockstep_vm "
+            f"{launches.get('lockstep_vm')}; wave "
+            f"{self.rows[row]['wall_ms']:.1f} ms; "
             f"{len(cs)} posts, {len(ran)} ran, == pyvm and the pool bit "
             f"for bit; {self.card}" if wall is not None else
             f"[contracts] {row}: {len(cs)} posts, {len(ran)} ran, == pyvm "
@@ -3596,18 +3948,17 @@ class _Contracts:
                                  f"the pyvm replay at {bad}")
 
     def ring(self, **kw):
-        """One doorbell: the engine the doorbell ran, its tiara_gather
-        launches and its wall."""
+        """One doorbell: the engine the doorbell ran, its launches of
+        each wave kernel and its wall."""
         ep = self.ep
         self.sync()
-        d0, n0 = ep.last_decision, self.tg.COUNTS["tiara_gather"]
+        d0, c0 = ep.last_decision, self.snap()
         t = time.perf_counter()
         ep.doorbell(**kw)
         ep.wait_all()
         self.sync()
         wall = time.perf_counter() - t
-        return (self.picked(kw.get("mode", "auto"), d0),
-                self.tg.COUNTS["tiara_gather"] - n0, wall)
+        return self.picked(kw.get("mode", "auto"), d0), self.since(c0), wall
 
     def picked(self, mode, before):
         """The mode asked for and the engine ``ep.last_decision`` names
@@ -3686,10 +4037,18 @@ def contract_word_faults(K):
                                (1 if failed else None))
             if K.gws.error != want[0].fault or K.kvs.in_error:
                 raise AssertionError(f"[contracts] {row}: session state")
-            if engine in ("mixed", "segmented", "serial") and n < 1:
+            if engine in ("interp", "batched", "mixed") and \
+                    (n["lockstep_vm"] != 1 or n["tiara_gather"]):
+                raise AssertionError(f"[contracts] {row}: the lockstep "
+                                     f"wave made {n}, not one lockstep_vm "
+                                     f"launch")
+            if engine in ("segmented", "serial") and n["tiara_gather"] < 1:
                 raise AssertionError(f"[contracts] {row}: the kv posts "
                                      f"launched no tiara_gather")
             K.hold(row, cs, failed, picked, n, wall)
+            if engine in ("interp", "batched", "mixed"):
+                K.rows[row]["side_by_side"] = side_by_side(
+                    f"phase 15's {row}", K.rec.take())
             K.gws.reset()
             K.ep.revive()
 
@@ -3712,7 +4071,7 @@ def contract_gather_chain(K):
         cs = [K.kvs.post("paged_kv_fetch", [n, i * K.slot])
               for i, n in enumerate(n_blocks)]
         picked, n, wall = K.ring(mode=mode)
-        if n != want_n:
+        if n["tiara_gather"] != want_n:
             raise AssertionError(f"[contracts] {row}: tiara_gather "
                                  f"launched {n} times, expected {want_n}")
         for c, nb in zip(cs, n_blocks):
@@ -3804,7 +4163,7 @@ def contract_split_phase(K):
     # 1. the pair
     row = "split_phase_pair"
     K.sync()
-    n0 = K.tg.COUNTS["tiara_gather"]
+    c0 = K.snap()
     t = time.perf_counter()
     off = 8 * 77 + 5
     a = [K.wload(0, off=off, slot=200)] + \
@@ -3831,13 +4190,13 @@ def contract_split_phase(K):
     if [c.seq for c in got] != [a[0].seq, b[0].seq]:
         raise AssertionError(f"[contracts] {row}: poll_cq gave "
                              f"{[c.seq for c in got]}")
-    K.hold(row, a + b, (), picked, K.tg.COUNTS["tiara_gather"] - n0, wall,
+    K.hold(row, a + b, (), picked, K.since(c0), wall,
            polled=got)
     # 2. a poisoned materialization
     row = "poison_materialize"
     cs = [K.kvs.post("paged_kv_fetch", [16, 0]),
           K.gws.post("graph_walk", [int(K.orders[0][3]) * 8, 5, 0])]
-    n0, d0 = K.tg.COUNTS["tiara_gather"], ep.last_decision
+    c0, d0 = K.snap(), ep.last_decision
     t = time.perf_counter()
     ep.doorbell(wait=False)
     picked = K.picked("auto", d0)
@@ -3854,7 +4213,7 @@ def contract_split_phase(K):
         raise AssertionError(f"[contracts] {row}: retry retired the wrong "
                              f"count")
     K.sync()
-    K.hold(row, cs, (), picked, K.tg.COUNTS["tiara_gather"] - n0,
+    K.hold(row, cs, (), picked, K.since(c0),
            time.perf_counter() - t)
     # 3. lost doorbells
     row = "dropped_doorbells"
@@ -3921,14 +4280,14 @@ def contract_serving_loop(K):
 
     def run(row, cs, loop, n_submitted):
         K.sync()
-        d0, n0 = ep.last_decision, K.tg.COUNTS["tiara_gather"]
+        d0, c0 = ep.last_decision, K.snap()
         t = time.perf_counter()
         st = _drive_loop(K, loop, ceilings)
         ep.wait_all()
         K.sync()
         identity(row, st, n_submitted)
         K.hold(row, cs, (), K.picked("auto", d0),
-               K.tg.COUNTS["tiara_gather"] - n0, time.perf_counter() - t)
+               K.since(c0), time.perf_counter() - t)
         return st
 
     # 1. admission rejects
@@ -4054,7 +4413,8 @@ def phase_contracts(dev, card):
     import importlib.util
     t0 = time.perf_counter()
     K = _Contracts(dev, card)
-    contract_word_faults(K)
+    with _LockstepWaves() as K.rec:
+        contract_word_faults(K)
     contract_gather_chain(K)
     contract_failed_memcpy(K)
     contract_session_state(K)
@@ -4951,22 +5311,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()           # the endpoint path starts here
-    walls, launches, ran = phase_endpoint(dev)
+    walls, launches, ran, sides = phase_endpoint(dev)
     counts = kernels.launch_counts()         # ... and ends here
-    if counts["tiara_gather"] < 1:
-        raise AssertionError("the endpoint path never launched tiara_gather")
+    for k in ("tiara_gather", "lockstep_vm"):
+        if counts[k] < 1:
+            raise AssertionError(f"the endpoint path never launched {k}")
     log(f"[launches] endpoint path: {counts}")
+    lockstep = phase_lockstep(dev, card)    # resets the counts per wave
     kernels.reset_launch_counts()           # the contracts' path starts here
     contracts = phase_contracts(dev, card)
     ccounts = kernels.launch_counts()       # ... and ends here
-    if ccounts["tiara_gather"] < 1:
-        raise AssertionError("the contracts' path never launched "
-                             "tiara_gather")
+    for k in ("tiara_gather", "lockstep_vm"):
+        if ccounts[k] < 1:
+            raise AssertionError(f"the contracts' path never launched {k}")
     log(f"[launches] contracts' path: {ccounts}")
     # the serving paths reset and read the counts around each resolver's
-    # run; their host runs launch no tiara_gather
-    runs, cpu_err, tiny_gathers = phase_serving(dev)
-    scout, scout_gathers = phase_scout(dev)
+    # run; their host runs launch no tiara kernel
+    runs, cpu_err, tiny_gathers, tiny_wave = phase_serving(dev)
+    scout, scout_gathers, scout_wave = phase_scout(dev)
     gc.collect()                             # Scout's weights go here
     torch.cuda.empty_cache()
     log(f"[memory] after the Scout phase: "
@@ -5004,9 +5366,14 @@ def main() -> int:
     for path in (serving, scout_counts):
         if path["flash_attention_bwd"]:
             raise AssertionError("a serving path launched the backward")
-        for k in counts:
-            if k != "flash_attention_bwd" and path[k] < 1:
+        for k in ("paged_attention", "flash_attention"):
+            if path[k] < 1:
                 raise AssertionError(f"a serving path never launched {k}")
+        # its tiara waves run as compiled traces (tiara_gather) or as
+        # lockstep waves (lockstep_vm), as the cost model picks
+        if path["tiara_gather"] + path["lockstep_vm"] < 1:
+            raise AssertionError("a serving path never launched a tiara "
+                                 "kernel")
     kinfo["launches"] = counts["tiara_gather"] + ccounts["tiara_gather"] \
         + serving["tiara_gather"] \
         + scout_counts["tiara_gather"] + sharded["tiara_gather_launches"]
@@ -5046,8 +5413,37 @@ def main() -> int:
                 f"{r['host_ms_per_call'] * 1e3:.2f} us of host wall per "
                 f"call, plain {r['plain_ms'] * 1e3:.2f} us, bound "
                 f"{r['bound_ms'] * 1e6:.3f} ns (bytes)")
-    del scratch
     kinfo["serving_shapes"] = shapes
+    # lockstep_vm at the first lockstep wave a tiara resolver gave it
+    # (Scout's; tiny-lm's waves run as compiled traces unless the cost
+    # model picks the lockstep engine), and its launches on every path
+    # that counted them
+    tag, wave = ("Scout's", scout_wave) if scout_wave is not None else \
+        ("tiny-lm's", tiny_wave)
+    if wave is None:
+        raise AssertionError("no tiara resolver ran a lockstep wave")
+    lrow = lockstep_row(wave, scratch)
+    del scratch, wave, scout_wave, tiny_wave
+    lv_launches = counts["lockstep_vm"] + ccounts["lockstep_vm"] \
+        + serving["lockstep_vm"] + scout_counts["lockstep_vm"]
+    lvinfo = dict(name="lockstep_vm", route="cuda", source=LOCKSTEP_SOURCE,
+                  replaces=LOCKSTEP_REPLACES, launches=lv_launches,
+                  max_abs_err=lrow["max_abs_err"], ms=lrow["ms"],
+                  plain_ms=lrow["plain_ms"], bound_ms=lrow["bound_ms"],
+                  bound_by="bytes", library_ms=None,
+                  launch_floor_ms=lrow["launch_floor_ms"],
+                  shape=f"all paths; timed at {tag} resolver wave: "
+                        f"{lrow['B']} lanes, {lrow['macro_steps']} "
+                        f"macro-steps, {lrow['bytes_moved']} bytes")
+    log(f"[kernel] lockstep_vm at the {tag} resolver's wave ({lrow['B']} "
+        f"lanes, {lrow['macro_steps']} macro-steps): equal to the host "
+        f"loop; kernel {lrow['ms'] * 1e3:.2f} us (the whole call, "
+        f"operands included, {lrow['call_ms'] * 1e3:.2f} us), plain (host "
+        f"loop) "
+        f"{lrow['plain_ms']:.2f} ms, bound {lrow['bound_ms'] * 1e6:.1f} ns "
+        f"({lrow['bytes_moved']} bytes at 3.35 TB/s), launch floor (one "
+        f"lane, one RET) {lrow['launch_floor_ms'] * 1e3:.2f} us; "
+        f"{lv_launches} launches on the counted paths; {card}")
     for name, ki in (("paged", paged), ("flash", flash)):
         ki["scout"] = scout["kernels"][name]
         ki["jamba"] = jamba["kernels"][name]
@@ -5055,9 +5451,11 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s,
-                   "kernels": [kinfo, paged, flash],
+                   "kernels": [kinfo, paged, flash, lvinfo],
                    "wave_wall_s": walls, "wave_launches": launches,
                    "wave_engine": ran, "endpoint_launches": counts,
+                   "lockstep": dict(lockstep, side_by_side=sides,
+                                    row=lrow),
                    "contracts": contracts, "contracts_launches": ccounts,
                    "serving": {r: {k: v for k, v in run.items() if k != "out"}
                                for r, run in runs.items()},
@@ -5068,6 +5466,7 @@ def main() -> int:
                        "serving": {r: {k: v for k, v in run.items()
                                        if k != "out"}
                                    for r, run in scout["runs"].items()},
+                       "tiara_on_host_loop": scout["host_loop"],
                        "logits": scout["logits"]},
                    "jamba": jamba, "rwkv": rwkv, "qwen": qwen,
                    "seamless": seamless, "simulator": simulated,
@@ -5081,6 +5480,7 @@ def main() -> int:
                      (kinfo, "the endpoint path's 4096 rows of 8 KiB"),
                      (paged, "tiny-lm's decode step"),
                      (flash, "tiny-lm's 2048-token prefill"))]
+    rows.append({k: lvinfo[k] for k in keys + ("shape", "launch_floor_ms")})
     for tag, ki, n in (("Scout", scout["kernels"]["flash"],
                         scout_counts["flash_attention"]),
                        ("Jamba", jamba["kernels"]["flash"],

@@ -127,18 +127,26 @@ class Slot:
 
     def interp(self, mem, params: Sequence[int] = (), *,
                home: int = 0,
-               failed: Optional[Set[int]] = None) -> vm.InvokeResult:
+               failed: Optional[Set[int]] = None,
+               impl: str = "auto") -> vm.InvokeResult:
+        """One request on the lockstep engine; ``impl`` "auto" runs the
+        ``lockstep_vm`` kernel on a card pool and the host loop on a CPU
+        pool ("cuda" / "torch" insist on one)."""
         return vm.invoke(self.verified, self.regions, mem, params,
-                         home=home, failed=failed)
+                         home=home, failed=failed, impl=impl)
 
     def batched(self, mem, params: Sequence[Sequence[int]], *,
                 homes: Union[int, Sequence[int]] = 0,
                 failed: Optional[Set[int]] = None,
                 block: bool = True,
-                static_noconflict: bool = False) -> vm.BatchedInvokeResult:
+                static_noconflict: bool = False,
+                impl: str = "auto") -> vm.BatchedInvokeResult:
+        """B requests on the lockstep engine (``impl`` as for
+        :meth:`interp`)."""
         return vm.invoke_batched(self.verified, self.regions, mem, params,
                                  homes=homes, failed=failed, block=block,
-                                 static_noconflict=static_noconflict)
+                                 static_noconflict=static_noconflict,
+                                 impl=impl)
 
     def compiled(self, mem, params: Sequence[Sequence[int]], *,
                  homes: Union[int, Sequence[int]] = 0,

@@ -29,11 +29,17 @@ Two step implementations share that semantics:
     interpreter (``_make_scalar_step``): one definition of the semantics
     serves both paths, so they cannot drift apart.
 
-Where the JAX engine is one ``lax.while_loop``, this engine is a host
-loop: each macro-step ends in one host read of a few flags (any request
-live, conflict found, which memory routes the step needs), so a step
-costs one device synchronization.  ``B == 1`` is the classic single-MP
-datapath with no conflict machinery.
+Where the JAX engine is one ``lax.while_loop``, this engine is one
+launch of the hand-written ``lockstep_vm`` CUDA kernel per wave on a card
+pool (``kernels/lockstep_vm``): the whole wave runs on the card, with no
+host read until the caller retires it.  On a CPU pool it runs its plain
+version, the host loop (``_Engine.run_host_loop``): each macro-step ends
+in one host read of a few flags (any request live, conflict found, which
+memory routes the step needs), so a step costs one device
+synchronization.  The engines' ``impl`` picks the route: "auto" (the
+pool's device decides), "cuda" or "torch"; the route that does not match
+the pool raises.  ``B == 1`` is the classic single-MP datapath with no
+conflict machinery.
 
 **Mixed batches**: the engine runs over a *merged instruction store* —
 every registered program laid out back to back, exactly the registry's
@@ -42,10 +48,11 @@ shared BRAM — and each request carries an ``op_sel`` slot index; request
 program end and its own verified step bound.  ``build_batched_vm`` is the
 one-program specialization (``op_sel`` pinned to slot 0).
 
-**MEMCPY** reads every lane's source window through the ``tiara_gather``
-kernel's window form (one mask per lane) on a card pool, and through its
-plain version on a CPU pool: one launch per macro-step in which some
-lane copies.
+**MEMCPY**: the kernel copies every lane's window inside the wave
+(``tiara_gather``'s window copy); the host loop reads the source windows
+through the ``tiara_gather`` kernel's window form (one mask per lane) on
+a card pool, and through its plain version on a CPU pool: one launch per
+macro-step in which some lane copies.
 
 **Memory ownership**: an engine run never mutates its input pool.  It
 copies the pool once into a private flat buffer with one spare *sink*
@@ -84,6 +91,9 @@ from repro_torch.core.isa import (Alu, Op, FLAG_ASYNC, FLAG_DEV_REG,
 from repro_torch.core.memory import RegionTable
 from repro_torch.core.verifier import VerifiedOperator
 from repro_torch.distributed import mesh as _mesh
+from repro_torch.kernels import IMPLS
+from repro_torch.kernels.lockstep_vm.kernel import lockstep_vm_kernel
+from repro_torch.kernels.lockstep_vm.ops import lockstep_vm
 from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
 
 _REG_MASK = isa.NUM_REGS - 1
@@ -812,7 +822,12 @@ class _Engine:
     placed on each pool's device on first use."""
 
     def __init__(self, codes, fuels, regions: RegionTable, n_devices: int,
-                 batch: int, protect: bool, static_noconflict: bool):
+                 batch: int, protect: bool, static_noconflict: bool,
+                 impl: str = "auto"):
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r}; expected one of "
+                             f"{IMPLS}")
+        self.impl = impl
         (self.code_np, self.start_np, self.end_np, self.fuel_np,
          self.max_window) = _program_statics(codes, fuels)
         self.n_ops = int(self.fuel_np.shape[0])
@@ -835,6 +850,52 @@ class _Engine:
         return c
 
     def __call__(self, mem, params, homes, failed, op_sel) -> VMResult:
+        """One wave: the ``lockstep_vm`` kernel on a card pool, the host
+        loop on a CPU pool (see ``impl``)."""
+        return lockstep_vm(self, mem, params, homes, failed, op_sel,
+                           impl=self.impl)
+
+    def kernel_operands(self, mem, params, homes, failed, op_sel):
+        """The ``lockstep_vm`` kernel's operands for one wave on ``mem``'s
+        device, less its outputs and scratch: the constant tables, the
+        wave's inputs packed into one tensor (params, op_sel, homes,
+        failed) and the engine's private copy of the pool."""
+        dev = mem.device
+        code, base_c, mask_c, start_c, end_c, fuel_c = self._const(dev)
+        B = self.B
+        p = _host(params).astype(np.int64).reshape(B, -1)[:, :isa.NUM_REGS]
+        k = int(p.shape[1])
+        inputs = torch.from_numpy(np.concatenate([
+            p.reshape(-1),
+            _host(op_sel).astype(np.int64).reshape(B),
+            _host(homes).astype(np.int64).reshape(B),
+            _host(failed).astype(np.int64).reshape(-1)]))
+        if dev.type != "cpu":
+            # from pageable memory: staged at once, no stream sync
+            inputs = inputs.to(dev, non_blocking=True)
+        return dict(code=code, rbase=base_c, rmask=mask_c,
+                    slot_start=start_c, slot_end=end_c, slot_fuel=fuel_c,
+                    inputs=inputs, n_params=k, B=B, n_dev=self.n_dev,
+                    pool_words=int(mem.shape[1]),
+                    max_window=self.max_window, protect=self.protect,
+                    sweep=B > 1 and not self.static_noconflict,
+                    mem=private_pool(mem))
+
+    def run_kernel(self, mem, params, homes, failed, op_sel) -> VMResult:
+        """One wave as one ``lockstep_vm`` launch on ``mem``'s card; the
+        result's tensors are filled when the launch lands."""
+        ops = self.kernel_operands(mem, params, homes, failed, op_sel)
+        out = lockstep_vm_kernel(**ops)
+        return VMResult(mem=ops["mem"][:-1].view(self.n_dev,
+                                                 ops["pool_words"]),
+                        ret=out.ret, status=out.status, steps=out.steps,
+                        regs=out.regs, fault=out.fault)
+
+    def run_host_loop(self, mem, params, homes, failed, op_sel) -> VMResult:
+        """The kernel's plain version: the wave one torch macro-step at a
+        time, each ended by one host read of a few flags.  Runs on any
+        device (on a card pool its MEMCPY launches ``tiara_gather``'s
+        window form)."""
         dev = mem.device
         code, base_c, mask_c, start_c, end_c, fuel_c = self._const(dev)
         B, n_dev, depth = self.B, self.n_dev, isa.LOOP_STACK_DEPTH
@@ -919,7 +980,7 @@ def _op_local_fault(fault: torch.Tensor, pc0: torch.Tensor) -> torch.Tensor:
 def _build_engine(codes: Sequence[np.ndarray], fuels: Sequence[int],
                   regions: RegionTable, n_devices: int, batch: int,
                   protect: bool = True,
-                  static_noconflict: bool = False):
+                  static_noconflict: bool = False, impl: str = "auto"):
     """Build the lockstep engine over a *merged* instruction store.
 
     ``codes`` holds one program per dispatch-table slot, laid out back to
@@ -938,19 +999,23 @@ def _build_engine(codes: Sequence[np.ndarray], fuels: Sequence[int],
     path.  The caller must hold a registration-time proof
     (``access.prove_wave_noconflict``) that no macro-step of any wave run
     on this engine can conflict; the engine trusts the flag.
+
+    ``impl``: "auto" runs the ``lockstep_vm`` kernel on a card pool and
+    the host loop on a CPU pool; "cuda" and "torch" insist on one route
+    and raise on a pool of the other kind.
     """
     return _Engine(codes, fuels, regions, n_devices, batch, protect,
-                   static_noconflict)
+                   static_noconflict, impl)
 
 
 def build_batched_vm(op: VerifiedOperator, regions: RegionTable,
                      n_devices: int, batch: int, protect: bool = True,
-                     static_noconflict: bool = False):
+                     static_noconflict: bool = False, impl: str = "auto"):
     """Returns ``f(mem, params, homes, failed) -> VMResult`` — the
     one-program specialization of :func:`_build_engine`."""
     eng = _build_engine([op.code], [op.step_bound], regions, n_devices,
                         batch, protect=protect,
-                        static_noconflict=static_noconflict)
+                        static_noconflict=static_noconflict, impl=impl)
     sel0 = np.zeros(int(batch), dtype=np.int64)
 
     def run(mem, params, homes, failed):
@@ -962,7 +1027,8 @@ def build_batched_vm(op: VerifiedOperator, regions: RegionTable,
 def build_mixed_batched_vm(ops: Sequence[VerifiedOperator],
                            regions: RegionTable, n_devices: int,
                            batch: int, protect: bool = True,
-                           static_noconflict: bool = False):
+                           static_noconflict: bool = False,
+                           impl: str = "auto"):
     """The multi-tenant engine: one lockstep run executing a batch of
     requests whose per-request ``op_sel`` picks among the ``ops``
     programs.  Returns ``f(mem, params, homes, failed, op_sel) ->
@@ -970,7 +1036,7 @@ def build_mixed_batched_vm(ops: Sequence[VerifiedOperator],
     return _build_engine([o.code for o in ops],
                          [o.step_bound for o in ops],
                          regions, n_devices, batch, protect=protect,
-                         static_noconflict=static_noconflict)
+                         static_noconflict=static_noconflict, impl=impl)
 
 
 class _ShardedEngine:
@@ -1191,11 +1257,11 @@ def build_sharded_mixed_vm(ops: Sequence[VerifiedOperator],
 
 
 def build_vm(op: VerifiedOperator, regions: RegionTable, n_devices: int,
-             protect: bool = True):
+             protect: bool = True, impl: str = "auto"):
     """Single-request entry point: ``f(mem, params, home, failed)`` —
     the ``batch=1`` specialization with scalar result fields."""
     batched = build_batched_vm(op, regions, n_devices, batch=1,
-                               protect=protect)
+                               protect=protect, impl=impl)
 
     def run(mem, params, home, failed):
         params = torch.as_tensor(params, dtype=_I64).reshape(1, -1)
@@ -1251,30 +1317,33 @@ _VM_CACHE: Dict[Tuple, object] = {}
 
 def engine_cached(op: VerifiedOperator, regions: RegionTable, n_dev: int,
                   batch: int, protect: bool = True,
-                  static_noconflict: bool = False) -> bool:
+                  static_noconflict: bool = False,
+                  impl: str = "auto") -> bool:
     """True iff the batched interpreter engine for this (op, batch) is
     already built."""
     return engine_key(op, regions, n_dev, batch, bool(protect),
-                      bool(static_noconflict)) in _VM_CACHE
+                      bool(static_noconflict), impl) in _VM_CACHE
 
 
 def mixed_engine_cached(ops: Sequence[VerifiedOperator],
                         regions: RegionTable, n_dev: int,
                         batch: int, protect: bool = True,
-                        static_noconflict: bool = False) -> bool:
+                        static_noconflict: bool = False,
+                        impl: str = "auto") -> bool:
     return mixed_engine_key(ops, regions, n_dev, batch, bool(protect),
-                            bool(static_noconflict)) in _VM_CACHE
+                            bool(static_noconflict), impl) in _VM_CACHE
 
 
 def _cached_engine(op: VerifiedOperator, regions: RegionTable, n_dev: int,
                    batch: int, protect: bool = True,
-                   static_noconflict: bool = False):
+                   static_noconflict: bool = False, impl: str = "auto"):
     key = engine_key(op, regions, n_dev, batch, bool(protect),
-                     bool(static_noconflict))
+                     bool(static_noconflict), impl)
     fn = _VM_CACHE.get(key)
     if fn is None:
         fn = build_batched_vm(op, regions, n_dev, batch, protect=protect,
-                              static_noconflict=static_noconflict)
+                              static_noconflict=static_noconflict,
+                              impl=impl)
         _VM_CACHE[key] = fn
     return fn
 
@@ -1282,14 +1351,16 @@ def _cached_engine(op: VerifiedOperator, regions: RegionTable, n_dev: int,
 def _cached_mixed_engine(ops: Sequence[VerifiedOperator],
                          regions: RegionTable, n_dev: int, batch: int,
                          protect: bool = True,
-                         static_noconflict: bool = False):
+                         static_noconflict: bool = False,
+                         impl: str = "auto"):
     key = mixed_engine_key(ops, regions, n_dev, batch, bool(protect),
-                           bool(static_noconflict))
+                           bool(static_noconflict), impl)
     fn = _VM_CACHE.get(key)
     if fn is None:
         fn = build_mixed_batched_vm(ops, regions, n_dev, batch,
                                     protect=protect,
-                                    static_noconflict=static_noconflict)
+                                    static_noconflict=static_noconflict,
+                                    impl=impl)
         _VM_CACHE[key] = fn
     return fn
 
@@ -1441,13 +1512,15 @@ def _marshal_batch(params: Sequence[Sequence[int]],
 def invoke(op: VerifiedOperator, regions: RegionTable, mem,
            params: Sequence[int] = (), *, home: int = 0,
            failed: Optional[Set[int]] = None,
-           protect: bool = True, device=None) -> "InvokeResult":
+           protect: bool = True, device=None,
+           impl: str = "auto") -> "InvokeResult":
     """Single-request entry point: pool tensor or numpy in, host fields
-    out (``mem`` stays on the pool's device)."""
+    out (``mem`` stays on the pool's device).  ``impl`` picks the
+    engine's route (see :func:`_build_engine`)."""
     p, h = _marshal_batch([list(params)], home)
     mem_t = as_pool(mem, device)
     fn = _cached_engine(op, regions, int(mem_t.shape[0]), batch=1,
-                        protect=protect)
+                        protect=protect, impl=impl)
     out = run_batched_fn(fn, mem_t, p, h, failed)
     return InvokeResult(mem=out.mem, ret=int(out.ret[0]),
                         status=int(out.status[0]), steps=int(out.steps[0]),
@@ -1461,7 +1534,7 @@ def invoke_batched(op: VerifiedOperator, regions: RegionTable,
                    block: bool = True,
                    protect: bool = True,
                    static_noconflict: bool = False,
-                   device=None) -> "BatchedInvokeResult":
+                   device=None, impl: str = "auto") -> "BatchedInvokeResult":
     """Run a batch of requests against one shared pool.
 
     ``params`` is a [B][k] nested sequence (one row per request); ``homes``
@@ -1469,13 +1542,14 @@ def invoke_batched(op: VerifiedOperator, regions: RegionTable,
     ``block=False`` defers retirement (see :func:`run_batched_fn`).
     ``static_noconflict=True`` asserts the caller holds a registration-time
     proof that the wave is conflict-free; the engine then skips the
-    per-step runtime sweep.
+    per-step runtime sweep.  ``impl`` picks the engine's route (see
+    :func:`_build_engine`).
     """
     p, h = _marshal_batch(params, homes)
     mem_t = as_pool(mem, device)
     fn = _cached_engine(op, regions, int(mem_t.shape[0]), p.shape[0],
                         protect=protect,
-                        static_noconflict=static_noconflict)
+                        static_noconflict=static_noconflict, impl=impl)
     return run_batched_fn(fn, mem_t, p, h, failed, block=block)
 
 
@@ -1488,14 +1562,16 @@ def invoke_batched_mixed(ops: Sequence[VerifiedOperator],
                          block: bool = True,
                          protect: bool = True,
                          static_noconflict: bool = False,
-                         device=None) -> "BatchedInvokeResult":
+                         device=None,
+                         impl: str = "auto") -> "BatchedInvokeResult":
     """Run a *mixed* batch — request ``b`` executes ``ops[op_sel[b]]`` —
     against one shared pool in one lockstep run.
 
     Semantics are the engine's deterministic round-robin interleaving
     across programs: each macro-step, request ``i`` executes the next
     instruction *of its own operator* and observes all same-step memory
-    effects of requests ``j < i``.
+    effects of requests ``j < i``.  ``impl`` picks the engine's route
+    (see :func:`_build_engine`).
     """
     p, h = _marshal_batch(params, homes)
     B = p.shape[0]
@@ -1509,7 +1585,8 @@ def invoke_batched_mixed(ops: Sequence[VerifiedOperator],
     mem_t = as_pool(mem, device)
     eng = _cached_mixed_engine(tuple(ops), regions, int(mem_t.shape[0]), B,
                                protect=protect,
-                               static_noconflict=static_noconflict)
+                               static_noconflict=static_noconflict,
+                               impl=impl)
 
     def fn(mem_j, p_j, h_j, failed_j):
         return eng(mem_j, p_j, h_j, failed_j, sel)

@@ -27,9 +27,10 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
 
 def _modules():
     from repro_torch.kernels.flash_attention import kernel as _fa
+    from repro_torch.kernels.lockstep_vm import kernel as _lv
     from repro_torch.kernels.paged_attention import kernel as _pa
     from repro_torch.kernels.tiara_gather import kernel as _tg
-    return _tg, _pa, _fa
+    return _tg, _pa, _fa, _lv
 
 
 def launch_counts() -> Dict[str, int]:

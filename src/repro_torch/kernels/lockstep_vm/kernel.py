@@ -1,0 +1,152 @@
+"""Launch wrapper of the hand-written CUDA ``lockstep_vm`` kernel.
+
+One launch runs a whole wave of the lockstep Tiara engine on the card
+(``csrc/lockstep_vm.cu``; the algorithm is ``csrc/lockstep_vm.cuh``): B
+requests over a merged instruction store against the engine's private
+flat pool, from the first macro-step to the last, with no host read in
+between.  Its MEMCPY is ``tiara_gather``'s window copy, done inside the
+wave.  The kernel replaces, on the port's main path, the JAX engine's
+``lax.while_loop`` (``src/repro/core/vm.py``) and the one ``tiara_gather``
+window launch per macro-step of the port's host loop, which stays as the
+plain version (``core/vm.py``, ``_Engine.run_host_loop``).
+
+:func:`pack` lays a launch's operands out as one int64 header in the
+order of ``HEADER`` (the source's ``Hdr`` enum): device pointers and
+sizes.  :func:`lockstep_vm_kernel` allocates the outputs and the scratch,
+packs, launches on the current stream and returns without waiting.
+
+``COUNTS["lockstep_vm"]`` counts the kernel's launches — the one place it
+is incremented is right where the kernel is launched, so a run can show
+that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+COUNTS = {"lockstep_vm": 0}
+_COUNT_LOCK = threading.Lock()
+
+# the operand header, in the order of lockstep_vm.cuh's Hdr enum
+HEADER = ("code", "n_instr", "rbase", "rmask", "n_regions", "slot_start",
+          "slot_end", "slot_fuel", "n_ops", "inputs", "n_params", "B",
+          "n_dev", "pool_words", "max_window", "protect", "sweep", "mem",
+          "ret", "status", "steps", "regs", "fault", "scratch")
+# per-lane scratch words (kLaneWords) and queued-copy words (kDescWords)
+LANE_WORDS = 12 + 3 * 8
+DESC_WORDS = 7
+MAX_WINDOW = 4096
+NUM_REGS = 16
+
+_I64 = torch.int64
+
+
+class WaveOut(NamedTuple):
+    """The per-request fields a wave writes."""
+    ret: torch.Tensor        # i64 [B]
+    status: torch.Tensor     # i64 [B]
+    steps: torch.Tensor      # i64 [B]
+    regs: torch.Tensor       # i64 [B, 16]
+    fault: torch.Tensor      # i64 [B, 4]
+
+
+def threads_for(batch: int, max_window: int) -> int:
+    """The block size of a wave: enough threads for its lanes and for
+    about 8 words of a macro-step's copies each, 128 to 1024."""
+    want = max(int(batch), int(batch) * int(max_window) // 8)
+    return int(min(1024, max(128, -(-want // 32) * 32)))
+
+
+def pack(*, code: torch.Tensor, rbase: torch.Tensor, rmask: torch.Tensor,
+         slot_start: torch.Tensor, slot_end: torch.Tensor,
+         slot_fuel: torch.Tensor, inputs: torch.Tensor, n_params: int,
+         B: int, n_dev: int, pool_words: int, max_window: int,
+         protect: bool, sweep: bool, mem: torch.Tensor, out: WaveOut,
+         scratch: torch.Tensor) -> np.ndarray:
+    """One launch's operand header.  Every tensor must be int64,
+    contiguous and on one device; ``inputs`` is ``params (B, n_params)``,
+    ``op_sel (B,)``, ``homes (B,)`` and ``failed (n_dev,)`` (0 or 1)
+    back to back; ``mem`` is the flat pool plus its sink word."""
+    ts = dict(code=code, rbase=rbase, rmask=rmask, slot_start=slot_start,
+              slot_end=slot_end, slot_fuel=slot_fuel, inputs=inputs,
+              mem=mem, scratch=scratch, **out._asdict())
+    dev = mem.device
+    for name, t in ts.items():
+        if t.device != dev or t.dtype != _I64 or not t.is_contiguous():
+            raise ValueError(f"lockstep_vm operand {name} must be a "
+                             f"contiguous int64 tensor on {dev}")
+    n_ops = int(slot_start.numel())
+    shapes = dict(code=(code.shape[0], 10), rbase=rbase.shape,
+                  rmask=rbase.shape, slot_start=(n_ops,),
+                  slot_end=(n_ops,), slot_fuel=(n_ops,),
+                  inputs=(B * n_params + 2 * B + n_dev,),
+                  mem=(n_dev * pool_words + 1,),
+                  scratch=(B * (LANE_WORDS + DESC_WORDS),),
+                  ret=(B,), status=(B,), steps=(B,), regs=(B, NUM_REGS),
+                  fault=(B, 4))
+    for name, shape in shapes.items():
+        if tuple(ts[name].shape) != tuple(shape):
+            raise ValueError(f"lockstep_vm operand {name}: shape "
+                             f"{tuple(ts[name].shape)}, expected "
+                             f"{tuple(shape)}")
+    if not 1 <= max_window <= MAX_WINDOW:
+        raise ValueError(f"max_window {max_window} outside [1, "
+                         f"{MAX_WINDOW}]")
+    if min(B, n_dev, code.shape[0], rbase.numel(), n_ops) < 1:
+        raise ValueError("a wave needs a lane, a device, an instruction, "
+                         "a region and a program")
+    vals = {name: t.data_ptr() for name, t in ts.items()}
+    vals.update(n_instr=code.shape[0], n_regions=rbase.numel(),
+                n_ops=n_ops, n_params=n_params, B=B, n_dev=n_dev,
+                pool_words=pool_words, max_window=max_window,
+                protect=int(bool(protect)), sweep=int(bool(sweep)))
+    return np.asarray([int(vals[k]) for k in HEADER], dtype=np.int64)
+
+
+def alloc(B: int, device: torch.device):
+    """The outputs and the scratch of a wave of ``B`` lanes (the kernel
+    initializes them)."""
+    out = WaveOut(*(torch.empty(shape, dtype=_I64, device=device)
+                    for shape in ((B,), (B,), (B,), (B, NUM_REGS), (B, 4))))
+    scratch = torch.empty(B * (LANE_WORDS + DESC_WORDS), dtype=_I64,
+                          device=device)
+    return out, scratch
+
+
+def _launcher():
+    fn = _build.load().lockstep_vm_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def lockstep_vm_kernel(**operands) -> WaveOut:
+    """Run one wave on the card: ``operands`` are :func:`pack`'s less
+    ``out`` and ``scratch``, all on one CUDA device.  Returns the wave's
+    fields as device tensors at once (the launch is asynchronous; ``mem``
+    is updated in place).  Raises on anything the kernel does not take
+    and on a refused launch — there is no fallback."""
+    mem = operands["mem"]
+    if not mem.is_cuda:
+        raise ValueError("lockstep_vm_kernel needs CUDA tensors")
+    out, scratch = alloc(int(operands["B"]), mem.device)
+    header = pack(out=out, scratch=scratch, **operands)
+    launch = _launcher()
+    threads = threads_for(operands["B"], operands["max_window"])
+    with torch.cuda.device(mem.device):
+        stream = torch.cuda.current_stream(mem.device).cuda_stream
+        err = launch(header.ctypes.data, header.size, threads, stream)
+    if err != 0:
+        raise RuntimeError(f"lockstep_vm launch failed: cudaError {err}")
+    with _COUNT_LOCK:
+        COUNTS["lockstep_vm"] += 1
+    return out

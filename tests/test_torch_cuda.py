@@ -485,7 +485,9 @@ def test_cuda_engine_tiara_matches_host(cuda_device):
     """Reduced tiny-lm on the card: greedy tokens under resolver="tiara"
     equal resolver="host"; prefill launches flash_attention once per layer
     per prompt, every decode step launches paged_attention once per
-    layer, and the tiara resolver's waves launch tiara_gather."""
+    layer, and the tiara resolver's waves launch a tiara kernel
+    (tiara_gather from a compiled trace, lockstep_vm for a lockstep
+    wave), the host resolver's none."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models import transformer as tf
     from repro_torch.serving import ServingEngine
@@ -519,14 +521,18 @@ def test_cuda_engine_tiara_matches_host(cuda_device):
             cfg.n_layers * steps[0]
     assert outs["tiara"] == outs["host"]
     assert counts["host"]["tiara_gather"] == 0
-    assert counts["tiara"]["tiara_gather"] >= 1
+    assert counts["host"]["lockstep_vm"] == 0
+    assert counts["tiara"]["tiara_gather"] \
+        + counts["tiara"]["lockstep_vm"] >= 1
 
 
 @pytest.mark.gpu
 def test_cuda_moe_engine_tiara_matches_host(cuda_device):
     """Reduced Llama-4 Scout on the card: greedy tokens under
     resolver="tiara" equal resolver="host"; the tiara resolver's waves,
-    which also resolve expert routes, launch tiara_gather."""
+    which also resolve expert routes, launch a tiara kernel (tiara_gather
+    from a compiled trace, lockstep_vm for a lockstep wave), the host
+    resolver's none."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models import transformer as tf
     from repro_torch.serving import ServingEngine
@@ -548,7 +554,9 @@ def test_cuda_moe_engine_tiara_matches_host(cuda_device):
         assert all(h.ok for h in hs)
     assert outs["tiara"] == outs["host"]
     assert counts["host"]["tiara_gather"] == 0
-    assert counts["tiara"]["tiara_gather"] >= 1
+    assert counts["host"]["lockstep_vm"] == 0
+    assert counts["tiara"]["tiara_gather"] \
+        + counts["tiara"]["lockstep_vm"] >= 1
     assert eng.resolver.moe is not None
     assert eng.resolver.loop.stats.executed > 0
 

@@ -79,7 +79,8 @@ def test_cpu_route_does_not_count_launches():
     tiara_gather_ref(pool, t, t)
     assert kernels.launch_counts() == {"tiara_gather": 0, "paged_attention": 0,
                                        "flash_attention": 0,
-                                       "flash_attention_bwd": 0}
+                                       "flash_attention_bwd": 0,
+                                       "lockstep_vm": 0}
 
 
 def test_no_fallback_on_cpu_tensors():
