@@ -66,8 +66,10 @@ Phases:
 3. the endpoint at real size: a compiled and a double-buffered compiled
    paged-KV wave (which must launch the kernel once and once per chunk),
    a mixed auto wave, the same wave forced onto the lockstep engine (one
-   ``lockstep_vm`` launch for 512 posts, replayed after on the kernel
-   and on the host loop side by side, bit-equal), a split-phase pair,
+   ``lockstep_vm`` launch for 512 posts, in place on the endpoint's
+   resident pool: the same ``data_ptr`` after the wave and no allocation
+   the size of the pool; replayed after on the kernel and on the host
+   loop side by side, bit-equal), a split-phase pair,
    and a pyvm replay against a downloaded copy of the pool, every result
    checked; each wave prints the engine its doorbell ran and its kernel
    launches;
@@ -80,7 +82,17 @@ Phases:
    batched and mixed, fuel below the verified bound, zero-trip and
    nested loops, and random verified operators, at B of 1, 7, 64, 1024
    and 1500; per wave the macro-steps, both routes' walls and the
-   launches (one ``lockstep_vm``, no ``tiara_gather``);
+   launches (one ``lockstep_vm``, no ``tiara_gather``).  Then the card's
+   load-to-use latency for a cold word (one thread chasing pointers
+   through 1 GiB) and the kernel's per-phase counters (the clocks build,
+   ``csrc/lockstep_vm_clocks.cu``: cycles per macro-step in (a) live and
+   footprints, (b) the sweep, (c) the free lanes, (d) the copies, (e) the
+   serial lanes) at the serving resolver's wave at Scout's lane count and
+   at tiny-lm's geometry, phase 3's forced wave and every stock operator
+   at 1024 and 1500 lanes: each with its wall beside the previous
+   kernel's recorded one, and its bound, the larger of the bytes it moves at 3.35 TB/s and
+   its longest lane's dependent pool accesses (LOAD, CAS, CAA, MEMCPY)
+   times that latency;
 4. the serving loop on a virtual clock with its exactly-one-CQE
    identity;
 15. (run here, after phase 4) the main path's contracts on the card, on
@@ -132,7 +144,8 @@ Phases:
    ``SCOUT_LOGIT_TOL``); then ``tiara_gather`` timed at the shapes
    the two serving resolvers gave it, and ``lockstep_vm`` at Scout's
    resolver wave (the launch alone, the whole call, the host loop, the
-   wave's byte bound and the launch floor of a one-lane wave);
+   wave's byte bound, its latency bound, its per-phase counters, the
+   launch floor of a one-lane wave and the build's registers and spills);
 7. Jamba, after Scout's weights are freed: both attention kernels at its
    bf16 path shapes against their plain versions (within
    ``SCOUT_ATTN_TOL``), timed with their bounds and SDPA; 8 greedy
@@ -3418,21 +3431,39 @@ def phase_endpoint(dev):
     # 2b. the same wave forced onto the lockstep engine: one lockstep_vm
     #     launch runs all 512 posts (32 MiB of 8 KiB blocks copied inside
     #     the wave); replayed after on both routes, side by side
+    #     on the endpoint's resident pool, in place: the pool keeps its
+    #     storage and the wave allocates nothing the pool's size
     kvs.write_region("reply", np.zeros(256 * slot, dtype=np.int64))
     kc = [kvs.post("paged_kv_fetch", [16, i * slot]) for i in range(256)]
     gc = [gws.post("graph_walk", [s * 8, 10, 8 * i])
           for i, s in enumerate(starts)]
+    pool = ep.mem
+    ptr, pool_bytes = pool.data_ptr(), pool.numel() * 8
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     with _LockstepWaves() as rec:
         wave("mixed_lockstep", "mixed", lambda: ep.doorbell(mode="mixed"))
+    grew = torch.cuda.max_memory_allocated() - base
     if lockstep["mixed_lockstep"] != 1 or launches["mixed_lockstep"]:
         raise AssertionError("the mixed wave did not run as one "
                              "lockstep_vm launch")
+    if ep.mem.data_ptr() != ptr or grew >= pool_bytes // 16:
+        raise AssertionError(f"the lockstep wave did not run in place: "
+                             f"data_ptr {ep.mem.data_ptr():#x} (was "
+                             f"{ptr:#x}), peak grew {grew} bytes")
+    log(f"[endpoint] the forced lockstep wave ran in place: the pool's "
+        f"data_ptr unchanged, peak allocation +{grew / 2**20:.2f} MiB "
+        f"(the pool is {pool_bytes / 2**30:.2f} GiB)")
     if any(c.ret != 16 or not c.ok for c in kc) or \
             [c.ret for c in gc] != want or not all(c.ok for c in gc):
         raise AssertionError("lockstep mixed wave: rets wrong")
     check_kv_slots(kvs, kv, host0, table, blocks, 256, slot)
+    forced = rec.take()
     sides = {"mixed_lockstep": side_by_side(
-        "phase 3's mixed wave (256 kv + 256 graph walk)", rec.take())}
+        "phase 3's mixed wave (256 kv + 256 graph walk)", forced)}
+    sides["mixed_lockstep"].update(in_place=True, peak_growth_bytes=grew,
+                                   pool_bytes=pool_bytes)
 
     # 3. split-phase pair
     def split():
@@ -3507,7 +3538,7 @@ def phase_endpoint(dev):
         f"tiara_gather launches {launches['serving_64']}; "
         f"{walls['serving_64'] * 1e3:.1f} ms for the whole phase")
     return walls, dict(tiara_gather=launches, lockstep_vm=lockstep), ran, \
-        sides
+        sides, forced
 
 
 # ---------------------------------------------------------------------------
@@ -3522,11 +3553,15 @@ LOCKSTEP_REPLACES = "src/repro/core/vm.py:1122"
 
 class _LockstepWaves:
     """Keeps the operands of the last lockstep wave launched on the card
-    (``_Engine.run_kernel``): the engine, the input pool (the engine
-    never writes its input, so a reference keeps it as it was) and the
-    wave's arguments, so the wave can be replayed on both routes after
-    the run.  With ``keep_first`` it also keeps the first wave, with a
-    copy of its pool."""
+    (``_Engine.run_kernel``): the engine, the pool and the wave's
+    arguments, so the wave can be replayed on both routes after the run.
+    A direct engine call never writes its input, so the reference keeps
+    the pool as the wave found it; an endpoint's wave runs in place on
+    its resident pool (``vm.donate``), so the reference then holds the
+    pool as the wave left it, and a replay starts from there (copying
+    the pool here would put a pool-sized copy back into the timed wave).
+    With ``keep_first`` it also keeps the first wave, with a copy of its
+    pool as the wave found it."""
 
     def __init__(self, keep_first=False):
         self.last = self.first = None
@@ -3601,13 +3636,16 @@ def side_by_side(tag, wave):
     return row
 
 
-def wave_bytes(eng, mem, params, homes, failed, op_sel) -> int:
-    """The bytes one wave must move, from pyvm's trace of each lane run in
-    lane order on a host copy of the pool: the instruction store, the
-    region and slot tables and the wave's inputs read once, the outputs
-    written once, and every word each executed instruction reads or
-    writes in the pool (8 a LOAD or STORE, 16 a CAS or CAA, 16 a MEMCPY
-    word)."""
+def wave_bytes(eng, mem, params, homes, failed, op_sel):
+    """The bytes one wave must move and its longest lane's dependent pool
+    accesses, from pyvm's trace of each lane run in lane order on a host
+    copy of the pool (pyvm steps a lane as the host loop does): the
+    instruction store, the region and slot tables and the wave's inputs
+    read once, the outputs written once, and every word each executed
+    instruction reads or writes in the pool (8 a LOAD or STORE, 16 a CAS
+    or CAA, 16 a MEMCPY word); and the most LOAD, CAS, CAA and MEMCPY
+    instructions any one lane executes (each waits for a word of the pool
+    before the lane can go on)."""
     import types
     from repro_torch.core import pyvm
     from repro_torch.core.isa import Op
@@ -3621,6 +3659,8 @@ def wave_bytes(eng, mem, params, homes, failed, op_sel) -> int:
     n = eng.code_np.nbytes + eng.base_np.nbytes * 2 + 3 * eng.fuel_np.nbytes
     n += p.nbytes + 3 * 8 * eng.B + eng.B * (3 + 16 + 4) * 8
     per_op = {Op.LOAD: 8, Op.STORE: 8, Op.CAS: 16, Op.CAA: 16}
+    waits = (Op.LOAD, Op.CAS, Op.CAA, Op.MEMCPY)
+    dependent = 0
     for b in range(eng.B):
         s = int(np.clip(sel[b], 0, eng.n_ops - 1))
         op = types.SimpleNamespace(
@@ -3631,19 +3671,22 @@ def wave_bytes(eng, mem, params, homes, failed, op_sel) -> int:
         for ev in r.trace:
             n += 16 * ev.n_words if ev.op == Op.MEMCPY else \
                 per_op.get(ev.op, 0)
-    return int(n)
+        dependent = max(dependent, sum(ev.op in waits for ev in r.trace))
+    return int(n), int(dependent)
 
 
 def _host_arr(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def lockstep_row(wave, scratch):
+def lockstep_row(wave, scratch, latency_ns):
     """The lockstep_vm row at one recorded main-path wave: the kernel's
     device time (the launch alone, on operands prepared once: the wave
     writes only its private pool, and the resolvers' waves read nothing
     they write), the whole call's (operands and launch) and its plain
-    version's (CUDA events, L2 flushed), the byte bound of the wave, and
+    version's (CUDA events, L2 flushed), the byte bound of the wave, its
+    latency bound (its longest lane's dependent pool accesses times the
+    card's cold-word latency ``latency_ns``), its per-phase counters and
     the launch floor: the kernel's device time for a one-lane wave that
     retires at its first instruction."""
     from repro_torch import kernels
@@ -3677,16 +3720,170 @@ def lockstep_row(wave, scratch):
           np.zeros(1, bool), np.zeros(1, np.int64))
     ops1 = e1.kernel_operands(m1, *a1)
     floor_ms = time_cuda(lambda: lockstep_vm_kernel(**ops1), scratch)
-    moved = wave_bytes(eng, mem, *args)
+    moved, dependent = wave_bytes(eng, mem, *args)
+    clocks = phase_clocks(ops, got)
     _restore_counts(saved)
     return dict(B=eng.B, macro_steps=int(got.steps.max()), ms=ms,
                 call_ms=call_ms, plain_ms=plain_ms, max_abs_err=err,
                 bytes_moved=moved,
                 bound_ms=moved / HBM_BYTES_PER_S * 1e3,
-                launch_floor_ms=floor_ms)
+                dependent_accesses=dependent,
+                latency_bound_ms=dependent * latency_ns * 1e-6,
+                clocks=clocks, launch_floor_ms=floor_ms)
 
 
-def phase_lockstep(dev, card):
+def phase_clocks(ops, want):
+    """One wave on the clocks build of the kernel (the same operands):
+    its per-phase cycles a macro-step and their shares of the macro-steps'
+    cycles; its fields must equal ``want``'s, the main build's."""
+    from repro_torch.kernels.lockstep_vm import kernel as lk
+    got, words = lk.lockstep_vm_clocks(**ops)
+    torch.cuda.synchronize()
+    for f in ("ret", "status", "steps", "regs", "fault"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"[lockstep] the clocks build differs "
+                                 f"from the main build: {f}")
+    c = dict(zip(lk.CLOCK_WORDS, words.tolist()))
+    steps, total = max(c["steps"], 1), max(c["total"], 1)
+    return dict(macro_steps=c["steps"], serial_lane_steps=c["serial"],
+                cycles_per_step={k: c[k] / steps for k in "abcde"},
+                share={k: c[k] / total for k in "abcde"},
+                cycles=c["total"])
+
+
+def lockstep_registers():
+    """Registers and spills of the lockstep_vm kernels (the 256- and the
+    512-thread build, main and clocks) from the ``-Xptxas=-v`` build
+    log; fails when the 256-thread main build, the one every wave of at
+    most 256 threads launches (the serving resolvers' among them),
+    spills."""
+    from repro_torch.kernels import _build
+    rows, src, name, spill = [], "", None, None
+    for line in _build.log_path().read_text().splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"lockstep_vm_kernelILi(\d+)ELb([01])E",
+                             m.group(1))
+            spill = None
+        elif name and spill is None and "spill stores" in line:
+            spill = [int(x) for x in
+                     re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+        elif name and "Used" in line and "registers" in line:
+            rows.append(dict(
+                build="clocks" if "clocks" in src else "main",
+                threads=int(name.group(1)), keeps_decode=name.group(2) == "1",
+                registers=int(re.search(r"Used (\d+) registers",
+                                        line).group(1)),
+                spill_stores=spill[0], spill_loads=spill[1]))
+            name = None
+    if not rows:
+        raise AssertionError("the build log names no lockstep_vm kernel")
+    log("[kernel] lockstep_vm builds: " + ", ".join(
+        f"{r['build']} {r['threads']} threads {r['registers']} registers, "
+        f"spills {r['spill_stores']}/{r['spill_loads']} bytes"
+        for r in rows))
+    main = [r for r in rows if r["build"] == "main" and r["threads"] == 256]
+    if not main or main[0]["spill_stores"] or main[0]["spill_loads"]:
+        raise AssertionError(f"the 256-thread lockstep_vm build spills: "
+                             f"{main}")
+    return rows
+
+
+#: The previous lockstep_vm kernel's walls (one block, lane state in
+#: global memory, a pairwise sweep; commit a07ac83, PERF.md §5-§6: its
+#: chip_smoke.py run on an NVIDIA H100 80GB HBM3 at 700 W), printed beside
+#: this tree's (its source is not in the tree to build;
+#: tools/lockstep_vm_walls.py times both trees side by side)
+PREVIOUS_WALLS_MS = {"scout": "0.295 (Scout's recorded wave)", "tiny": "3.51",
+                 "phase3": "10.01", "1024": "4.22-8.04",
+                 "1500": "9.20-17.05"}
+
+
+def cold_word_latency_ns(dev) -> float:
+    """The card's load-to-use latency for a word no cache holds: one
+    thread follows a random cycle through 2^20 words 1 KiB apart in a
+    1 GiB buffer (20 times the 50 MB L2), 200,000 dependent loads, timed
+    with CUDA events."""
+    from repro_torch.kernels.lockstep_vm.kernel import pointer_chase
+    n, nodes, steps = 1 << 27, 1 << 20, 200_000
+    gen = torch.Generator().manual_seed(0)
+    perm = torch.randperm(nodes, generator=gen).to(dev) * (n // nodes)
+    buf = torch.zeros(n, dtype=torch.int64, device=dev)
+    buf[perm] = torch.roll(perm, -1)
+    pointer_chase(buf, int(perm[0]), 1000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = pointer_chase(buf, int(perm[7]), steps)
+    b.record()
+    b.synchronize()
+    if int(out[1]) != int(perm[(7 + steps) % nodes]):
+        raise AssertionError("the pointer chase lost its chain")
+    ns = a.elapsed_time(b) * 1e6 / steps
+    cycles = int(out[0]) / steps
+    del buf, perm
+    torch.cuda.empty_cache()
+    log(f"[lockstep] cold-word load-to-use latency: {ns:.1f} ns "
+        f"({cycles:.0f} SM cycles) per dependent load, one thread through "
+        f"1 GiB")
+    return ns
+
+
+def lockstep_counters(dev, forced, latency_ns, card):
+    """The per-phase counters of the waves PERF.md follows, each with its
+    wall beside the previous kernel's and its bound: the larger of the bytes it moves at
+    3.35 TB/s and its longest lane's dependent pool accesses times the
+    cold-word latency."""
+    from repro_torch import kernels
+    from repro_torch.core import lockstep_corpus as lc
+    from repro_torch.kernels.lockstep_vm.kernel import lockstep_vm_kernel
+
+    def held(w):
+        return dict(engine=w.engine(), mem=torch.from_numpy(w.mem).to(dev),
+                    args=w.args())
+    waves = [("resolver at Scout's lane count (16 tenants x 16 pages)",
+              held(lc.resolver_wave(n_slots=16, pages=16)),
+              PREVIOUS_WALLS_MS["scout"]),
+             ("resolver at tiny-lm's geometry (8 tenants x 128 pages)",
+              held(lc.resolver_wave()), PREVIOUS_WALLS_MS["tiny"]),
+             ("phase 3's forced mixed wave", forced, PREVIOUS_WALLS_MS["phase3"])]
+    for B in (1024, 1500):
+        waves += [(w.name, held(w), PREVIOUS_WALLS_MS[str(B)])
+                  for w in lc.stock_waves(B, serialized=False)]
+    saved = kernels.launch_counts()
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    rows = []
+    for tag, wave, prev in waves:
+        eng, mem, args = wave["engine"], wave["mem"], wave["args"]
+        ops = eng.kernel_operands(mem, *args)
+        want = lockstep_vm_kernel(**ops)
+        clocks = phase_clocks(ops, want)
+        us = time_cuda(lambda: lockstep_vm_kernel(**ops), scratch) * 1e3
+        moved, dependent = wave_bytes(eng, mem, *args)
+        by_bytes = moved / HBM_BYTES_PER_S * 1e3
+        by_latency = dependent * latency_ns * 1e-6
+        rows.append(dict(wave=tag, B=eng.B, us=us, previous_ms=prev,
+                         bytes_moved=moved, dependent_accesses=dependent,
+                         bound_ms=max(by_bytes, by_latency),
+                         bound_by="latency" if by_latency > by_bytes
+                         else "bytes", **clocks))
+        cy, sh = clocks["cycles_per_step"], clocks["share"]
+        log(f"[lockstep] counters, {tag}: B {eng.B}, "
+            f"{clocks['macro_steps']} macro-steps, {us:.1f} us (previous kernel: "
+            f"{prev} ms); cycles a macro-step " + ", ".join(
+                f"({k}) {cy[k]:.0f} ({100 * sh[k]:.0f}%)" for k in "abcde")
+            + f"; {clocks['serial_lane_steps']} serial lane steps; bound "
+            f"{rows[-1]['bound_ms'] * 1e3:.2f} us ({rows[-1]['bound_by']}: "
+            f"{moved} bytes, {dependent} dependent accesses); {card}")
+        del ops, want
+    del scratch
+    _restore_counts(saved)
+    return rows
+
+
+def phase_lockstep(dev, card, forced):
     """Phase 16: the lockstep_vm kernel against the host loop on the
     card, bit for bit (mem, ret, status, steps, regs, fault), over the
     seeded corpus of ``core/lockstep_corpus.py``: every stock operator
@@ -3730,12 +3927,15 @@ def phase_lockstep(dev, card):
             f"statuses {rows[-1]['statuses']}; kernel {k_ms:.2f} ms "
             f"({counts['lockstep_vm']} launch), host loop {h_ms:.2f} ms; "
             f"bit-equal")
+    latency_ns = cold_word_latency_ns(dev)
+    counters = lockstep_counters(dev, forced, latency_ns, card)
     secs = time.perf_counter() - t0
     log(f"[lockstep] phase 16: {len(rows)} waves (B {min(r['B'] for r in rows)}"
         f"..{max(r['B'] for r in rows)}, up to {worst} macro-steps), each "
         f"one lockstep_vm launch and no tiara_gather, bit-equal to the "
-        f"host loop; {secs:.1f} s; {card}")
-    return dict(rows=rows, seconds=secs)
+        f"host loop; {len(counters)} waves counted; {secs:.1f} s; {card}")
+    return dict(rows=rows, seconds=secs, latency_ns=latency_ns,
+                counters=counters)
 
 
 # ---------------------------------------------------------------------------
@@ -5311,13 +5511,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels.reset_launch_counts()           # the endpoint path starts here
-    walls, launches, ran, sides = phase_endpoint(dev)
+    walls, launches, ran, sides, forced = phase_endpoint(dev)
     counts = kernels.launch_counts()         # ... and ends here
     for k in ("tiara_gather", "lockstep_vm"):
         if counts[k] < 1:
             raise AssertionError(f"the endpoint path never launched {k}")
     log(f"[launches] endpoint path: {counts}")
-    lockstep = phase_lockstep(dev, card)    # resets the counts per wave
+    # resets the counts per wave, and takes its measurements' launches out
+    lockstep = phase_lockstep(dev, card, forced)
+    del forced
     kernels.reset_launch_counts()           # the contracts' path starts here
     contracts = phase_contracts(dev, card)
     ccounts = kernels.launch_counts()       # ... and ends here
@@ -5422,7 +5624,8 @@ def main() -> int:
         ("tiny-lm's", tiny_wave)
     if wave is None:
         raise AssertionError("no tiara resolver ran a lockstep wave")
-    lrow = lockstep_row(wave, scratch)
+    lrow = lockstep_row(wave, scratch, lockstep["latency_ns"])
+    lrow["registers"] = lockstep_registers()
     del scratch, wave, scout_wave, tiny_wave
     lv_launches = counts["lockstep_vm"] + ccounts["lockstep_vm"] \
         + serving["lockstep_vm"] + scout_counts["lockstep_vm"]
@@ -5432,18 +5635,26 @@ def main() -> int:
                   plain_ms=lrow["plain_ms"], bound_ms=lrow["bound_ms"],
                   bound_by="bytes", library_ms=None,
                   launch_floor_ms=lrow["launch_floor_ms"],
+                  latency_bound_ms=lrow["latency_bound_ms"],
                   shape=f"all paths; timed at {tag} resolver wave: "
                         f"{lrow['B']} lanes, {lrow['macro_steps']} "
-                        f"macro-steps, {lrow['bytes_moved']} bytes")
+                        f"macro-steps, {lrow['bytes_moved']} bytes, "
+                        f"{lrow['dependent_accesses']} dependent pool "
+                        f"accesses on its longest lane")
     log(f"[kernel] lockstep_vm at the {tag} resolver's wave ({lrow['B']} "
         f"lanes, {lrow['macro_steps']} macro-steps): equal to the host "
         f"loop; kernel {lrow['ms'] * 1e3:.2f} us (the whole call, "
         f"operands included, {lrow['call_ms'] * 1e3:.2f} us), plain (host "
         f"loop) "
         f"{lrow['plain_ms']:.2f} ms, bound {lrow['bound_ms'] * 1e6:.1f} ns "
-        f"({lrow['bytes_moved']} bytes at 3.35 TB/s), launch floor (one "
-        f"lane, one RET) {lrow['launch_floor_ms'] * 1e3:.2f} us; "
-        f"{lv_launches} launches on the counted paths; {card}")
+        f"({lrow['bytes_moved']} bytes at 3.35 TB/s), latency bound "
+        f"{lrow['latency_bound_ms'] * 1e3:.2f} us "
+        f"({lrow['dependent_accesses']} dependent pool accesses at "
+        f"{lockstep['latency_ns']:.1f} ns), launch floor (one lane, one "
+        f"RET) {lrow['launch_floor_ms'] * 1e3:.2f} us; cycles a macro-step "
+        + ", ".join(f"({k}) {lrow['clocks']['cycles_per_step'][k]:.0f}"
+                    for k in "abcde")
+        + f"; {lv_launches} launches on the counted paths; {card}")
     for name, ki in (("paged", paged), ("flash", flash)):
         ki["scout"] = scout["kernels"][name]
         ki["jamba"] = jamba["kernels"][name]
@@ -5480,7 +5691,8 @@ def main() -> int:
                      (kinfo, "the endpoint path's 4096 rows of 8 KiB"),
                      (paged, "tiny-lm's decode step"),
                      (flash, "tiny-lm's 2048-token prefill"))]
-    rows.append({k: lvinfo[k] for k in keys + ("shape", "launch_floor_ms")})
+    rows.append({k: lvinfo[k] for k in keys + ("shape", "launch_floor_ms",
+                                                "latency_bound_ms")})
     for tag, ki, n in (("Scout", scout["kernels"]["flash"],
                         scout_counts["flash_attention"]),
                        ("Jamba", jamba["kernels"]["flash"],

@@ -72,6 +72,14 @@ unless the caller names another ``device`` (the tests pass
 raises.  The pool lives on the device across waves: each wave's engine
 returns the new pool as a device tensor, and retirement copies only the
 per-request fields (ret, status, steps, regs, fault) to the host.  The
+resident pool is laid out with the engines' sink word
+(``vm.resident_pool``), and a lockstep wave of one launch ("mixed",
+"batched", "interp", or "auto" when it picks the lockstep engine for the
+whole wave) is donated it (``vm.donate``): the ``lockstep_vm`` kernel, or
+the host loop on the CPU, writes it in place, so the wave allocates and
+copies no second pool and the pool's storage is the same tensor after
+the wave.  The compiled, segmented and sharded routes keep their own
+buffers and the pool is rebound to their output.  The
 host copy is made lazily — :meth:`TiaraEndpoint._host_view` downloads it
 when a host read needs it, :meth:`TiaraEndpoint.host_mem` additionally
 marks it authoritative so host writes are uploaded once at the next
@@ -649,8 +657,9 @@ class TiaraEndpoint:
         """The pool as it lies: a device tensor, or after a sharded wave
         the per-shard rows (uploading the host copy if it is newer)."""
         if self._host_auth:
-            self._dev_mem = torch.from_numpy(self._host).to(self.device,
-                                                            copy=True)
+            # laid out with the engines' sink word, so a lockstep wave
+            # can run on it in place (vm.donate)
+            self._dev_mem = vm.resident_pool(self._host, self.device)
             self._host_auth = False
         return self._dev_mem
 
@@ -1048,12 +1057,16 @@ class TiaraEndpoint:
                     mesh = None if placement == "single" else \
                         self._placement_mesh(required=placement ==
                                              "sharded")
-                    res = reg._invoke_mixed(ids, self._resident_pool(),
-                                            params, homes=homes, mode=mode,
-                                            contention_rate=contention_rate,
-                                            failed=failed,
-                                            placement=placement,
-                                            block=block, mesh=mesh)
+                    pool = self._resident_pool()
+                    # a lockstep wave of one launch writes the resident
+                    # pool in place (vm.donate); the compiled, segmented
+                    # and sharded routes keep their own buffers
+                    with vm.donate(pool if isinstance(pool, torch.Tensor)
+                                   else None):
+                        res = reg._invoke_mixed(
+                            ids, pool, params, homes=homes, mode=mode,
+                            contention_rate=contention_rate, failed=failed,
+                            placement=placement, block=block, mesh=mesh)
                     break
                 mem = self.mem
                 if mode in _SINGLE_OP_MODES:
@@ -1061,17 +1074,19 @@ class TiaraEndpoint:
                         raise EndpointError(
                             f"mode {mode!r} needs a single-op wave; got "
                             f"op_ids {sorted(set(ids))}")
-                    res = reg._invoke_batched(ids[0], mem, params,
-                                              homes=homes, mode=mode,
-                                              failed=failed, block=block)
+                    with vm.donate(mem):
+                        res = reg._invoke_batched(ids[0], mem, params,
+                                                  homes=homes, mode=mode,
+                                                  failed=failed, block=block)
                 else:  # "interp"
                     if len(wave) != 1:
                         raise EndpointError(
                             f"mode 'interp' needs a single-request wave; "
                             f"got {len(wave)} posts")
-                    r = reg._invoke(ids[0], mem, params[0],
-                                    home=homes[0], failed=failed,
-                                    mode="interp")
+                    with vm.donate(mem):
+                        r = reg._invoke(ids[0], mem, params[0],
+                                        home=homes[0], failed=failed,
+                                        mode="interp")
                     frow = (np.asarray([r.fault.pc, r.fault.opcode,
                                         r.fault.addr, r.fault.device],
                                        dtype=np.int64)

@@ -713,11 +713,14 @@ class OperatorRegistry:
         fault = torch.as_tensor(vm.NO_FAULT, device=dev).repeat(B, 1)
         for op_id, idx in groups:
             idx = np.asarray(idx)
-            r = self._invoke_batched(
-                int(op_id), mem_cur, [list(params[i]) for i in idx],
-                homes=[int(h[i]) for i in idx], failed=failed,
-                mode="auto", contention_rate=contention_rate,
-                block=False, static_noconflict=static_noconflict)
+            # a donated pool stays whole: a later group's failure must
+            # not leave the earlier groups' writes in it
+            with vm.donate(None):
+                r = self._invoke_batched(
+                    int(op_id), mem_cur, [list(params[i]) for i in idx],
+                    homes=[int(h[i]) for i in idx], failed=failed,
+                    mode="auto", contention_rate=contention_rate,
+                    block=False, static_noconflict=static_noconflict)
             mem_cur = r.mem
             # the arrival-order scatter runs on the pool's device, so the
             # whole multi-launch chain retires later in one

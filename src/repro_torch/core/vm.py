@@ -54,12 +54,18 @@ through the ``tiara_gather`` kernel's window form (one mask per lane) on
 a card pool, and through its plain version on a CPU pool: one launch per
 macro-step in which some lane copies.
 
-**Memory ownership**: an engine run never mutates its input pool.  It
-copies the pool once into a private flat buffer with one spare *sink*
-word at the end (dead lanes scatter there — torch has no ``mode="drop"``
-scatter), updates that buffer in place, and returns a view of it as the
-result's pool.  A launch that fails therefore leaves the caller's pool
-untouched (the endpoint's retry path relies on it).
+**Memory ownership**: an engine run never mutates its input pool unless
+the caller donates it.  It copies the pool once into a private flat
+buffer with one spare *sink* word at the end (dead lanes scatter there —
+torch has no ``mode="drop"`` scatter), updates that buffer in place, and
+returns a view of it as the result's pool.  A launch that fails therefore
+leaves the caller's pool untouched.  Within :func:`donate` (the
+endpoint's doorbell), the next lockstep run on exactly the donated tensor
+— a pool laid out as that private buffer, flat with its sink word
+(:func:`resident_pool`) — takes it as its buffer instead: the wave writes
+the pool in place and no second pool is allocated.  A launch refused
+before it runs still leaves it untouched (the endpoint's retry path
+relies on it).
 
 **Devices**: every entry point runs where its pool lies.  A numpy pool
 goes to ``device`` — the CUDA card unless the caller names the CPU; with
@@ -76,6 +82,8 @@ on int64 is arithmetic).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import weakref
 from typing import Dict, NamedTuple, Optional, Sequence, Set, Tuple, Union
@@ -806,14 +814,72 @@ def _program_statics(codes, fuels):
     return code_np, start_np, end_np, fuel_np, max_window
 
 
-def private_pool(mem: torch.Tensor) -> torch.Tensor:
-    """The engine's private copy of ``mem``: flat, plus one zeroed sink
-    word at the end that masked writes land in."""
+def private_pool(mem: torch.Tensor, device=None) -> torch.Tensor:
+    """The engine's private copy of ``mem`` (on ``device``, else where
+    ``mem`` lies): flat, plus one zeroed sink word at the end that masked
+    writes land in."""
     n = mem.numel()
-    memx = torch.empty(n + 1, dtype=_I64, device=mem.device)
+    memx = torch.empty(n + 1, dtype=_I64,
+                       device=mem.device if device is None else device)
     memx[:n].copy_(mem.reshape(-1))
     memx[n] = 0
     return memx
+
+
+def resident_pool(host: np.ndarray, device) -> torch.Tensor:
+    """``host`` as a ``(n_devices, pool_words)`` pool on ``device`` laid
+    out as :func:`private_pool`'s buffer: a view of a flat tensor with one
+    zeroed sink word after the pool, so a lockstep wave can be donated it
+    (:func:`donate`)."""
+    host = np.ascontiguousarray(host, np.int64)
+    return private_pool(torch.from_numpy(host), device)[:-1].view(host.shape)
+
+
+def _sink_view(mem: torch.Tensor) -> Optional[torch.Tensor]:
+    """The flat view, sink word included, of a pool laid out as
+    :func:`private_pool`'s buffer; None for any other tensor."""
+    n = mem.numel()
+    if mem.dtype != _I64 or not mem.is_contiguous() \
+            or mem.storage_offset() != 0 \
+            or mem.untyped_storage().nbytes() != (n + 1) * 8:
+        return None
+    return mem.as_strided((n + 1,), (1,), 0)
+
+
+_DONATED: contextvars.ContextVar = contextvars.ContextVar(
+    "lockstep_donated", default=None)
+
+
+@contextlib.contextmanager
+def donate(pool: Optional[torch.Tensor]):
+    """Within the block, the next lockstep engine run (kernel or host
+    loop) on exactly ``pool`` — the same tensor object — writes it in
+    place instead of a private copy, when ``pool`` is laid out as
+    :func:`resident_pool` makes it; the result's pool is then a view of
+    the same storage.  One run only: any later run copies as usual.
+    ``donate(None)`` withdraws an enclosing donation (a wave of several
+    launches, which must not leave a half-written pool behind if a later
+    launch fails)."""
+    token = _DONATED.set([pool])
+    try:
+        yield
+    finally:
+        _DONATED.reset(token)
+
+
+def donated(mem) -> bool:
+    """Would the next lockstep run on ``mem`` write it in place?"""
+    box = _DONATED.get()
+    return bool(box) and box[0] is mem and _sink_view(mem) is not None
+
+
+def _engine_pool(mem: torch.Tensor) -> torch.Tensor:
+    """An engine run's flat buffer: the donated pool itself (taking the
+    donation) or a private copy."""
+    if donated(mem):
+        _DONATED.get()[0] = None
+        return _sink_view(mem)
+    return private_pool(mem)
 
 
 class _Engine:
@@ -859,7 +925,8 @@ class _Engine:
         """The ``lockstep_vm`` kernel's operands for one wave on ``mem``'s
         device, less its outputs and scratch: the constant tables, the
         wave's inputs packed into one tensor (params, op_sel, homes,
-        failed) and the engine's private copy of the pool."""
+        failed) and the engine's private copy of the pool (the pool
+        itself when it is donated, :func:`donate`)."""
         dev = mem.device
         code, base_c, mask_c, start_c, end_c, fuel_c = self._const(dev)
         B = self.B
@@ -879,7 +946,7 @@ class _Engine:
                     pool_words=int(mem.shape[1]),
                     max_window=self.max_window, protect=self.protect,
                     sweep=B > 1 and not self.static_noconflict,
-                    mem=private_pool(mem))
+                    mem=_engine_pool(mem))
 
     def run_kernel(self, mem, params, homes, failed, op_sel) -> VMResult:
         """One wave as one ``lockstep_vm`` launch on ``mem``'s card; the
@@ -895,7 +962,7 @@ class _Engine:
         """The kernel's plain version: the wave one torch macro-step at a
         time, each ended by one host read of a few flags.  Runs on any
         device (on a card pool its MEMCPY launches ``tiara_gather``'s
-        window form)."""
+        window form) and honours a donation as the kernel does."""
         dev = mem.device
         code, base_c, mask_c, start_c, end_c, fuel_c = self._const(dev)
         B, n_dev, depth = self.B, self.n_dev, isa.LOOP_STACK_DEPTH
@@ -915,7 +982,7 @@ class _Engine:
         if k:
             regs0[:, :k] = params[:, :k]
 
-        memx = private_pool(mem)
+        memx = _engine_pool(mem)
         ops = _DenseOps(n_dev, pool_words)
         vector_step, lane_intervals = _make_vector_step(
             base_c=base_c, mask_c=mask_c, n_regions=self.n_regions,

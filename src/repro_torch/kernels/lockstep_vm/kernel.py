@@ -2,8 +2,8 @@
 
 One launch runs a whole wave of the lockstep Tiara engine on the card
 (``csrc/lockstep_vm.cu``; the algorithm is ``csrc/lockstep_vm.cuh``): B
-requests over a merged instruction store against the engine's private
-flat pool, from the first macro-step to the last, with no host read in
+requests over a merged instruction store against a flat pool with a sink
+word, from the first macro-step to the last, with no host read in
 between.  Its MEMCPY is ``tiara_gather``'s window copy, done inside the
 wave.  The kernel replaces, on the port's main path, the JAX engine's
 ``lax.while_loop`` (``src/repro/core/vm.py``) and the one ``tiara_gather``
@@ -18,6 +18,11 @@ packs, launches on the current stream and returns without waiting.
 ``COUNTS["lockstep_vm"]`` counts the kernel's launches — the one place it
 is incremented is right where the kernel is launched, so a run can show
 that its main path went through the kernel.
+
+For measurement only (the main path never calls them, and they count no
+launch): :func:`lockstep_vm_clocks` runs a wave on the build with
+per-phase clocks (``csrc/lockstep_vm_clocks.cu``) and
+:func:`pointer_chase` times dependent loads through a buffer.
 """
 
 from __future__ import annotations
@@ -39,11 +44,34 @@ HEADER = ("code", "n_instr", "rbase", "rmask", "n_regions", "slot_start",
           "slot_end", "slot_fuel", "n_ops", "inputs", "n_params", "B",
           "n_dev", "pool_words", "max_window", "protect", "sweep", "mem",
           "ret", "status", "steps", "regs", "fault", "scratch")
-# per-lane scratch words (kLaneWords) and queued-copy words (kDescWords)
-LANE_WORDS = 12 + 3 * 8
-DESC_WORDS = 7
+# per-lane state words (kCtlWords control words, 16 registers, the loop
+# stack's 3 * kDepth words) and queued-copy words (kDescWords)
+CTL_WORDS = 12
+LANE_WORDS = CTL_WORDS + 16 + 3 * 8
+DESC_WORDS = 8
 MAX_WINDOW = 4096
+MAX_THREADS = 512
 NUM_REGS = 16
+# the clock words of the phase-clocks build (lockstep_vm.cuh's K_* enum)
+CLOCK_WORDS = ("a", "b", "c", "d", "e", "steps", "serial", "total")
+
+
+def sort_size(batch: int) -> int:
+    """The sorted sweep's size: the 2B windows padded to a power of
+    two."""
+    n = 2
+    while n < 2 * int(batch):
+        n <<= 1
+    return n
+
+
+def scratch_words(batch: int) -> int:
+    """The global scratch of a wave of ``batch`` lanes, in int64 words
+    (lockstep_vm.cuh's ``scratch_words``): every part of the lane state,
+    the footprints, the sorted sweep and its scan, and the copy queue."""
+    B = int(batch)
+    return B * (LANE_WORDS + 4 + DESC_WORDS) + 2 * sort_size(B) \
+        + 3 * MAX_THREADS
 
 _I64 = torch.int64
 
@@ -59,9 +87,11 @@ class WaveOut(NamedTuple):
 
 def threads_for(batch: int, max_window: int) -> int:
     """The block size of a wave: enough threads for its lanes and for
-    about 8 words of a macro-step's copies each, 128 to 1024."""
+    about 8 words of a macro-step's copies each, in whole warps, 32 to
+    512 (a wave of at most 32 lanes with short windows runs as one warp,
+    whose barriers cost little; past 512 lanes a thread owns several)."""
     want = max(int(batch), int(batch) * int(max_window) // 8)
-    return int(min(1024, max(128, -(-want // 32) * 32)))
+    return int(min(MAX_THREADS, max(32, -(-want // 32) * 32)))
 
 
 def pack(*, code: torch.Tensor, rbase: torch.Tensor, rmask: torch.Tensor,
@@ -88,7 +118,7 @@ def pack(*, code: torch.Tensor, rbase: torch.Tensor, rmask: torch.Tensor,
                   slot_end=(n_ops,), slot_fuel=(n_ops,),
                   inputs=(B * n_params + 2 * B + n_dev,),
                   mem=(n_dev * pool_words + 1,),
-                  scratch=(B * (LANE_WORDS + DESC_WORDS),),
+                  scratch=(scratch_words(B),),
                   ret=(B,), status=(B,), steps=(B,), regs=(B, NUM_REGS),
                   fault=(B, 4))
     for name, shape in shapes.items():
@@ -115,18 +145,34 @@ def alloc(B: int, device: torch.device):
     initializes them)."""
     out = WaveOut(*(torch.empty(shape, dtype=_I64, device=device)
                     for shape in ((B,), (B,), (B,), (B, NUM_REGS), (B, 4))))
-    scratch = torch.empty(B * (LANE_WORDS + DESC_WORDS), dtype=_I64,
-                          device=device)
+    scratch = torch.empty(scratch_words(B), dtype=_I64, device=device)
     return out, scratch
 
 
-def _launcher():
-    fn = _build.load().lockstep_vm_launch
+def _launcher(name="lockstep_vm_launch", extra=()):
+    fn = getattr(_build.load(), name)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                       ctypes.c_void_p]
+                       ctypes.c_void_p, *extra]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(operands, name, extra=()):
+    mem = operands["mem"]
+    if not mem.is_cuda:
+        raise ValueError("lockstep_vm_kernel needs CUDA tensors")
+    out, scratch = alloc(int(operands["B"]), mem.device)
+    header = pack(out=out, scratch=scratch, **operands)
+    launch = _launcher(name, tuple(ctypes.c_void_p for _ in extra))
+    threads = threads_for(operands["B"], operands["max_window"])
+    with torch.cuda.device(mem.device):
+        stream = torch.cuda.current_stream(mem.device).cuda_stream
+        err = launch(header.ctypes.data, header.size, threads, stream,
+                     *extra)
+    if err != 0:
+        raise RuntimeError(f"lockstep_vm launch failed: cudaError {err}")
+    return out
 
 
 def lockstep_vm_kernel(**operands) -> WaveOut:
@@ -135,18 +181,42 @@ def lockstep_vm_kernel(**operands) -> WaveOut:
     fields as device tensors at once (the launch is asynchronous; ``mem``
     is updated in place).  Raises on anything the kernel does not take
     and on a refused launch — there is no fallback."""
-    mem = operands["mem"]
-    if not mem.is_cuda:
-        raise ValueError("lockstep_vm_kernel needs CUDA tensors")
-    out, scratch = alloc(int(operands["B"]), mem.device)
-    header = pack(out=out, scratch=scratch, **operands)
-    launch = _launcher()
-    threads = threads_for(operands["B"], operands["max_window"])
-    with torch.cuda.device(mem.device):
-        stream = torch.cuda.current_stream(mem.device).cuda_stream
-        err = launch(header.ctypes.data, header.size, threads, stream)
-    if err != 0:
-        raise RuntimeError(f"lockstep_vm launch failed: cudaError {err}")
+    out = _launch(operands, "lockstep_vm_launch")
     with _COUNT_LOCK:
         COUNTS["lockstep_vm"] += 1
+    return out
+
+
+def lockstep_vm_clocks(**operands):
+    """One wave on the build with per-phase clocks, as
+    :func:`lockstep_vm_kernel` takes it: returns the wave's fields and
+    the thread-0 clock words (``CLOCK_WORDS``: cycles in phases (a)-(e),
+    macro-steps, serial lane steps, the phases' sum) as a device tensor.
+    Measurement only: no launch is counted."""
+    clocks = torch.zeros(len(CLOCK_WORDS), dtype=_I64,
+                         device=operands["mem"].device)
+    out = _launch(operands, "lockstep_vm_launch_clocks",
+                  (clocks.data_ptr(),))
+    return out, clocks
+
+
+def pointer_chase(buf: torch.Tensor, start: int, steps: int) -> torch.Tensor:
+    """Follow ``steps`` dependent loads ``i = buf[i]`` from ``start`` with
+    one thread on the card; returns ``(cycles, last index)`` as a device
+    tensor.  Measurement only: no launch is counted."""
+    if not buf.is_cuda or buf.dtype != _I64 or not buf.is_contiguous():
+        raise ValueError("pointer_chase needs a contiguous int64 CUDA "
+                         "tensor")
+    out = torch.zeros(2, dtype=_I64, device=buf.device)
+    fn = _build.load().lockstep_vm_pointer_chase
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(buf.device):
+        stream = torch.cuda.current_stream(buf.device).cuda_stream
+        err = fn(buf.data_ptr(), int(start), int(steps), out.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"pointer_chase launch failed: cudaError {err}")
     return out

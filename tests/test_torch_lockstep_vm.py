@@ -93,10 +93,16 @@ def test_header_order_matches_the_kernel_source():
     names = [n.split("=")[0].strip() for n in names]
     assert names[-1] == "count"
     assert tuple(names[:-1]) == tuple(n.lower() for n in lk.HEADER)
-    lanes = re.search(r"L_STACK, kLaneWords = L_STACK \+ 3 \* kDepth", src)
-    assert lanes and lk.LANE_WORDS == 12 + 3 * 8
-    desc = re.search(r"C_SROW = 0, (.*?), kDescWords", src, re.S)
+    ctl = re.search(r"L_PC = 0, (.*?), kCtlWords", src, re.S)
+    assert len(ctl.group(1).split(",")) + 1 == lk.CTL_WORDS
+    lanes = re.search(r"kLaneWords = kCtlWords \+ kRegs \+ kStackWords", src)
+    assert lanes and re.search(r"kStackWords = 3 \* kDepth", src)
+    assert lk.LANE_WORDS == lk.CTL_WORDS + lk.NUM_REGS + 3 * 8
+    desc = re.search(r"C_SROW = 0, (.*?),\s*kDescWords", src, re.S)
     assert len(desc.group(1).split(",")) + 1 == lk.DESC_WORDS
+    clocks = re.search(r"K_A = 0, (.*?),\s*kClockWords", src, re.S)
+    assert len(clocks.group(1).split(",")) + 1 == len(lk.CLOCK_WORDS)
+    assert f"kMaxThreads = {lk.MAX_THREADS};" in src
 
 
 def test_packing_round_trips_the_program_statics():
@@ -137,7 +143,8 @@ def test_packing_round_trips_the_program_statics():
     for f in FIELDS:
         assert hdr[f] == getattr(out, f).data_ptr()
     assert hdr["scratch"] == scratch.data_ptr()
-    assert scratch.numel() == 9 * (lk.LANE_WORDS + lk.DESC_WORDS)
+    assert scratch.numel() == lk.scratch_words(9) == \
+        9 * (lk.LANE_WORDS + 4 + lk.DESC_WORDS) + 2 * 32 + 3 * 512
     # a static proof turns the sweep off; so does a wave of one
     nc = corpus.mixed_stock_wave(9)
     nc.static_noconflict = True
@@ -189,43 +196,143 @@ def test_engines_match_jax_on_the_seeded_cases(impl):
 # CPU: the kernel's wave algorithm, compiled as host C++
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+#: the card's shared memory a block may take, in words (227 KB)
+CARD_SMEM_WORDS = 232448 // 8
+#: host blocks: (threads, warp width); 64 threads in two warps of 32 run
+#: the bulk copy producer beside the copying warps, as the card does
+BLOCKS = {1: 1, 5: 4, 64: 32}
+
+
+def _build_host(tmp_path_factory, *defines):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel source for the host")
     so = str(tmp_path_factory.mktemp("lockstep_vm") / "lockstep_vm_host.so")
     subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
-                    "-pthread", "-I", CSRC, "-o", so,
+                    "-pthread", *defines, "-I", CSRC, "-o", so,
                     os.path.join(HERE, "lockstep_vm_host.cpp")],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(so)
-    lib.lockstep_vm_host_run.argtypes = [ctypes.c_void_p, ctypes.c_int64,
-                                         ctypes.c_int64]
+    i64, ptr = ctypes.c_int64, ctypes.c_void_p
+    lib.lockstep_vm_host_run.argtypes = [ptr, i64, i64, i64, i64, i64, ptr,
+                                         i64]
     lib.lockstep_vm_host_run.restype = ctypes.c_int
+    lib.lockstep_vm_host_plan.argtypes = [ptr, i64, i64, i64, ptr]
+    lib.lockstep_vm_host_sweep.argtypes = [ptr, i64, i64, i64, i64, ptr]
+    return lib
 
-    def run(eng, mem, args, threads):
+
+class HostKernel:
+    """The kernel source built for the host, run on a wave's own packed
+    operands."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def header(self, eng, mem, args):
         ops = eng.kernel_operands(mem, *args)
         out, scratch = lk.alloc(ops["B"], mem.device)
-        hdr = lk.pack(out=out, scratch=scratch, **ops)
-        assert lib.lockstep_vm_host_run(hdr.ctypes.data, hdr.size,
-                                        threads) == 0
+        return ops, out, scratch, lk.pack(out=out, scratch=scratch, **ops)
+
+    def plan(self, hdr, threads, smem_words=CARD_SMEM_WORDS):
+        out = np.zeros(5 + 7, np.int64)
+        self.lib.lockstep_vm_host_plan(hdr.ctypes.data, threads,
+                                       BLOCKS.get(threads, 32), smem_words,
+                                       out.ctypes.data)
+        return dict(words=out[0], ring=out[1], stage=out[2], code=out[3],
+                    tabs=out[4], parts=dict(zip(
+                        ("ctl", "regs", "stack", "foot", "sort", "scan",
+                         "desc"), out[5:])))
+
+    def __call__(self, eng, mem, args, threads, *, smem_words=CARD_SMEM_WORDS,
+                 keep=True, clocks=None, cluster=0):
+        ops, out, _, hdr = self.header(eng, mem, args)
+        rc = self.lib.lockstep_vm_host_run(
+            hdr.ctypes.data, hdr.size, threads, BLOCKS.get(threads, 32),
+            smem_words, int(keep),
+            None if clocks is None else clocks.ctypes.data, cluster)
+        assert rc == 0
         return vm.VMResult(mem=ops["mem"][:-1].view(mem.shape),
                            **out._asdict())
-    return run
+
+    def sweep(self, iv, threads, ws, sorted_):
+        iv = np.ascontiguousarray(iv, dtype=np.int64)
+        out = np.zeros(iv.shape[0], np.int64)
+        self.lib.lockstep_vm_host_sweep(iv.ctypes.data, iv.shape[0],
+                                        threads, ws, int(sorted_),
+                                        out.ctypes.data)
+        return out.astype(bool)
 
 
-@pytest.mark.parametrize("threads", [1, 5])
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    return HostKernel(_build_host(tmp_path_factory))
+
+
+@pytest.mark.parametrize("threads", sorted(BLOCKS))
 def test_kernel_source_on_host_threads_matches_the_host_loop(host_kernel,
                                                              threads):
     """The kernel's wave algorithm, run by ``threads`` host threads that
-    meet where the kernel's block synchronizes, equals the host loop on
-    every wave of the small corpus."""
+    meet where the kernel's block and warps synchronize, equals the host
+    loop on every wave of the small corpus (the 1-thread block keeps its
+    decoded operands as the 256-thread build does, the others decode again
+    as the 512-thread build does)."""
     for w in small_corpus():
         eng = w.engine()
         mem = torch.from_numpy(w.mem.copy())
-        assert_same_wave(host_kernel(eng, mem, w.args(), threads),
+        assert_same_wave(host_kernel(eng, mem, w.args(), threads,
+                                     keep=threads == 1),
                          eng.run_host_loop(mem, *w.args()), w.name)
+
+
+@pytest.mark.parametrize("threads", [5, 64])
+def test_kernel_source_keeps_lane_state_in_global_memory_past_the_budget(
+        host_kernel, threads):
+    """A wave whose lane state overflows the block's shared memory (a
+    budget that holds the staging window and little else) keeps its state
+    in the global scratch and still equals the host loop; at the card's
+    227 KB the same waves keep everything on chip."""
+    waves = [corpus.stock_waves(64, block_bytes=256)[i] for i in (2, 3, 7)]
+    waves += corpus.random_waves(5, 2, (64,))
+    for w in waves:
+        eng = w.engine()
+        mem = torch.from_numpy(w.mem.copy())
+        _, _, _, hdr = host_kernel.header(eng, mem, w.args())
+        budget = 48 + eng.max_window + 2
+        tight = host_kernel.plan(hdr, threads, budget)
+        assert tight["stage"] >= 0
+        assert all(tight["parts"][p] < 0 for p in ("ctl", "regs", "stack",
+                                                    "foot", "desc")), tight
+        roomy = host_kernel.plan(hdr, threads)
+        assert all(roomy["parts"][p] >= 0 for p in ("ctl", "regs", "stack",
+                                                     "foot"))
+        assert_same_wave(host_kernel(eng, mem, w.args(), threads,
+                                     smem_words=budget),
+                         eng.run_host_loop(mem, *w.args()), w.name)
+
+
+def test_kernel_source_plans_the_card_shapes(host_kernel):
+    """At the card's 227 KB: a resolver wave (one warp: its windows are
+    one word) keeps its tables and every part of its lane state on chip; a
+    wave of 1024 lanes (512 threads) keeps its control words, footprints
+    and sorted sweep on chip and its registers and loop stacks in the
+    global scratch."""
+    w = corpus.resolver_wave(n_slots=16, pages=8, n_pages=64)
+    _, _, _, hdr = host_kernel.header(w.engine(), torch.from_numpy(w.mem),
+                                      w.args())
+    assert lk.threads_for(16, 1) == 32
+    p = host_kernel.plan(hdr, 32)
+    assert p["code"] >= 0 and p["tabs"] >= 0 and p["ring"] == 0
+    assert all(p["parts"][q] >= 0 for q in ("ctl", "regs", "stack", "foot",
+                                             "desc"))
+    w = corpus.stock_waves(1024, block_bytes=256, serialized=False)[0]
+    _, _, _, hdr = host_kernel.header(w.engine(), torch.from_numpy(w.mem),
+                                      w.args())
+    assert lk.threads_for(1024, 1) == lk.MAX_THREADS == 512
+    p = host_kernel.plan(hdr, 512)
+    assert p["words"] <= CARD_SMEM_WORDS
+    assert all(p["parts"][q] >= 0 for q in ("ctl", "foot", "sort", "scan"))
+    assert p["parts"]["regs"] < 0 and p["parts"]["stack"] < 0
 
 
 def test_kernel_source_runs_the_resolver_wave(host_kernel):
@@ -249,6 +356,124 @@ def test_kernel_source_serializes_a_contended_wave(host_kernel):
     assert got.status.tolist() == [0] + [1] * 6
 
 
+def test_kernel_source_copies_long_windows_through_the_bulk_ring(
+        host_kernel):
+    """8 KiB KV blocks (1024-word windows, several 4 KiB copy units each)
+    at 64 lanes: the producer's bulk ring and the copying warps share the
+    units, and every reply slot equals the host loop's."""
+    for w in corpus.stock_waves(64, serialized=False)[2:4]:
+        eng = w.engine()
+        mem = torch.from_numpy(w.mem.copy())
+        _, _, _, hdr = host_kernel.header(eng, mem, w.args())
+        assert host_kernel.plan(hdr, 64)["ring"] >= 2
+        assert_same_wave(host_kernel(eng, mem, w.args(), 64),
+                         eng.run_host_loop(mem, *w.args()), w.name)
+
+
+@pytest.mark.parametrize("cluster", [2, 8])
+def test_kernel_source_on_a_cluster_of_host_blocks(host_kernel, cluster):
+    """Helper blocks copy block 0's queued windows between cluster
+    barriers, through its shared memory: the stock waves whose windows
+    are queued (32-word KV blocks, 32-word expert slabs) and a random wave
+    equal the host loop; the launch picks a cluster of 8 for 256 lanes
+    with queued windows and one block otherwise."""
+    waves = corpus.stock_waves(64, block_bytes=256, serialized=False)[2:]
+    waves += corpus.random_waves(9, 1, (64,))
+    for w in waves:
+        eng = w.engine()
+        mem = torch.from_numpy(w.mem.copy())
+        assert_same_wave(host_kernel(eng, mem, w.args(), 64, keep=False,
+                                     cluster=cluster),
+                         eng.run_host_loop(mem, *w.args()), w.name)
+    src = open(os.path.join(CSRC, "lockstep_vm.cuh")).read()
+    assert "kClusterMinLanes = 256;" in src and "kClusterMax = 8;" in src
+
+
+def test_phase_clocks_build_counts_steps_and_serial_lanes(tmp_path_factory):
+    """The phase-clocks build of the same source: its macro-step count is
+    the wave's longest lane, its serial lane steps are at least the
+    contended lock's (every lane but the winner retries), and its result
+    equals the host loop's."""
+    clk = HostKernel(_build_host(tmp_path_factory, "-DLSVM_PHASE_CLOCKS"))
+    w = corpus.stock_waves(7, block_bytes=256)[2]
+    eng = w.engine()
+    mem = torch.from_numpy(w.mem.copy())
+    words = np.full(len(lk.CLOCK_WORDS), -1, np.int64)
+    got = clk(eng, mem, w.args(), 5, clocks=words)
+    assert_same_wave(got, eng.run_host_loop(mem, *w.args()), w.name)
+    c = dict(zip(lk.CLOCK_WORDS, words.tolist()))
+    assert c["steps"] == int(got.steps.max())
+    assert c["serial"] >= w.B - 1
+    assert c["total"] == 0          # the host's clock reads 0
+
+
+def _pairwise(iv):
+    """Per lane: another lane's window meets it as the pairwise sweep
+    asks (vm.py's ``_lane_conflicts``), and its own windows meet."""
+    t = torch.from_numpy(np.asarray(iv, dtype=np.int64))
+    r_lo, r_hi, w_lo, w_hi = t.unbind(1)
+    e_r, e_w = r_hi <= r_lo, w_hi <= w_lo
+    big = vm._BIG
+    r_lo = torch.where(e_r, big, r_lo)
+    r_hi = torch.where(e_r, -big, r_hi)
+    w_lo = torch.where(e_w, big, w_lo)
+    w_hi = torch.where(e_w, -big, w_hi)
+    pair = vm._lane_conflicts(r_lo, r_hi, w_lo, w_hi).numpy()
+    own = ((w_lo < r_hi) & (r_lo < w_hi)).numpy()
+    return pair, own
+
+
+def _random_footprints(rng, B, span):
+    iv = np.zeros((B, 4), np.int64)
+    for b in range(B):
+        for k in (0, 2):
+            if rng.random() < 0.25:
+                continue                      # an empty window
+            lo = int(rng.integers(0, span))
+            iv[b, k:k + 2] = (lo, lo + int(rng.integers(1, 6)))
+    return iv
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_sorted_sweep_contains_the_pairwise_set(host_kernel, seed):
+    """On seeded random footprints (dense and sparse, ties among starts,
+    empty windows), the block's sorted sweep marks every lane the pairwise
+    sweep marks, and no other lane but those whose own windows meet; so
+    does the pairwise form itself."""
+    rng = np.random.default_rng(seed)
+    for B in (1, 2, 7, 33, 100, 257):
+        for span in (4, 16, 4 * B + 1):
+            iv = _random_footprints(rng, B, span)
+            pair, own = _pairwise(iv)
+            for threads, ws in ((1, 1), (5, 4), (64, 32)):
+                got = host_kernel.sweep(iv, threads, ws, True)
+                assert (got >= pair).all() and (got <= (pair | own)).all()
+            assert (host_kernel.sweep(iv, 1, 1, False) == (pair | own)).all()
+
+
+def test_sorted_sweep_contains_the_pairwise_set_on_the_corpus(
+        host_kernel, monkeypatch):
+    """The same on the corpus's own footprints: every macro-step's
+    windows, as the host loop hands them to its conflict sweep, over the
+    small corpus's waves of more than one lane."""
+    seen = []
+    orig = vm._sweep_conflict
+
+    def record(r_lo, r_hi, w_lo, w_hi):
+        seen.append(torch.stack([r_lo, r_hi, w_lo, w_hi], 1).numpy().copy())
+        return orig(r_lo, r_hi, w_lo, w_hi)
+    monkeypatch.setattr(vm, "_sweep_conflict", record)
+    for w in small_corpus() + [corpus.mixed_stock_wave(64)]:
+        if w.B > 1:
+            w.engine().run_host_loop(torch.from_numpy(w.mem.copy()),
+                                     *w.args())
+    assert len(seen) > 100
+    for iv in seen:
+        pair, own = _pairwise(iv)
+        got = host_kernel.sweep(iv, 5, 4, True)
+        assert (got >= pair).all() and (got <= (pair | own)).all()
+
+
 # ---------------------------------------------------------------------------
 # the card
 # ---------------------------------------------------------------------------
@@ -261,15 +486,23 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("group", ["stock", "faults", "loops", "random"])
+@pytest.mark.parametrize("group", ["stock", "faults", "loops", "random",
+                                   "wide"])
 def test_cuda_kernel_matches_the_host_loop(cuda_device, group):
     """Bit for bit on the card: mem, ret, status, steps, regs and fault,
-    the kernel against the host loop, over a part of the corpus."""
+    the kernel against the host loop, over a part of the corpus; "wide"
+    takes the stock operators at 256 and 1024 lanes (the sorted sweep, the
+    512-thread build, lane state past the shared budget, the bulk copy
+    ring on 8 KiB blocks) and the mixed wave at 1024."""
     waves = {"stock": lambda: [x for B in (1, 7, 64)
                                for x in corpus.stock_waves(B)]
              + [corpus.mixed_stock_wave(64)],
              "faults": corpus.fault_waves, "loops": corpus.loop_waves,
-             "random": lambda: corpus.random_waves(1, 32, (1, 7, 64))}
+             "random": lambda: corpus.random_waves(1, 32, (1, 7, 64)),
+             "wide": lambda: [x for B in (256, 1024)
+                              for x in corpus.stock_waves(B,
+                                                          serialized=False)]
+             + [corpus.mixed_stock_wave(1024, locks=False)]}
     for w in waves[group]():
         eng = w.engine()
         mem = torch.from_numpy(w.mem.copy()).to(cuda_device)
@@ -295,3 +528,27 @@ def test_cuda_wave_is_one_launch(cuda_device):
     assert_same_wave(got, eng.run_host_loop(mem, *w.args()), w.name)
     with pytest.raises(ValueError, match="impl='torch'"):
         w.engine(impl="torch")(mem, *w.args())
+
+
+@pytest.mark.gpu
+def test_cuda_phase_clocks_and_pointer_chase(cuda_device):
+    """The phase-clocks build equals the main build on a wave and counts
+    its macro-steps; the pointer chase follows its chain to the end."""
+    w = corpus.resolver_wave(pages=32, n_pages=256)
+    eng = w.engine()
+    mem = torch.from_numpy(w.mem.copy()).to(cuda_device)
+    ops = eng.kernel_operands(mem, *w.args())
+    out, clocks = lk.lockstep_vm_clocks(**ops)
+    want = eng.run_host_loop(mem, *w.args())
+    torch.cuda.synchronize()
+    for f in FIELDS:
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
+    c = dict(zip(lk.CLOCK_WORDS, clocks.tolist()))
+    assert c["steps"] == int(want.steps.max()) and c["total"] > 0
+    assert c["total"] == sum(c[k] for k in "abcde")
+    n = 1 << 12
+    perm = torch.randperm(n, device=cuda_device)
+    buf = torch.zeros(n, dtype=torch.int64, device=cuda_device)
+    buf[perm] = torch.roll(perm, -1)
+    got = lk.pointer_chase(buf, int(perm[0]), 3 * n + 5)
+    assert int(got[1]) == int(perm[5]) and int(got[0]) > 0
