@@ -53,7 +53,16 @@ Phases:
 1. device and build: the card's name and power limit; every CUDA kernel
    of the port built from the checkout's sources with ``nvcc``;
 2. each kernel against its plain version at the main paths' shapes
-   (``tiara_gather`` exactly, also at unaligned and wrapping windows;
+   (``tiara_gather`` exactly, also at unaligned and wrapping windows, in
+   both regimes (one thread a word up to 32 words, the persistent
+   bulk-copy stream past that) with and without ids, the same bits twice,
+   one launch a call, its kernels' registers and spills from the
+   ``-Xptxas -v`` log (a spill fails), at the path shape in both forms
+   timed after a write and after a read flush of the L2 and by the
+   profiler's kernel duration, with its host wall per call, the launch
+   floor (an empty kernel of the library) and ``index_select``; after
+   phase 13, at every shape the resolvers and the sharded engine gave it,
+   beside the launch floor plus its latency bound;
    ``paged_attention`` and ``flash_attention`` within 3e-5 in f32, plus
    small bf16, empty-row, G = 7, head-dim and ragged cases within 0.05 /
    3e-5, the sequence split's edge cases, and two calls on the same
@@ -558,6 +567,66 @@ def time_cuda(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def time_cuda_clean(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
+    """``time_cuda`` with the L2 flushed by a read of the buffer instead of
+    a write: the next launch finds its rows cold and no dirty line of the
+    flush left to write back to HBM while it runs."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        scratch.max()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def profiled_kernel_ms(fn, scratch, reps: int = 10):
+    """The device time of the kernels one call of ``fn`` runs, start to end
+    of each as ``torch.profiler`` (CUPTI) records it, without the launch
+    and the events' own cost; the median over ``reps`` calls, each after a
+    write flush of the L2 outside the profiled window.  None when the
+    profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush_l2(scratch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == DeviceType.CUDA) / 1e3)
+    ms = float(np.median(times))
+    return ms if ms > 0 else None
+
+
+def host_wall_ms(fn, reps: int = 500, rounds: int = 5) -> float:
+    """Host wall of one call, launch included: after 50 warm-up calls,
+    ``rounds`` rounds of ``reps`` calls back to back, each ended by one
+    synchronise (the device keeps up, so the host's time per call is what
+    shows); the median round."""
+    for _ in range(50):
+        fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) / reps * 1e3)
+    return float(np.median(times))
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -635,8 +704,50 @@ def bwd_registers():
     return rows
 
 
+def gather_registers():
+    """``tiara_gather``'s kernels (the small and the stream regime, per
+    element and table type) from the ``-Xptxas=-v`` build log: registers,
+    spills, and the stream regime's shared memory a block (dynamic, from
+    the library's constants); fails on a spill."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.tiara_gather import kernel as tk
+    rows, name, spill = [], None, None
+    for line in _build.log_path().read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = re.search(r"tiara_gather_(small|stream)_kernelI(\w)(\w)E",
+                             m.group(1))
+            spill = None
+        elif name and spill is None and "spill stores" in line:
+            spill = [int(x) for x in
+                     re.findall(r"(\d+) bytes spill (?:stores|loads)", line)]
+        elif name and "Used" in line and "registers" in line:
+            rows.append(dict(
+                kernel=f"{name.group(1)}<{name.group(2)},{name.group(3)}>",
+                registers=int(re.search(r"Used (\d+) registers",
+                                        line).group(1)),
+                spill_stores=spill[0], spill_loads=spill[1]))
+            name = None
+    if not rows:
+        raise AssertionError("the build log names no tiara_gather kernel")
+    cfg = tk.config()
+    log(f"[kernel] tiara_gather kernels (-Xptxas -v; element type t/j/m = "
+        f"2/4/8 bytes, table i/l = int32/int64): " + ", ".join(
+            f"{r['kernel']} {r['registers']} registers, spills "
+            f"{r['spill_stores']}/{r['spill_loads']} B" for r in rows)
+        + f"; a stream block: {cfg['threads']} threads, "
+        f"{cfg['smem_bytes']} B of shared memory ({cfg['ring_slots']} ring "
+        f"slots of {cfg['unit_bytes']} B), {cfg['blocks_per_sm']} blocks an "
+        f"SM; the small regime up to {cfg['small_max_width']} words")
+    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"tiara_gather kernels spill: {spilled}")
+    return dict(kernels=rows, **cfg)
+
+
 def phase_kernel(dev, scratch):
-    """tiara_gather against its plain version on the card."""
+    """tiara_gather against its plain version on the card: both regimes
+    and forms, the path shape's times, bounds and launch floor."""
     from repro_torch.kernels.tiara_gather.ops import tiara_gather
     from repro_torch.kernels.tiara_gather.ref import tiara_gather_ref
 
@@ -683,12 +794,59 @@ def phase_kernel(dev, scratch):
     log("[kernel] tiara_gather_window == plain version for unaligned and "
         "wrapping windows (int64, f32, bf16)")
 
+    # each regime and copy path of the redesigned kernel: the small
+    # regime (width <= SMALL_MAX_WIDTH, one thread a word) and the stream
+    # regime (bulk interiors, vectors, element by element, wrapping), with
+    # and without ids, one mask and per-entry masks; two calls the same
+    # bits, one launch each
+    from repro_torch import kernels
+    from repro_torch.kernels.tiara_gather import kernel as tk
+    for dtype, width in [(torch.int64, 1), (torch.int64, 32),
+                         (torch.bfloat16, 33), (torch.int64, 1024),
+                         (torch.float32, 3000)]:
+        region = 1 << 13
+        n = 300
+        flat = torch.from_numpy(rng.integers(0, 1 << 30, 3 * region + 3)) \
+            .to(dev, dtype)
+        table = torch.from_numpy(rng.integers(0, region, n + 2)).to(dev)
+        table[::3] = region - 1                  # wrapping windows
+        bases = torch.from_numpy(rng.integers(0, 3, n + 2) * region).to(dev)
+        masks = torch.full((n + 2,), region - 1, device=dev)
+        masks[1::2] = region // 4 - 1
+        ids = torch.from_numpy(rng.integers(0, n + 2, n).astype(np.int32)) \
+            .to(dev)
+        for i in (ids, None):
+            for m in (region - 1, masks):
+                before = kernels.launch_counts()["tiara_gather"]
+                out = tiara_gather_window(flat, table, bases, i, width=width,
+                                          mask=m)
+                again = tiara_gather_window(flat, table, bases, i,
+                                            width=width, mask=m)
+                want = tiara_gather_window_ref(flat, table, bases, i,
+                                               width=width, mask=m)
+                torch.cuda.synchronize()
+                if not (torch.equal(out, want) and torch.equal(again, out)):
+                    raise AssertionError(
+                        f"tiara_gather_window != plain (or not the same "
+                        f"bits twice) for {dtype} width {width}, ids "
+                        f"{i is not None}, per-entry masks "
+                        f"{isinstance(m, torch.Tensor)}")
+                if kernels.launch_counts()["tiara_gather"] != before + 2:
+                    raise AssertionError("tiara_gather did not count one "
+                                         "launch a call")
+    log(f"[kernel] tiara_gather_window == plain version in both regimes "
+        f"(small up to {tk.SMALL_MAX_WIDTH} words, stream past it), with "
+        f"and without ids, shared and per-entry masks, the same bits "
+        f"twice")
+    registers = gather_registers()
+
     # The main path's shape.  The compiled gather chain of a 256-post
     # paged-KV wave calls the window form over the engine's flat pool:
     # 4096 entries (256 posts x 16 blocks), 1024-word rows (8 KiB
     # blocks), offsets into the 1 GiB kvpool region (mask 2**27 - 1) at
-    # the block-aligned translations the stock table holds, ids = arange.
-    # The row form runs on the same bytes as a (131072, 1024) view.
+    # the block-aligned translations the stock table holds, no ids (entry
+    # i is id i, as the engines call it).  The row form runs on the same
+    # bytes as a (131072, 1024) view, with ids.
     n_rows, R, n = 131072, 1024, 4096
     mask = n_rows * R - 1
     flat = torch.randint(-(1 << 62), 1 << 62, (n_rows * R + 1,),
@@ -699,25 +857,33 @@ def phase_kernel(dev, scratch):
     ids = torch.arange(n, dtype=torch.int32, device=dev)
 
     def win():
-        return tiara_gather_window(flat, offs, bases, ids, width=R, mask=mask)
+        return tiara_gather_window(flat, offs, bases, width=R, mask=mask)
 
     def win_plain():
-        return tiara_gather_window_ref(flat, offs, bases, ids, width=R,
-                                       mask=mask)
+        return tiara_gather_window_ref(flat, offs, bases, width=R, mask=mask)
 
-    out, ref = win(), win_plain()
+    out, ref, again = win(), win_plain(), win()
     torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError("tiara_gather_window != plain at the path shape")
+    if not torch.equal(out, ref) or not torch.equal(again, out):
+        raise AssertionError("tiara_gather_window != plain (or not the same "
+                             "bits twice) at the path shape")
+    del again
     max_abs_err = int((out - ref).abs().max().item())
     ms = time_cuda(win, scratch)
     plain_ms = time_cuda(win_plain, scratch)
     # bytes the function must move: each distinct requested row read
-    # once, each output row written once, the ids, offsets and bases
-    # read once
+    # once, each output row written once, the offsets and bases read once
     uniq = int(np.unique(blocks).size)
-    moved = uniq * R * 8 + n * R * 8 + n * (4 + 4 + 8)
+    moved = uniq * R * 8 + n * R * 8 + n * (4 + 8)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    host_ms = host_wall_ms(win)
+    floor_ms = time_cuda(tk.launch_empty, scratch)
+    # the same kernel two more ways: after a read flush of the L2 (no
+    # dirty lines written back during the kernel), and its own duration
+    # from the profiler (no launch or event cost)
+    clean_ms = time_cuda_clean(win, scratch)
+    floor_clean_ms = time_cuda_clean(tk.launch_empty, scratch)
+    kernel_ms = profiled_kernel_ms(win, scratch)
 
     pool2d = flat[:n_rows * R].view(n_rows, R)
     table = torch.from_numpy(blocks.astype(np.int32)).to(dev)
@@ -727,6 +893,15 @@ def phase_kernel(dev, scratch):
             or not torch.equal(out_r, out):
         raise AssertionError("tiara_gather != plain at the path shape")
     row_ms = time_cuda(lambda: tiara_gather(pool2d, table, ids), scratch)
+    row_host_ms = host_wall_ms(lambda: tiara_gather(pool2d, table, ids))
+    same = tiara_gather(pool2d, table, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(same, out_r):
+        raise AssertionError("the row form gave other bits the second time")
+    del same
+    # the row form's bytes: the rows, the ids and the table entries
+    row_bound_ms = (uniq * R * 8 + n * R * 8 + n * (4 + 4)) \
+        / HBM_BYTES_PER_S * 1e3
     row_plain_ms = time_cuda(lambda: tiara_gather_ref(pool2d, table, ids),
                              scratch)
     # the library's row gather on the same inputs: index_select over the
@@ -739,13 +914,35 @@ def phase_kernel(dev, scratch):
         raise AssertionError("index_select != tiara_gather at the path "
                              "shape")
     library_ms = time_cuda(library, scratch)
+    row_clean_ms = time_cuda_clean(lambda: tiara_gather(pool2d, table, ids),
+                                   scratch)
+    row_kernel_ms = profiled_kernel_ms(
+        lambda: tiara_gather(pool2d, table, ids), scratch)
+    library_clean_ms = time_cuda_clean(library, scratch)
+    library_kernel_ms = profiled_kernel_ms(library, scratch)
+
+    def us(x):
+        return "not measured" if x is None else f"{x * 1e3:.2f} us"
     log(f"[kernel] path shape: flat int64 pool {flat.numel() * 8 >> 20} MiB, "
-        f"n={n} rows of {R} words: equal; window kernel {ms * 1e3:.2f} us "
-        f"({moved / ms / 1e6:.0f} GB/s), plain {plain_ms * 1e3:.2f} us, "
-        f"bound {bound_ms * 1e3:.2f} us; row form kernel "
-        f"{row_ms * 1e3:.2f} us, plain {row_plain_ms * 1e3:.2f} us, "
-        f"library (pool.index_select(0, table[ids])) "
-        f"{library_ms * 1e3:.2f} us")
+        f"n={n} rows of {R} words: equal; window kernel (no ids) "
+        f"{ms * 1e3:.2f} us ({moved / ms / 1e6:.0f} GB/s), "
+        f"{host_ms * 1e3:.2f} us of host wall per call, plain "
+        f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us (bytes); "
+        f"row form kernel {row_ms * 1e3:.2f} us, {row_host_ms * 1e3:.2f} us "
+        f"of host wall, plain {row_plain_ms * 1e3:.2f} us, bound "
+        f"{row_bound_ms * 1e3:.2f} us, library (pool.index_select(0, "
+        f"table[ids])) {library_ms * 1e3:.2f} us; launch floor (an empty "
+        f"kernel of the library) {floor_ms * 1e3:.2f} us; {card_line()}")
+    log(f"[kernel] path shape, L2 flushed by a read (no dirty lines): "
+        f"window {clean_ms * 1e3:.2f} us, row form {row_clean_ms * 1e3:.2f} "
+        f"us, index_select {library_clean_ms * 1e3:.2f} us, launch floor "
+        f"{floor_clean_ms * 1e3:.2f} us; the kernels' own durations "
+        f"(torch.profiler, write flush): window {us(kernel_ms)}, row form "
+        f"{us(row_kernel_ms)}, index_select (with its table[ids]) "
+        f"{us(library_kernel_ms)}; byte bound {bound_ms * 1e3:.2f} us")
+    if not (row_ms < library_ms):
+        log("[kernel] NOTE: the row form is not faster than index_select "
+            "at the path shape in this run")
     del flat, out, ref, out_r, pool2d
     torch.cuda.empty_cache()
     return dict(name="tiara_gather", route="cuda",
@@ -755,7 +952,15 @@ def phase_kernel(dev, scratch):
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
                 bytes_moved=moved, shape=[n_rows, R, n],
-                row_form_ms=row_ms, row_form_plain_ms=row_plain_ms)
+                host_ms_per_call=host_ms, launch_floor_ms=floor_ms,
+                row_form_ms=row_ms, row_form_plain_ms=row_plain_ms,
+                row_form_host_ms_per_call=row_host_ms,
+                row_form_bound_ms=row_bound_ms, registers=registers,
+                clean_l2_ms=clean_ms, launch_floor_clean_l2_ms=floor_clean_ms,
+                kernel_only_ms=kernel_ms, row_form_clean_l2_ms=row_clean_ms,
+                row_form_kernel_only_ms=row_kernel_ms,
+                library_clean_l2_ms=library_clean_ms,
+                library_kernel_only_ms=library_kernel_ms)
 
 
 def _randn(rng, shape, dtype, dev):
@@ -1372,7 +1577,9 @@ def tiara_on_host_loop(tag, cfg, params, prompts, max_new, dev, want):
     saved = kernels.launch_counts()
     kernel = vm._Engine.run_kernel
     vm._Engine.run_kernel = vm._Engine.run_host_loop
+    calls = _GatherCalls()
     try:
+        calls.__enter__()
         eng = ServingEngine(cfg, params, max_slots=SERVE_SLOTS,
                             max_seq=SERVE_MAX_SEQ, eos_id=-1,
                             temperature=0.0, resolver="tiara", device=dev)
@@ -1384,6 +1591,7 @@ def tiara_on_host_loop(tag, cfg, params, prompts, max_new, dev, want):
         waves = kernels.launch_counts()["lockstep_vm"] \
             - saved["lockstep_vm"]
     finally:
+        calls.__exit__()
         vm._Engine.run_kernel = kernel
         _restore_counts(saved)
     if out != want:
@@ -1401,7 +1609,7 @@ def tiara_on_host_loop(tag, cfg, params, prompts, max_new, dev, want):
         f"{r['step_ms_median']:.2f}, min {min(timed.step_ms):.2f}, max "
         f"{max(timed.step_ms):.2f}; {r['step_gathers_median']:.0f} "
         f"tiara_gather launches a step; the same tokens")
-    return r
+    return r, calls.first.get("lockstep")
 
 
 def _tiny_prompts(cfg):
@@ -1492,13 +1700,14 @@ class _GatherCalls:
             fn = mod.tiara_gather_window
             self._saved.append((mod, fn))
 
-            def rec(pool, table, bases, ids, *, width, mask, impl="auto",
-                    _fn=fn, _name=name):
+            def rec(pool, table, bases, ids=None, *, width, mask,
+                    impl="auto", _fn=fn, _name=name):
                 self.counts[_name] = self.counts.get(_name, 0) + 1
                 if _name not in self.first:
                     self.first[_name] = dict(
                         pool=pool.clone(), table=table.clone(),
-                        bases=bases.clone(), ids=ids.clone(), width=width,
+                        bases=bases.clone(),
+                        ids=None if ids is None else ids.clone(), width=width,
                         mask=mask.clone() if isinstance(mask, torch.Tensor)
                         else mask)
                 return _fn(pool, table, bases, ids, width=width, mask=mask,
@@ -1511,11 +1720,14 @@ class _GatherCalls:
             mod.tiara_gather_window = fn
 
 
-def time_gather_call(call, scratch, reps: int = 200):
+def time_gather_call(call, scratch, latency_ns, floor_ms):
     """``tiara_gather``'s window form at one recorded serving call: equal
-    to its plain version; device time (CUDA events, L2 flushed); the host
-    wall of one call, launch included (``reps`` calls back to back, then
-    one sync); and the byte bound."""
+    to its plain version, the same bits twice; device time (CUDA events,
+    L2 flushed); the host wall of one call, launch included
+    (``host_wall_ms``); the byte bound, and the latency
+    bound: the window's dependent global loads (ids when given, then the
+    table, bases and masks side by side, then the pool) times the card's
+    cold-word latency, beside the launch floor ``floor_ms``."""
     from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
     from repro_torch.kernels.tiara_gather.ref import tiara_gather_window_ref
     args = (call["pool"], call["table"], call["bases"], call["ids"])
@@ -1523,30 +1735,34 @@ def time_gather_call(call, scratch, reps: int = 200):
 
     def fn():
         return tiara_gather_window(*args, **kw)
-    out, ref = fn(), tiara_gather_window_ref(*args, **kw)
+    out, ref, again = fn(), tiara_gather_window_ref(*args, **kw), fn()
     torch.cuda.synchronize()
-    if not torch.equal(out, ref):
-        raise AssertionError("tiara_gather_window != plain at a serving "
-                             "shape")
+    if not torch.equal(out, ref) or not torch.equal(again, out):
+        raise AssertionError("tiara_gather_window != plain (or not the same "
+                             "bits twice) at a serving shape")
     ms = time_cuda(fn, scratch)
     plain_ms = time_cuda(lambda: tiara_gather_window_ref(*args, **kw),
                          scratch)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t) / reps * 1e3
-    n, width = int(call["ids"].numel()), int(call["width"])
-    # each window word read once and written once; ids, offsets, bases
-    # (and per-lane masks) read once
-    per_id = 4 + 4 + 8 + (8 if isinstance(call["mask"], torch.Tensor) else 0)
-    moved = 2 * n * width * 8 + n * per_id
+    host_ms = host_wall_ms(fn)
+    ids = call["ids"]
+    n = int(call["table"].numel() if ids is None else ids.numel())
+    width = int(call["width"])
+    elem = call["pool"].element_size()
+    # each window element read once and written once; ids (when given),
+    # offsets, bases (and per-lane masks) read once
+    per_id = (0 if ids is None else 4) + call["table"].element_size() + 8 \
+        + (8 if isinstance(call["mask"], torch.Tensor) else 0)
+    moved = 2 * n * width * elem + n * per_id
+    loads = 2 if ids is None else 3
     return dict(n=n, width=width, pool_words=int(call["pool"].numel()),
+                ids=ids is not None,
                 per_lane_masks=isinstance(call["mask"], torch.Tensor),
                 ms=ms, plain_ms=plain_ms, host_ms_per_call=host_ms,
                 bytes_moved=moved,
-                bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                dependent_loads=loads,
+                latency_bound_ms=loads * latency_ns * 1e-6,
+                launch_floor_ms=floor_ms)
 
 
 def _profiled(fn, top: int = 6, names=()):
@@ -1798,8 +2014,11 @@ def phase_scout(dev):
                                      SCOUT_NEW, dev,
                                      profile_prompts=[p[:100]
                                                       for p in prompts])
-    host_loop = tiara_on_host_loop("scout", cfg, params, prompts, SCOUT_NEW,
-                                   dev, runs["tiara"]["out"])
+    host_loop, loop_call = tiara_on_host_loop(
+        "scout", cfg, params, prompts, SCOUT_NEW, dev, runs["tiara"]["out"])
+    gathers = dict(gathers or {})
+    if loop_call is not None:
+        gathers["lockstep host loop"] = loop_call
     logits = scout_logits(cfg, params, dev)
     return dict(n_params=n_params, weight_bytes=n_bytes, kernels=kern,
                 runs=runs, host_loop=host_loop, logits=logits), gathers, \
@@ -4818,10 +5037,12 @@ def sharded_endpoint(dev):
         torch.cuda.synchronize()
         mesh.reset_stats()
         n0 = tg.COUNTS["tiara_gather"]
-        t = time.perf_counter()
-        ep.doorbell(placement=placement)
-        torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t
+        calls = _GatherCalls()
+        with calls:
+            t = time.perf_counter()
+            ep.doorbell(placement=placement)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t
         launches = tg.COUNTS["tiara_gather"] - n0
         _hold_wave(name, ep, cs, dense, replay, (lo, hi))
         sharded = isinstance(ep._dev_mem, Sharded)
@@ -4833,7 +5054,9 @@ def sharded_endpoint(dev):
                                                    costs=dec.costs),
             collectives=mesh.collective_counts(),
             collective_bytes=mesh.collective_bytes(),
-            ok=sum(c.ok for c in cs))
+            ok=sum(c.ok for c in cs),
+            # the first owner read, timed after the phase (popped there)
+            gather_call=calls.first.get("lockstep"))
         log(f"[sharded] {name}: {len(cs)} posts (4 tenants, homes over "
             f"{SHARDS}) placement={placement} -> ran "
             f"{rec[name]['ran']}"
@@ -4933,14 +5156,16 @@ def sharded_serving(dev, single_step_ms):
     eng = engine(resolver="tiara", n_homes=SHARDS, placement="sharded",
                  rehome_every=2, mesh=mesh)
     timed = _Timed(eng)
-    kernels.reset_launch_counts()           # the sharded serving path
-    mesh.reset_stats()
-    t = time.perf_counter()
-    hs = [eng.submit(p, max_new=SHARDED_NEW) for p in prompts]
-    out = eng.run_to_completion()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    counts = kernels.launch_counts()         # ... ends here
+    calls = _GatherCalls()
+    with calls:
+        kernels.reset_launch_counts()       # the sharded serving path
+        mesh.reset_stats()
+        t = time.perf_counter()
+        hs = [eng.submit(p, max_new=SHARDED_NEW) for p in prompts]
+        out = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = kernels.launch_counts()     # ... ends here
     aud = eng.resolver_audit()
     if out != want or not all(h.ok for h in hs):
         raise AssertionError("sharded tiara serving: tokens differ from the "
@@ -4960,7 +5185,9 @@ def sharded_serving(dev, single_step_ms):
              collective_bytes=mesh.collective_bytes(),
              rehomes=int(aud["rehomes"]),
              rehomed_words=int(aud["rehomed_words"]),
-             cross_device_words=int(aud["cross_device_words"]))
+             cross_device_words=int(aud["cross_device_words"]),
+             # the first owner read, timed after the phase (popped there)
+             gather_call=calls.first.get("lockstep"))
     log(f"[sharded] tiny-lm served over {SHARDS} homes (mesh: "
         f"{_mesh_note(mesh)}): {len(prompts)} requests (prompts "
         f"{min(SHARDED_PLENS)}..{max(SHARDED_PLENS)}), {SHARDED_NEW} new "
@@ -5601,21 +5828,40 @@ def main() -> int:
     flash["launches"] = serving["flash_attention"] \
         + sharded["serving"]["counts"]["flash_attention"]
 
-    # tiara_gather at the serving resolvers' own shapes, as recorded
+    # tiara_gather at the serving resolvers' and the sharded engine's own
+    # shapes, as recorded, beside the launch floor and the latency bound
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    from repro_torch.kernels.tiara_gather import kernel as tk
+    floor_ms = time_cuda(tk.launch_empty, scratch)
+    sharded_gathers = {
+        "acceptance wave": sharded["endpoint"]["sharded"].pop("gather_call"),
+        "auto wave": sharded["endpoint"]["auto"].pop("gather_call"),
+        "tiny-lm over 4 homes": sharded["serving"].pop("gather_call")}
     shapes = {}
-    for model, rec in (("tiny-lm", tiny_gathers), ("scout", scout_gathers)):
-        for engine, call in sorted(rec.items()):
-            r = shapes[f"{model}, {engine}"] = time_gather_call(call, scratch)
-            log(f"[kernel] tiara_gather at the {model} resolver's shape "
-                f"({engine} engine): {r['n']} window(s) of {r['width']} "
-                f"word(s) over a {r['pool_words']}-word pool"
+    for model, rec in (("tiny-lm", tiny_gathers), ("scout", scout_gathers),
+                       ("sharded", sharded_gathers)):
+        for engine, call in sorted((rec or {}).items()):
+            if call is None:
+                continue
+            r = shapes[f"{model}, {engine}"] = time_gather_call(
+                call, scratch, lockstep["latency_ns"], floor_ms)
+            log(f"[kernel] tiara_gather at the {model} shape ({engine}): "
+                f"{r['n']} window(s) of {r['width']} word(s) over a "
+                f"{r['pool_words']}-word pool"
                 + (", one mask per lane" if r["per_lane_masks"] else "")
-                + f": equal; kernel {r['ms'] * 1e3:.2f} us on the card, "
+                + (", with ids" if r["ids"] else ", no ids")
+                + f": equal, the same bits twice; kernel "
+                f"{r['ms'] * 1e3:.2f} us on the card against launch floor "
+                f"{floor_ms * 1e3:.2f} us + latency bound "
+                f"{r['latency_bound_ms'] * 1e3:.2f} us "
+                f"({r['dependent_loads']} dependent loads at "
+                f"{lockstep['latency_ns']:.1f} ns) = "
+                f"{(floor_ms + r['latency_bound_ms']) * 1e3:.2f} us; "
                 f"{r['host_ms_per_call'] * 1e3:.2f} us of host wall per "
-                f"call, plain {r['plain_ms'] * 1e3:.2f} us, bound "
-                f"{r['bound_ms'] * 1e6:.3f} ns (bytes)")
+                f"call; plain {r['plain_ms'] * 1e3:.2f} us, byte bound "
+                f"{r['bound_ms'] * 1e6:.3f} ns; {card}")
     kinfo["serving_shapes"] = shapes
+    kinfo["launch_floor_ms_late"] = floor_ms
     # lockstep_vm at the first lockstep wave a tiara resolver gave it
     # (Scout's; tiny-lm's waves run as compiled traces unless the cost
     # model picks the lockstep engine), and its launches on every path

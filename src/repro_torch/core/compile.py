@@ -876,10 +876,8 @@ class _Tracer:
         pool, its plain version on a CPU pool.  Masking the offsets keeps
         every index inside the region, the kernel's precondition; they
         stay int64, as a region may hold 2**31 words or more."""
-        n = int(offs.shape[0])
         return tiara_gather_window(
             self.memf, (offs & mask).contiguous(), starts.contiguous(),
-            torch.arange(n, dtype=torch.int32, device=self.dev),
             width=width, mask=mask, impl=self.impl)
 
     # -- the gather-chain superoperator ------------------------------------

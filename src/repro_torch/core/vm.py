@@ -243,11 +243,9 @@ class _DenseOps:
         pool.  Masking the offsets keeps every index inside its region,
         the kernel's precondition; they stay int64, as a region may hold
         2**31 words or more."""
-        n = int(dev.shape[0])
         return tiara_gather_window(
             memx, (off & mask).contiguous(),
             dev.clamp(0, self.n_dev - 1) * self.P + base,
-            torch.arange(n, dtype=torch.int32, device=memx.device),
             width=width, mask=mask.contiguous())
 
     def writev_win(self, memx, dev, phys, val, live):
@@ -314,10 +312,8 @@ class _ShardOps:
                                    self.axis)                 # (n, 4, B)
             dev, base, off, mask = (req[:, i].reshape(-1)
                                     for i in range(4))
-        n = int(dev.shape[0])
         win = tiara_gather_window(
             memx, (off & mask).contiguous(), base.contiguous(),
-            torch.arange(n, dtype=torch.int32, device=memx.device),
             width=width, mask=mask.contiguous())
         own = torch.where((dev == self.me)[:, None], win, 0)
         got = _mesh.psum(own, self.axis)

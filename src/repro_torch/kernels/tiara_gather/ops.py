@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -21,12 +21,14 @@ def tiara_gather(pool: torch.Tensor, table: torch.Tensor,
 
 
 def tiara_gather_window(pool: torch.Tensor, table: torch.Tensor,
-                        bases: torch.Tensor, ids: torch.Tensor, *,
+                        bases: torch.Tensor,
+                        ids: Optional[torch.Tensor] = None, *,
                         width: int, mask: Union[int, torch.Tensor],
                         impl: str = "auto") -> torch.Tensor:
     """``out[i, w] = pool[bases[id] + ((table[id] + w) & mask)]`` with
-    ``id = ids[i]`` and ``w < width``, over a flat ``pool``; ``mask`` is
-    one int or an int64 tensor shaped like ``table`` (``mask[id]``)."""
+    ``id = ids[i]`` (``id = i`` when ``ids`` is None) and ``w < width``,
+    over a flat ``pool``; ``mask`` is one int or an int64 tensor shaped
+    like ``table`` (``mask[id]``)."""
     if resolve_impl(impl, pool) == "cuda":
         return tiara_gather_window_kernel(pool, table, bases, ids,
                                           width=width, mask=mask)

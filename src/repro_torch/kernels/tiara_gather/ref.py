@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -13,11 +13,18 @@ def tiara_gather_ref(pool: torch.Tensor, table: torch.Tensor,
 
 
 def tiara_gather_window_ref(pool: torch.Tensor, table: torch.Tensor,
-                            bases: torch.Tensor, ids: torch.Tensor, *,
+                            bases: torch.Tensor,
+                            ids: Optional[torch.Tensor] = None, *,
                             width: int, mask: Union[int, torch.Tensor]
                             ) -> torch.Tensor:
-    i = ids.long()
-    w = torch.arange(width, dtype=torch.int64, device=pool.device)
+    """The window form; ``ids`` None means entry ``i`` is id ``i``."""
+    t, b = table.long(), bases
+    if ids is not None:
+        i = ids.long()
+        t, b = t[i], b[i]
+        if isinstance(mask, torch.Tensor):
+            mask = mask[i]
     if isinstance(mask, torch.Tensor):
-        mask = mask[i][:, None]
-    return pool[bases[i][:, None] + ((table.long()[i][:, None] + w) & mask)]
+        mask = mask[:, None]
+    w = torch.arange(width, dtype=torch.int64, device=pool.device)
+    return pool[b[:, None] + ((t[:, None] + w) & mask)]

@@ -176,6 +176,197 @@ def test_cuda_gather_chain_unaligned_matches_pyvm(cuda_device,
     assert list(np.asarray(got.steps)) == [r.steps for r in rs]
 
 
+# -- tiara_gather's two regimes and its launch path --------------------------
+
+# (width, offset kind): the small regime at and below its widest window;
+# the stream regime's bulk interiors (8 KiB rows, aligned), its vector path
+# (an interior under kBulkMinBytes), element by element (source and
+# destination misaligned mod 16 bytes) and wrapping windows; and windows
+# longer than one 8 KiB unit
+REGIME_CASES = [(1, "any"), (2, "any"), (31, "wrap"), (32, "aligned"),
+                (33, "off8"), (33, "aligned"), (1024, "aligned"),
+                (1024, "off8"), (1025, "any"), (1024, "wrap"),
+                (3000, "aligned"), (5000, "off8")]
+
+
+def _regime_case(dev, dtype, width, kind, n, seed):
+    rng = np.random.default_rng(seed)
+    region = 1 << max(12, int(np.ceil(np.log2(width + 1))) + 1)
+    elem = torch.empty((), dtype=dtype).element_size()
+    per16 = 16 // elem
+    pool = torch.from_numpy(rng.integers(0, 1 << 30, 3 * region + 7)) \
+        .to(dev, dtype)
+    T = n + 5
+    off = rng.integers(0, region - width, T)
+    if kind == "aligned":
+        off = off // per16 * per16
+    elif kind == "off8":
+        off = off // per16 * per16 + 8 // elem
+    elif kind == "wrap":
+        off[::2] = region - 1 - rng.integers(0, width, off[::2].shape)
+    table = torch.from_numpy(off.astype(np.int32)).to(dev)
+    bases = torch.from_numpy(rng.integers(0, 3, T) * region).to(dev)
+    masks = torch.full((T,), region - 1, dtype=torch.int64, device=dev)
+    masks[1::3] = region // 2 - 1               # per-entry regions
+    return pool, table, bases, masks, region - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int64, torch.float32,
+                                   torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("width,kind", REGIME_CASES)
+def test_cuda_tiara_gather_regimes_match_plain(cuda_device, dtype, width,
+                                               kind):
+    """Each regime and copy path, bit-equal to the plain version: with ids
+    (duplicates among them) and without (entry i is id i, equal to
+    ``arange``), one shared mask and per-entry masks; two calls give the
+    same bits and each call adds one launch."""
+    n = 300 if width <= 33 else 40
+    pool, table, bases, masks, mask = _regime_case(cuda_device, dtype, width,
+                                                   kind, n, width)
+    ids = torch.randint(0, n + 5, (n,), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(width)) \
+        .to(cuda_device)
+    ids[: n // 4] = ids[0]
+    arange = torch.arange(n + 5, dtype=torch.int32, device=cuda_device)
+    for m in (mask, masks):
+        for i in (ids, None, arange):
+            before = kernels.launch_counts()["tiara_gather"]
+            out = tiara_gather_window(pool, table, bases, i, width=width,
+                                      mask=m)
+            again = tiara_gather_window(pool, table, bases, i, width=width,
+                                        mask=m)
+            torch.cuda.synchronize()
+            assert kernels.launch_counts()["tiara_gather"] == before + 2
+            want = tiara_gather_window_ref(pool, table, bases, i,
+                                           width=width, mask=m)
+            assert torch.equal(out, want) and torch.equal(again, out)
+        assert torch.equal(
+            tiara_gather_window(pool, table, bases, width=width, mask=m),
+            tiara_gather_window(pool, table, bases, arange, width=width,
+                                mask=m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 16, 132, 264, 4096])
+def test_cuda_tiara_gather_path_rows_both_forms(cuda_device, n):
+    """8 KiB int64 rows (the compiled gather chain's) at entry counts
+    below, at and above the persistent grid's blocks: the window form
+    without ids and the row form with them, bit-equal to the plain
+    version and to each other."""
+    rng = np.random.default_rng(n)
+    rows, R = 8192, 1024
+    flat = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, rows * R + 1)) \
+        .to(cuda_device)
+    blocks = torch.from_numpy(rng.choice(rows, n, replace=False)
+                              .astype(np.int32)).to(cuda_device)
+    zero = torch.zeros(n, dtype=torch.int64, device=cuda_device)
+    win = tiara_gather_window(flat, blocks * R, zero, width=R,
+                              mask=rows * R - 1)
+    pool2d = flat[:rows * R].view(rows, R)
+    ids = torch.arange(n, dtype=torch.int32, device=cuda_device)
+    row = tiara_gather(pool2d, blocks, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(win, tiara_gather_ref(pool2d, blocks, ids))
+    assert torch.equal(row, win)
+
+
+@pytest.mark.gpu
+def test_cuda_tiara_gather_raises_on_what_it_does_not_take(cuda_device):
+    """A CUDA operand the kernel does not take raises; nothing falls back
+    to the plain version."""
+    from repro_torch.kernels.tiara_gather import (tiara_gather_kernel,
+                                                  tiara_gather_window_kernel)
+    d = cuda_device
+    pool = torch.zeros(64, dtype=torch.int64, device=d)
+    t = torch.zeros(4, dtype=torch.int32, device=d)
+    b = torch.zeros(4, dtype=torch.int64, device=d)
+    bad = [
+        lambda: tiara_gather_window_kernel(pool.double(), t, b, width=2,
+                                           mask=15),
+        lambda: tiara_gather_window_kernel(pool.view(8, 8), t, b, width=2,
+                                           mask=15),
+        lambda: tiara_gather_window_kernel(pool, t.long().double(), b,
+                                           width=2, mask=15),
+        lambda: tiara_gather_window_kernel(pool, t, b, t.long(), width=2,
+                                           mask=15),
+        lambda: tiara_gather_window_kernel(pool, t, b[:3], width=2, mask=15),
+        lambda: tiara_gather_window_kernel(pool, t, b, width=2,
+                                           mask=b[:3]),
+        lambda: tiara_gather_window_kernel(pool, t, b, width=2,
+                                           mask=b.int()),
+        lambda: tiara_gather_window_kernel(pool, t.cpu(), b, width=2,
+                                           mask=15),
+        lambda: tiara_gather_window_kernel(pool, t, b, t.cpu(), width=2,
+                                           mask=15),
+        lambda: tiara_gather_window_kernel(pool[::2], t, b, width=2,
+                                           mask=15),
+        lambda: tiara_gather_window_kernel(
+            pool, torch.zeros(8, dtype=torch.int32, device=d)[::2], b,
+            width=2, mask=15),
+        lambda: tiara_gather_window_kernel(pool, t, b, width=-1, mask=15),
+        lambda: tiara_gather_window_kernel(pool, t, b, width=2, mask=-3),
+        lambda: tiara_gather_kernel(pool, t, t),
+        lambda: tiara_gather_kernel(pool.view(8, 8), t, None),
+        lambda: tiara_gather_kernel(pool.view(8, 8).t(), t, t),
+    ]
+    before = kernels.launch_counts()["tiara_gather"]
+    for i, call in enumerate(bad):
+        with pytest.raises(ValueError):
+            call()
+            pytest.fail(f"case {i} did not raise")
+    assert kernels.launch_counts()["tiara_gather"] == before
+
+
+@pytest.mark.gpu
+def test_cuda_engines_pass_no_ids(cuda_device, monkeypatch):
+    """The engines' window reads (a traced MEMCPY, the gather chain, the
+    lockstep host loop) pass no ``ids`` (no ``arange`` per call) and
+    launch ``tiara_gather`` once per read, as before."""
+    from repro_torch.core import lockstep_corpus as corpus
+    from repro_torch.kernels.tiara_gather import ops as tops
+    calls = []
+    real = tops.tiara_gather_window_kernel
+
+    def spy(pool, table, bases, ids=None, **kw):
+        calls.append(ids)
+        return real(pool, table, bases, ids, **kw)
+    monkeypatch.setattr(tops, "tiara_gather_window_kernel", spy)
+    for superops in (False, True):
+        k = ops.PagedKVFetch(n_blocks_pool=16, block_bytes=256,
+                             max_req_blocks=4, reply_slots=4)
+        rt = k.regions()
+        mem = memory.make_pool(1, rt)
+        k.populate(mem, rt, seed=3)
+        k.make_request(mem, rt, [6, 1, 14, 2])
+        v = verify(k.build(rt, reply_param=True), grant=Grant.all_of(rt),
+                   regions=rt)
+        params = [[4, i * 4 * k.block_words] for i in range(4)]
+        want = mem.copy()
+        rs = [pyvm.run(v, rt, want, p) for p in params]
+        calls.clear()
+        kernels.reset_launch_counts()
+        got = tc.invoke_compiled(v, rt, mem, params, device=cuda_device,
+                                 superops=superops)
+        assert np.array_equal(got.mem.cpu().numpy(), want)
+        assert list(np.asarray(got.ret)) == [r.ret for r in rs]
+        assert calls and all(i is None for i in calls)
+        assert kernels.launch_counts()["tiara_gather"] == len(calls)
+        if superops:
+            assert len(calls) == 1
+    w = next(w for w in corpus.stock_waves(7, block_bytes=256)
+             if w.name.startswith("paged_kv_fetch"))
+    eng = w.engine()
+    mem = torch.from_numpy(w.mem.copy()).to(cuda_device)
+    calls.clear()
+    kernels.reset_launch_counts()
+    got = eng.run_host_loop(mem, *w.args())
+    want = eng.run_host_loop(torch.from_numpy(w.mem.copy()), *w.args())
+    assert torch.equal(got.mem.cpu(), want.mem)
+    assert calls and all(i is None for i in calls)
+    assert kernels.launch_counts()["tiara_gather"] == len(calls)
+
+
 # -- attention kernels -------------------------------------------------------
 
 ATTN_TOL = {torch.float32: 3e-5, torch.bfloat16: 0.05}

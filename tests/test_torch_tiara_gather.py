@@ -196,3 +196,64 @@ def test_window_no_fallback_on_cpu_tensors():
         tiara_gather_window(pool, t, b, t, width=2, mask=15, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         tiara_gather_window_kernel(pool, t, b, t, width=2, mask=15)
+
+
+def test_window_gather_without_ids_is_arange():
+    """``ids`` absent means entry i is id i: the same words as ``arange``,
+    under one mask and per-entry masks."""
+    rng = np.random.default_rng(5)
+    pool = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, 300))
+    table = torch.from_numpy(rng.integers(0, 64, 9))
+    bases = torch.from_numpy(rng.integers(0, 4, 9) * 64)
+    masks = torch.from_numpy(np.array([63, 7, 31, 63, 0, 15, 63, 3, 1]))
+    ar = torch.arange(9, dtype=torch.int32)
+    for mask in (63, masks):
+        for width in (1, 5, 70):
+            assert torch.equal(
+                tiara_gather_window(pool, table, bases, width=width,
+                                    mask=mask),
+                tiara_gather_window(pool, table, bases, ar, width=width,
+                                    mask=mask))
+
+
+def test_engines_pass_no_ids(monkeypatch):
+    """The engines' window reads (a traced MEMCPY, the gather chain, the
+    lockstep host loop) hand the gather no ``ids``: no ``arange`` is built
+    per call."""
+    from repro_torch.core import compile as tc
+    from repro_torch.core import lockstep_corpus as corpus
+    from repro_torch.core import memory, pyvm
+    from repro_torch.core import operators as ops
+    from repro_torch.core.memory import Grant
+    from repro_torch.core.verifier import verify
+    from repro_torch.kernels.tiara_gather import ops as tops
+    calls = []
+    real = tops.tiara_gather_window_ref
+
+    def spy(pool, table, bases, ids=None, **kw):
+        calls.append(ids)
+        return real(pool, table, bases, ids, **kw)
+    monkeypatch.setattr(tops, "tiara_gather_window_ref", spy)
+    k = ops.PagedKVFetch(n_blocks_pool=16, block_bytes=256,
+                         max_req_blocks=4, reply_slots=4)
+    rt = k.regions()
+    mem = memory.make_pool(1, rt)
+    k.populate(mem, rt, seed=3)
+    k.make_request(mem, rt, [6, 1, 14, 2])
+    v = verify(k.build(rt, reply_param=True), grant=Grant.all_of(rt),
+               regions=rt)
+    params = [[4, i * 4 * k.block_words] for i in range(4)]
+    want = mem.copy()
+    rs = [pyvm.run(v, rt, want, p) for p in params]
+    for superops in (False, True):
+        calls.clear()
+        got = tc.invoke_compiled(v, rt, mem.copy(), params, device="cpu",
+                                 superops=superops)
+        assert np.array_equal(np.asarray(got.mem), want)
+        assert list(np.asarray(got.ret)) == [r.ret for r in rs]
+        assert calls and all(i is None for i in calls)
+    w = next(w for w in corpus.stock_waves(7, block_bytes=256)
+             if w.name.startswith("paged_kv_fetch"))
+    calls.clear()
+    w.engine().run_host_loop(torch.from_numpy(w.mem.copy()), *w.args())
+    assert calls and all(i is None for i in calls)
