@@ -58,11 +58,16 @@ Phases:
    bulk-copy stream past that) with and without ids, the same bits twice,
    one launch a call, its kernels' registers and spills from the
    ``-Xptxas -v`` log (a spill fails), at the path shape in both forms
-   timed after a write and after a read flush of the L2 and by the
-   profiler's kernel duration, with its host wall per call, the launch
-   floor (an empty kernel of the library) and ``index_select``; after
-   phase 13, at every shape the resolvers and the sharded engine gave it,
-   beside the launch floor plus its latency bound;
+   timed and by the profiler's kernel duration, with its host wall per
+   call and ``index_select``; after phase 13, at every shape the
+   resolvers and the sharded engine gave it, beside the launch floor plus
+   its latency bound and, for one-word windows under one mask,
+   ``index_select`` at the windows' word offsets.  Every kernel time
+   in the run is the median of calls each timed alone with CUDA events
+   after a read of a 256 MiB buffer (the L2 flushed without dirty lines)
+   and a GPU spin that lets the host enqueue the call before the start
+   event, and is printed beside the launch floor, the library's empty
+   kernel between the same events, measured once here;
    ``paged_attention`` and ``flash_attention`` within 3e-5 in f32, plus
    small bf16, empty-row, G = 7, head-dim and ragged cases within 0.05 /
    3e-5, the sequence split's edge cases, and two calls on the same
@@ -154,7 +159,7 @@ Phases:
    the two serving resolvers gave it, and ``lockstep_vm`` at Scout's
    resolver wave (the launch alone, the whole call, the host loop, the
    wave's byte bound, its latency bound, its per-phase counters, the
-   launch floor of a one-lane wave and the build's registers and spills);
+   time of a one-lane wave and the build's registers and spills);
 7. Jamba, after Scout's weights are freed: both attention kernels at its
    bf16 path shapes against their plain versions (within
    ``SCOUT_ATTN_TOL``), timed with their bounds and SDPA; 8 greedy
@@ -190,7 +195,8 @@ Phases:
 12. training, after SeamlessM4T's weights are freed: the flash_attention
    backward kernel against its plain version at BWD_CASES (tiny-lm's
    training shape in f32, Qwen2-VL's and SeamlessM4T's encoder, decoder
-   and cross attention in bf16, a short ragged case; f32 within
+   and cross attention in bf16, a short ragged case, phase 17's training
+   example's shape in f32; f32 within
    BWD_F32_TOL of the largest gradient, bf16 within SCOUT_ATTN_TOL), the
    same bits twice, the forward's output the same bits with and without
    ``lse``, timed with its plain version, PyTorch's SDPA backward, its
@@ -239,6 +245,18 @@ Phases:
    + temp bytes are within 10% of the step's peak, and its roofline
    floor is at most 1.05 x the median step wall on the plain route and
    on the kernels' (``dryrun.card_check``).
+17. the reference's last entry points on the port, each through its
+   ``main(argv)`` in process on ``cuda:0``: ``examples/serve_paged_torch.py
+   --full-size`` (tiny-lm at full width, ENTRY_REQUESTS requests of
+   ENTRY_NEW tokens) under ``--resolver host`` then ``tiara`` (every
+   handle ok, no page leaked, the same tokens, the launches by kernel,
+   wall and tok/s); ``examples/train_tiny_lm_torch.py`` for
+   ENTRY_TRAIN_STEPS[0] steps and again to ENTRY_TRAIN_STEPS[1] on one
+   checkpoint directory (the loss falls, the second call resumes from the
+   first's newest checkpoint, the launches per step);
+   ``examples/disaggregated_kv_torch.py`` with its pool on the card and on
+   the CPU (the same figures); ``tools/check_budgets_torch.py`` (returns
+   0); and the phase's own wall.
 
 Any failure raises and the script exits non-zero.  It prints, before the
 last line, the card's name and power limit and one JSON object with each
@@ -451,6 +469,9 @@ BWD_CASES = (
      SEAMLESS_ENC_LENS[:7] + (0,), torch.bfloat16),
     ("short ragged", (2, 6, 2, 200, 200, 64), True, (200, 137),
      torch.float32),
+    # phase 17's training example: 16 x 256 tokens a step
+    ("tiny-lm, the training example", (16, 12, 4, 256, 256, 64), True,
+     None, torch.float32),
 )
 # The backward kernel against its plain version: in f32 within 1e-4 of
 # the largest gradient (both sum in f32, in other orders, over up to 1024
@@ -529,6 +550,15 @@ CROSS_SHAPES = (("train_1k", "train", 1024, 8),
                 ("prefill_4k", "prefill", 4096, 4),
                 ("decode_4k", "decode", 4096, 16))
 CROSS_REPS = 5
+# Phase 17: the reference's last entry points on the port, each through
+# its ``main(argv)`` in process on the card: the serving example at full
+# tiny-lm width (its own 128-token context) under both resolvers, and the
+# training example twice on one checkpoint directory, the second call
+# with more steps resuming from the first's newest checkpoint (the
+# trainer writes one every ENTRY_CKPT_EVERY steps and one at the end).
+ENTRY_REQUESTS, ENTRY_SLOTS, ENTRY_NEW = 4, 4, 8
+ENTRY_TRAIN_ARGS = ("--batch", "16", "--seq", "256")
+ENTRY_TRAIN_STEPS, ENTRY_CKPT_EVERY = (60, 70), 50
 
 
 def log(msg: str) -> None:
@@ -544,19 +574,33 @@ def card_line() -> str:
 
 
 def flush_l2(scratch: torch.Tensor) -> None:
-    """Overwrite a buffer larger than the 50 MB L2 so the next launch
-    finds its rows cold, as the gather chain does."""
-    scratch.add_(1)
+    """Read a buffer larger than the 50 MB L2 so the next launch finds its
+    rows cold, as the gather chain does.  A read, not a write: a write
+    would leave dirty lines that the timed kernel writes back to HBM
+    while it runs."""
+    scratch.max()
+
+
+# GPU clock cycles that ``time_cuda`` spins between its flush and its
+# start event (about 1 ms on an H100), touching no memory: the host has
+# enqueued the timed call before the start event fires, so a slow or busy
+# host adds no idle gap to the kernel's time.  Without it the read flush
+# hides less host work than some wrappers take (lockstep_vm's, say), and
+# their host time would show as kernel time.
+SPIN_CYCLES = 1 << 21
 
 
 def time_cuda(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
     """Median milliseconds of one call, each call timed alone with CUDA
-    events after an L2 flush."""
+    events after a read flush of the L2 (``flush_l2``) and a spin of
+    SPIN_CYCLES.  Every kernel time the smoke prints comes from here,
+    beside the launch floor (``launch_floor_ms``)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush_l2(scratch)
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -567,31 +611,25 @@ def time_cuda(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def time_cuda_clean(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
-    """``time_cuda`` with the L2 flushed by a read of the buffer instead of
-    a write: the next launch finds its rows cold and no dirty line of the
-    flush left to write back to HBM while it runs."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        scratch.max()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+def launch_floor_ms(scratch) -> float:
+    """The launch floor: the library's empty kernel between
+    ``time_cuda``'s events.  Phase 2 (or ``--attention-only``) measures
+    it once and passes the number to every phase that prints a time."""
+    from repro_torch.kernels.tiara_gather import kernel as tk
+    return time_cuda(tk.launch_empty, scratch)
+
+
+def floor_note(floor_ms: float) -> str:
+    """``launch floor x us``, printed beside a kernel time."""
+    return f"launch floor {floor_ms * 1e3:.2f} us"
 
 
 def profiled_kernel_ms(fn, scratch, reps: int = 10):
     """The device time of the kernels one call of ``fn`` runs, start to end
     of each as ``torch.profiler`` (CUPTI) records it, without the launch
     and the events' own cost; the median over ``reps`` calls, each after a
-    write flush of the L2 outside the profiled window.  None when the
-    profiler records no device time."""
+    read flush of the L2 (``flush_l2``) outside the profiled window.  None
+    when the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -747,9 +785,15 @@ def gather_registers():
 
 def phase_kernel(dev, scratch):
     """tiara_gather against its plain version on the card: both regimes
-    and forms, the path shape's times, bounds and launch floor."""
+    and forms, the path shape's times, bounds and launch floor.  The
+    launch floor is measured here, once, before any other time."""
     from repro_torch.kernels.tiara_gather.ops import tiara_gather
     from repro_torch.kernels.tiara_gather.ref import tiara_gather_ref
+
+    floor_ms = launch_floor_ms(scratch)
+    log(f"[kernel] {floor_note(floor_ms)} (the library's empty kernel "
+        f"between time_cuda's events, after a read flush of the L2), printed "
+        f"beside every kernel time below")
 
     rng = np.random.default_rng(0)
     # small dtype sweep, including a row width that takes the 4-byte path
@@ -877,12 +921,8 @@ def phase_kernel(dev, scratch):
     moved = uniq * R * 8 + n * R * 8 + n * (4 + 8)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     host_ms = host_wall_ms(win)
-    floor_ms = time_cuda(tk.launch_empty, scratch)
-    # the same kernel two more ways: after a read flush of the L2 (no
-    # dirty lines written back during the kernel), and its own duration
-    # from the profiler (no launch or event cost)
-    clean_ms = time_cuda_clean(win, scratch)
-    floor_clean_ms = time_cuda_clean(tk.launch_empty, scratch)
+    # the kernel's own duration from the profiler (no launch or event
+    # cost)
     kernel_ms = profiled_kernel_ms(win, scratch)
 
     pool2d = flat[:n_rows * R].view(n_rows, R)
@@ -914,11 +954,8 @@ def phase_kernel(dev, scratch):
         raise AssertionError("index_select != tiara_gather at the path "
                              "shape")
     library_ms = time_cuda(library, scratch)
-    row_clean_ms = time_cuda_clean(lambda: tiara_gather(pool2d, table, ids),
-                                   scratch)
     row_kernel_ms = profiled_kernel_ms(
         lambda: tiara_gather(pool2d, table, ids), scratch)
-    library_clean_ms = time_cuda_clean(library, scratch)
     library_kernel_ms = profiled_kernel_ms(library, scratch)
 
     def us(x):
@@ -933,11 +970,8 @@ def phase_kernel(dev, scratch):
         f"{row_bound_ms * 1e3:.2f} us, library (pool.index_select(0, "
         f"table[ids])) {library_ms * 1e3:.2f} us; launch floor (an empty "
         f"kernel of the library) {floor_ms * 1e3:.2f} us; {card_line()}")
-    log(f"[kernel] path shape, L2 flushed by a read (no dirty lines): "
-        f"window {clean_ms * 1e3:.2f} us, row form {row_clean_ms * 1e3:.2f} "
-        f"us, index_select {library_clean_ms * 1e3:.2f} us, launch floor "
-        f"{floor_clean_ms * 1e3:.2f} us; the kernels' own durations "
-        f"(torch.profiler, write flush): window {us(kernel_ms)}, row form "
+    log(f"[kernel] path shape, the kernels' own durations (torch.profiler, "
+        f"read flush): window {us(kernel_ms)}, row form "
         f"{us(row_kernel_ms)}, index_select (with its table[ids]) "
         f"{us(library_kernel_ms)}; byte bound {bound_ms * 1e3:.2f} us")
     if not (row_ms < library_ms):
@@ -956,10 +990,8 @@ def phase_kernel(dev, scratch):
                 row_form_ms=row_ms, row_form_plain_ms=row_plain_ms,
                 row_form_host_ms_per_call=row_host_ms,
                 row_form_bound_ms=row_bound_ms, registers=registers,
-                clean_l2_ms=clean_ms, launch_floor_clean_l2_ms=floor_clean_ms,
-                kernel_only_ms=kernel_ms, row_form_clean_l2_ms=row_clean_ms,
+                kernel_only_ms=kernel_ms,
                 row_form_kernel_only_ms=row_kernel_ms,
-                library_clean_l2_ms=library_clean_ms,
                 library_kernel_only_ms=library_kernel_ms)
 
 
@@ -1089,7 +1121,7 @@ def measure_attention(dev, scratch):
     return res, inputs
 
 
-def phase_attention(dev, scratch):
+def phase_attention(dev, scratch, floor_ms):
     """paged_attention and flash_attention against their plain versions
     on the card: small edge cases, then the timed shapes, with times and
     bounds."""
@@ -1200,7 +1232,8 @@ def phase_attention(dev, scratch):
             f"({r['bytes'] / r['ms'] / 1e6:.0f} GB/s), plain "
             f"{r['plain_ms'] * 1e3:.2f} us, bound {r['bound'] * 1e3:.2f} us "
             f"(bytes); at T = 128 / 256: {r['ms_by_T'][128] * 1e3:.2f} / "
-            f"{r['ms_by_T'][256] * 1e3:.2f} us")
+            f"{r['ms_by_T'][256] * 1e3:.2f} us; "
+            f"{floor_note(floor_ms)}")
     p, sh = res[("paged", "path")], res[("paged", "short")]
     q, k = inputs[("paged", "path")][:2]
     paged = dict(name="paged_attention", route="cuda",
@@ -1240,7 +1273,8 @@ def phase_attention(dev, scratch):
             f"{r['ms'] * 1e3:.1f} us ({r['flops'] / r['ms'] / 1e9:.2f} "
             f"TFLOP/s), plain {r['plain_ms'] * 1e3:.1f} us, sdpa "
             f"{r['lib'] * 1e3:.1f} us, bound {r['bound'] * 1e3:.1f} us "
-            f"(operations, 3xTF32 on tensor cores)")
+            f"(operations, 3xTF32 on tensor cores); "
+            f"{floor_note(floor_ms)}")
     le = res["flash_logit_err"]
     log("[kernel] flash_attention, path shape, max |out - f64| by logit "
         "std: " + "; ".join(f"{std}: kernel {e['kernel']:.3g}, plain f32 "
@@ -1296,7 +1330,7 @@ def flash_bf16_logit_shares(dev, fail=True):
     return shares
 
 
-def flash_bf16_rows(dev, scratch):
+def flash_bf16_rows(dev, scratch, floor_ms):
     """bf16 flash_attention's forward at each of FLASH_BF16_CASES through
     ``attention_cases`` (within SCOUT_ATTN_TOL, the same bits twice, its
     time, the plain version's, SDPA's, its bound over the live keys and
@@ -1311,7 +1345,7 @@ def flash_bf16_rows(dev, scratch):
         if lens is not None:
             kw["lengths"] = torch.tensor(lens, dtype=torch.int32, device=dev)
         cases.append((label, "flash", (q, k, v), kw))
-    return attention_cases("flash bf16", cases, dev, scratch)
+    return attention_cases("flash bf16", cases, dev, scratch, floor_ms)
 
 
 def attention_only(dev, label):
@@ -1324,16 +1358,18 @@ def attention_only(dev, label):
     card = card_line()
     phase_build()
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    floor_ms = launch_floor_ms(scratch)
+    floor = dict(launch_floor_ms=floor_ms)
     res, _ = measure_attention(dev, scratch)
     for key, r in res.items():
         if key == "flash_logit_err":
             row = dict(kernel="flash", f64_err_by_logit_std=r)
         else:
-            row = dict(kernel=key[0], shape=key[1], **r)
+            row = dict(kernel=key[0], shape=key[1], **r, **floor)
         log(json.dumps(dict(label=label, card=card, **row)))
-    for case, r in flash_bf16_rows(dev, scratch).items():
+    for case, r in flash_bf16_rows(dev, scratch, floor_ms).items():
         log(json.dumps(dict(label=label, card=card, kernel="flash_bf16",
-                            case=case, **r)))
+                            case=case, **r, **floor)))
     log(json.dumps(dict(label=label, card=card, kernel="flash_bf16",
                         limit_share_by_logit_std=flash_bf16_logit_shares(
                             dev, fail=False))))
@@ -1346,7 +1382,8 @@ def attention_only(dev, label):
         ms = time_cuda(lambda: flash_attention_bwd_kernel(
             q, k, v, out, lse, do, ln, causal=causal), scratch)
         log(json.dumps(dict(label=label, card=card, kernel="flash_bwd",
-                            shape=case, ms=ms, fwd_with_lse_ms=fwd_ms)))
+                            shape=case, ms=ms, fwd_with_lse_ms=fwd_ms,
+                            **floor)))
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return 0
@@ -1727,7 +1764,10 @@ def time_gather_call(call, scratch, latency_ns, floor_ms):
     (``host_wall_ms``); the byte bound, and the latency
     bound: the window's dependent global loads (ids when given, then the
     table, bases and masks side by side, then the pool) times the card's
-    cold-word latency, beside the launch floor ``floor_ms``."""
+    cold-word latency, beside the launch floor.  For one-word windows
+    under one shared mask, the library's time too: one ``index_select``
+    of the flat pool at the word offsets the windows name, computed
+    beforehand (per-lane masks have no such call: none applies them)."""
     from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
     from repro_torch.kernels.tiara_gather.ref import tiara_gather_window_ref
     args = (call["pool"], call["table"], call["bases"], call["ids"])
@@ -1745,6 +1785,20 @@ def time_gather_call(call, scratch, latency_ns, floor_ms):
                          scratch)
     host_ms = host_wall_ms(fn)
     ids = call["ids"]
+    library_ms = None
+    if call["width"] == 1 and not isinstance(call["mask"], torch.Tensor):
+        table, bases = call["table"].long(), call["bases"]
+        if ids is not None:
+            table, bases = table[ids.long()], bases[ids.long()]
+        offsets = bases + (table & call["mask"])
+        flat = call["pool"].reshape(-1)
+
+        def library():
+            return flat.index_select(0, offsets)
+        if not torch.equal(library(), out.reshape(-1)):
+            raise AssertionError("index_select at the windows' offsets != "
+                                 "tiara_gather_window at a serving shape")
+        library_ms = time_cuda(library, scratch)
     n = int(call["table"].numel() if ids is None else ids.numel())
     width = int(call["width"])
     elem = call["pool"].element_size()
@@ -1757,8 +1811,8 @@ def time_gather_call(call, scratch, latency_ns, floor_ms):
     return dict(n=n, width=width, pool_words=int(call["pool"].numel()),
                 ids=ids is not None,
                 per_lane_masks=isinstance(call["mask"], torch.Tensor),
-                ms=ms, plain_ms=plain_ms, host_ms_per_call=host_ms,
-                bytes_moved=moved,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                host_ms_per_call=host_ms, bytes_moved=moved,
                 bound_ms=moved / HBM_BYTES_PER_S * 1e3,
                 dependent_loads=loads,
                 latency_bound_ms=loads * latency_ns * 1e-6,
@@ -1806,7 +1860,7 @@ def profile_step(eng, prompts):
     return prof
 
 
-def scout_kernels(cfg, dev, scratch):
+def scout_kernels(cfg, dev, scratch, floor_ms):
     """paged_attention and flash_attention at Scout's exact path shapes in
     bf16 (8 decode slots of 16 pages of 128 tokens out of the engine's 129
     pages; one 2048-token causal prefill), against their plain versions:
@@ -1863,7 +1917,8 @@ def scout_kernels(cfg, dev, scratch):
                 f"{r['ms'] * 1e3:.2f} us "
                 f"({r['bytes_moved'] / r['ms'] / 1e6:.0f} GB/s), plain "
                 f"{r['plain_ms'] * 1e3:.2f} us, bound "
-                f"{r['bound_ms'] * 1e3:.2f} us (bytes)")
+                f"{r['bound_ms'] * 1e3:.2f} us (bytes); "
+                f"{floor_note(floor_ms)}")
         else:
             fq, fk, fv = args
             r["library_ms"] = time_cuda(lambda: F.scaled_dot_product_attention(
@@ -1888,7 +1943,8 @@ def scout_kernels(cfg, dev, scratch):
                 f"{r['bound_ms'] * 1e3:.1f} us (operations, "
                 f"{r['flops'] / 1e9:.2f} GFLOP at the bf16 tensor-core "
                 f"rate; the design's {FLASH_BF16_PASSES:g} bf16 passes "
-                f"alone take {r['design_floor_ms'] * 1e3:.1f} us)")
+                f"alone take {r['design_floor_ms'] * 1e3:.1f} us); "
+                f"{floor_note(floor_ms)}")
         res[kernel] = r
         del out, ref, args
     torch.cuda.empty_cache()
@@ -1978,7 +2034,7 @@ def scout_logits(cfg, params, dev):
     return res
 
 
-def phase_scout(dev):
+def phase_scout(dev, floor_ms):
     """Llama-4 Scout at full width, 4 of 48 layers: the attention kernels
     at its shapes, serving under both resolvers, prefill logits of the
     kernels against the plain versions, and tiara_gather at the serving
@@ -2004,7 +2060,7 @@ def phase_scout(dev):
         f"{n_params / 1e9:.3f} G params = {n_bytes / 1e9:.2f} GB on the "
         f"card, drawn there in {time.perf_counter() - t:.1f} s")
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
-    kern = scout_kernels(cfg, dev, scratch)
+    kern = scout_kernels(cfg, dev, scratch, floor_ms)
     del scratch
     torch.cuda.empty_cache()
     rng = np.random.default_rng(13)
@@ -2513,7 +2569,7 @@ def kernel_logits(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
     return r
 
 
-def attention_cases(tag, cases, dev, scratch):
+def attention_cases(tag, cases, dev, scratch, floor_ms):
     """Each ``(label, kernel, args, kw)`` in ``cases`` — paged (q, pages,
     tables, lengths) or flash (q, k, v) with ``kw`` its ``lengths`` and
     ``causal`` — launched on the card against its plain version within
@@ -2598,7 +2654,8 @@ def attention_cases(tag, cases, dev, scratch):
             f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
             f"{flops / 1e9:.3f} GFLOP, {moved / 1e6:.2f} MB)"
             + ("" if kernel == "paged" else f", the design's floor "
-               f"{r['design_floor_ms'] * 1e3:.2f} us"))
+               f"{r['design_floor_ms'] * 1e3:.2f} us")
+            + f"; {floor_note(floor_ms)}")
         res[label] = r
     torch.cuda.empty_cache()
     return res
@@ -2626,7 +2683,7 @@ def _flash_case(cfg, b, sq, sk, dev, rng):
                               (cfg.n_kv_heads, sk)))
 
 
-def jamba_kernels(cfg, plens, dev, scratch):
+def jamba_kernels(cfg, plens, dev, scratch, floor_ms):
     """paged_attention and flash_attention at Jamba's path shapes in bf16
     (the last decode step of the 8 requests over pages of 128; the
     8-request causal prefill at the longest prompt) through
@@ -2637,7 +2694,7 @@ def jamba_kernels(cfg, plens, dev, scratch):
         ("paged", "paged", _paged_case(
             cfg, [n + RECURRENT_STEPS for n in plens], dev, rng), {}),
         ("flash", "flash", _flash_case(cfg, b, s, s, dev, rng),
-         {"causal": True})], dev, scratch)
+         {"causal": True})], dev, scratch, floor_ms)
 
 
 def _draw_model(tag, cfg, full, dev):
@@ -2663,7 +2720,7 @@ def _recurrent_prompts(cfg, seed):
             for n in rng.permutation(RECURRENT_PLENS)]
 
 
-def phase_jamba(dev):
+def phase_jamba(dev, floor_ms):
     """Jamba v0.1 at its published widths, one period (8 of 32 layers):
     the attention kernels at its shapes, the main path (prefill + decode),
     check (a) and check (b)."""
@@ -2682,7 +2739,8 @@ def phase_jamba(dev):
     params, n_params, n_bytes = _draw_model("jamba", cfg, full, dev)
     prompts = _recurrent_prompts(cfg, 15)
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
-    kern = jamba_kernels(cfg, [len(p) for p in prompts], dev, scratch)
+    kern = jamba_kernels(cfg, [len(p) for p in prompts], dev, scratch,
+                         floor_ms)
     del scratch
     torch.cuda.empty_cache()
     run = model_run("jamba", cfg, params, prompts, dev)
@@ -2788,7 +2846,7 @@ class _AudioInputs(_Extra):
 
 
 def multimodal_phase(tag, cfg, prompts, extra, kernel_cases, dev,
-                     n_params_published):
+                     n_params_published, floor_ms):
     """One multimodal model whole at its published widths: its weights
     drawn on the card (their count held to the published one), the
     attention kernels at its path shapes (``attention_cases``), the main
@@ -2799,7 +2857,7 @@ def multimodal_phase(tag, cfg, prompts, extra, kernel_cases, dev,
         raise AssertionError(f"{tag}: {n_params} parameters, expected "
                              f"{n_params_published}")
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
-    kern = attention_cases(tag, kernel_cases, dev, scratch)
+    kern = attention_cases(tag, kernel_cases, dev, scratch, floor_ms)
     del scratch
     torch.cuda.empty_cache()
     run = model_run(tag, cfg, params, prompts, dev, extra)
@@ -2811,7 +2869,7 @@ def multimodal_phase(tag, cfg, prompts, extra, kernel_cases, dev,
                 run=run, check_a=full_fwd, check_b=logits)
 
 
-def phase_qwen(dev):
+def phase_qwen(dev, floor_ms):
     """Qwen2-VL-7B whole: 8 requests, each an image prefix of 256 vision
     tokens (the embeds stub) then text, prompts of 300..1024 tokens, with
     M-RoPE over distinct t/h/w streams (``_VisionInputs``)."""
@@ -2839,10 +2897,10 @@ def phase_qwen(dev):
         ("prefill self attention", "flash",
          _flash_case(cfg, b, s, s, dev, rng), {"causal": True})]
     return multimodal_phase("qwen", cfg, prompts, extra, cases, dev,
-                            QWEN_PARAMS)
+                            QWEN_PARAMS, floor_ms)
 
 
-def phase_seamless(dev):
+def phase_seamless(dev, floor_ms):
     """SeamlessM4T-medium whole: encoder frames of SEAMLESS_S_ENC with
     ragged ``enc_lengths`` (``_AudioInputs``), decoder prompts of 16..1024
     tokens."""
@@ -2881,7 +2939,7 @@ def phase_seamless(dev):
         ("decode cross attention, an encoder length of 0", "flash", cross_1,
          {"causal": False, "lengths": with_0})]
     return multimodal_phase("seamless", cfg, prompts, extra, cases, dev,
-                            SEAMLESS_PARAMS)
+                            SEAMLESS_PARAMS, floor_ms)
 
 
 def multimodal_rows(qwen, seamless, paged, flash):
@@ -2964,7 +3022,7 @@ def _bwd_inputs(dev, shape, lens, dtype):
     return q, k, v, do, ln
 
 
-def bwd_cases(dev, scratch):
+def bwd_cases(dev, scratch, floor_ms):
     """flash_attention's forward and backward kernels at each of
     BWD_CASES on the card.  The forward, launched with ``lse`` as
     training launches it: its output against ``flash_attention_ref``
@@ -3110,7 +3168,7 @@ def bwd_cases(dev, scratch):
             f"{fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, SDPA "
             f"{fwd_library_ms:.3f} ms, bound {f['bound_ms']:.4f} ms "
             f"({f['bound_by']}: {fwd_flops / 1e9:.2f} GFLOP, "
-            f"{fwd_moved / 1e6:.1f} MB)")
+            f"{fwd_moved / 1e6:.1f} MB); {floor_note(floor_ms)}")
         log(f"[train] flash_attention backward, {label}: max err "
             f"{r['max_abs_err']:.3g} = {r['limit_share']:.3f} of the limit "
             f"(against the plain backward of the kernel's out and the "
@@ -3119,7 +3177,8 @@ def bwd_cases(dev, scratch):
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {flops / 1e9:.2f} "
             f"GFLOP, {moved / 1e6:.1f} MB), the design's floor "
             f"{r['floor_ms']:.4f} ms ({BWD_PASSES[dtype]} "
-            f"{'bf16' if dtype == torch.bfloat16 else 'TF32'} passes)")
+            f"{'bf16' if dtype == torch.bfloat16 else 'TF32'} passes); "
+            f"{floor_note(floor_ms)}")
     return res
 
 
@@ -3420,7 +3479,7 @@ def train_seamless(dev):
                 moved_share=moved)
 
 
-def phase_training(dev):
+def phase_training(dev, floor_ms):
     """Phase 12: the flash_attention backward kernel at BWD_CASES, tiny-lm
     trained at full width through Trainer (with a restart and 8-bit
     state), a train step on the card against the CPU, and SeamlessM4T-
@@ -3428,7 +3487,7 @@ def phase_training(dev):
     directory of the checkout and are removed at the end."""
     regs = bwd_registers()
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
-    kern = bwd_cases(dev, scratch)
+    kern = bwd_cases(dev, scratch, floor_ms)
     del scratch
     torch.cuda.empty_cache()
     root = os.path.join(HERE, "build", "chip", "smoke_train")
@@ -3449,7 +3508,8 @@ def phase_training(dev):
 
 def training_rows(train):
     """The kernels line's rows of the training paths: for each shape that
-    tiny-lm's or SeamlessM4T's run launched the forward at, a forward row
+    tiny-lm's or SeamlessM4T's run or the training example (phase 17,
+    ``train["entry"]``) launched the forward at, a forward row
     with those launches (``_TrainShapes``) and the times of the
     BWD_CASES case of that shape; and a backward row for every case, with
     the launches the runs made at its shape (0 for the shapes only held
@@ -3461,7 +3521,7 @@ def training_rows(train):
     for kind, counter in (("fwd", "flash_attention"),
                           ("bwd", "flash_attention_bwd")):
         launched[kind] = {}
-        for path in ("tiny", "seamless"):
+        for path in ("tiny", "seamless", "entry"):
             by_shape = train[path][f"{kind}_by_shape"]
             if sum(by_shape.values()) != train[path]["counts"][counter]:
                 raise AssertionError(f"{path} training: {counter} launches "
@@ -3906,8 +3966,9 @@ def lockstep_row(wave, scratch, latency_ns):
     version's (CUDA events, L2 flushed), the byte bound of the wave, its
     latency bound (its longest lane's dependent pool accesses times the
     card's cold-word latency ``latency_ns``), its per-phase counters and
-    the launch floor: the kernel's device time for a one-lane wave that
-    retires at its first instruction."""
+    its one-lane wave: the kernel's device time for one lane that retires
+    at its first instruction (beside the launch floor, an empty
+    kernel)."""
     from repro_torch import kernels
     from repro_torch.core import vm
     from repro_torch.core.memory import Grant, packed_table
@@ -3938,7 +3999,7 @@ def lockstep_row(wave, scratch, latency_ns):
     a1 = (np.zeros((1, 1), np.int64), np.zeros(1, np.int64),
           np.zeros(1, bool), np.zeros(1, np.int64))
     ops1 = e1.kernel_operands(m1, *a1)
-    floor_ms = time_cuda(lambda: lockstep_vm_kernel(**ops1), scratch)
+    one_lane_ms = time_cuda(lambda: lockstep_vm_kernel(**ops1), scratch)
     moved, dependent = wave_bytes(eng, mem, *args)
     clocks = phase_clocks(ops, got)
     _restore_counts(saved)
@@ -3948,7 +4009,7 @@ def lockstep_row(wave, scratch, latency_ns):
                 bound_ms=moved / HBM_BYTES_PER_S * 1e3,
                 dependent_accesses=dependent,
                 latency_bound_ms=dependent * latency_ns * 1e-6,
-                clocks=clocks, launch_floor_ms=floor_ms)
+                clocks=clocks, one_lane_ms=one_lane_ms)
 
 
 def phase_clocks(ops, want):
@@ -4050,7 +4111,7 @@ def cold_word_latency_ns(dev) -> float:
     return ns
 
 
-def lockstep_counters(dev, forced, latency_ns, card):
+def lockstep_counters(dev, forced, latency_ns, card, floor_ms):
     """The per-phase counters of the waves PERF.md follows, each with its
     wall beside the previous kernel's and its bound: the larger of the bytes it moves at
     3.35 TB/s and its longest lane's dependent pool accesses times the
@@ -4095,14 +4156,15 @@ def lockstep_counters(dev, forced, latency_ns, card):
                 f"({k}) {cy[k]:.0f} ({100 * sh[k]:.0f}%)" for k in "abcde")
             + f"; {clocks['serial_lane_steps']} serial lane steps; bound "
             f"{rows[-1]['bound_ms'] * 1e3:.2f} us ({rows[-1]['bound_by']}: "
-            f"{moved} bytes, {dependent} dependent accesses); {card}")
+            f"{moved} bytes, {dependent} dependent accesses); "
+            f"{floor_note(floor_ms)}; {card}")
         del ops, want
     del scratch
     _restore_counts(saved)
     return rows
 
 
-def phase_lockstep(dev, card, forced):
+def phase_lockstep(dev, card, forced, floor_ms):
     """Phase 16: the lockstep_vm kernel against the host loop on the
     card, bit for bit (mem, ret, status, steps, regs, fault), over the
     seeded corpus of ``core/lockstep_corpus.py``: every stock operator
@@ -4147,7 +4209,8 @@ def phase_lockstep(dev, card, forced):
             f"({counts['lockstep_vm']} launch), host loop {h_ms:.2f} ms; "
             f"bit-equal")
     latency_ns = cold_word_latency_ns(dev)
-    counters = lockstep_counters(dev, forced, latency_ns, card)
+    counters = lockstep_counters(dev, forced, latency_ns, card,
+                                 floor_ms)
     secs = time.perf_counter() - t0
     log(f"[lockstep] phase 16: {len(rows)} waves (B {min(r['B'] for r in rows)}"
         f"..{max(r['B'] for r in rows)}, up to {worst} macro-steps), each "
@@ -4829,7 +4892,6 @@ def phase_contracts(dev, card):
     """Phase 15: the fault table, split-phase completion, the serving
     loop's admission and the certificates on a card-resident pool, every
     wave held to pyvm; then the port's quickstart on the card."""
-    import importlib.util
     t0 = time.perf_counter()
     K = _Contracts(dev, card)
     with _LockstepWaves() as K.rec:
@@ -4846,12 +4908,8 @@ def phase_contracts(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    spec = importlib.util.spec_from_file_location(
-        "quickstart_torch", os.path.join(HERE, "examples",
-                                         "quickstart_torch.py"))
-    qs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(qs)
-    quick = qs.main(["--device", str(dev)])
+    quick = _load_file("examples/quickstart_torch.py").main(
+        ["--device", str(dev)])
     quick_s = time.perf_counter() - t
     log(f"[contracts] phase 15: {rows_s:.1f} s for {n_rows} rows "
         f"(set-up included), quickstart_torch on the card {quick_s:.1f} s "
@@ -5688,6 +5746,179 @@ def phase_dryrun(dev):
             "cross_s": cross_s, "wall_s": wall}
 
 
+def _load_file(path: str):
+    """The module at ``path`` under the checkout (an example or a tool,
+    which are files, not packages)."""
+    import importlib.util
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(HERE, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def entry_serve(dev):
+    """``examples/serve_paged_torch.py`` at full width, ENTRY_REQUESTS
+    requests into ENTRY_SLOTS slots for ENTRY_NEW tokens each, under the
+    host resolver, then the tiara one: every handle ok with every token,
+    no page leaked (the example raises on a leak), ``flash_attention`` 12
+    times per prefill, ``paged_attention`` in the decode steps, a tiara
+    kernel under tiara and none under host, and the same tokens."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    serve = _load_file("examples/serve_paged_torch.py")
+    cfg = get_config("tiny-lm")
+    n_req, max_new = ENTRY_REQUESTS, ENTRY_NEW
+    runs = {}
+    for resolver in ("host", "tiara"):
+        kernels.reset_launch_counts()   # the serving example starts here
+        out = serve.main([
+            "--full-size", "--requests", str(n_req), "--slots",
+            str(ENTRY_SLOTS), "--max-new", str(max_new), "--resolver",
+            resolver, "--device", str(dev)])
+        counts = kernels.launch_counts()    # ... and ends here
+        if out["launches"] != counts:
+            raise AssertionError(f"serve_paged_torch {resolver}: its "
+                                 f"launches {out['launches']} != the "
+                                 f"counts {counts}")
+        if not out["ok"] or len(out["tokens"]) != n_req or any(
+                len(t) != max_new for t in out["tokens"].values()):
+            raise AssertionError(f"serve_paged_torch {resolver}: a sequence "
+                                 f"did not finish ok: {out['statuses']}")
+        if counts["flash_attention"] != cfg.n_layers * n_req \
+                or counts["paged_attention"] < cfg.n_layers \
+                or counts["flash_attention_bwd"]:
+            raise AssertionError(f"serve_paged_torch {resolver}: launches "
+                                 f"{counts}")
+        tiara = counts["tiara_gather"] + counts["lockstep_vm"]
+        if (resolver == "tiara") != (tiara > 0):
+            raise AssertionError(f"serve_paged_torch {resolver}: tiara "
+                                 f"kernel launches {tiara}")
+        runs[resolver] = out
+        log(f"[entry] serve_paged_torch --resolver {resolver}: {n_req} "
+            f"requests, {sum(map(len, out['tokens'].values()))} tokens in "
+            f"{out['steps']} engine steps, {out['wall_s']:.2f} s, "
+            f"{out['tok_per_s']:.1f} tok/s; launches {counts}"
+            + (f"; audit {out['audit']}" if out["audit"] else ""))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if runs["tiara"]["tokens"] != runs["host"]["tokens"]:
+        raise AssertionError("serve_paged_torch: tiara tokens differ from "
+                             "host tokens")
+    log(f"[entry] serve_paged_torch: tiara tokens == host tokens for all "
+        f"{n_req} requests, no page leaked")
+    return {r: {k: v for k, v in out.items() if k != "tokens"}
+            for r, out in runs.items()}
+
+
+def entry_train(dev):
+    """``examples/train_tiny_lm_torch.py`` at ENTRY_TRAIN_ARGS for the
+    first of ENTRY_TRAIN_STEPS steps, then again to the second in the same
+    checkpoint directory: the first call's loss falls, it leaves the
+    step-ENTRY_CKPT_EVERY checkpoint and its last, and the second resumes
+    from its last; per step 24 forward ``flash_attention`` launches
+    (remat) and 12 backward, counted by shape (``_TrainShapes``: the
+    kernels line holds them to the BWD_CASES case of their shape)."""
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    train = _load_file("examples/train_tiny_lm_torch.py")
+    n_layers = get_config("tiny-lm").n_layers
+    root = os.path.join(HERE, "build", "chip")
+    os.makedirs(root, exist_ok=True)
+    calls = []
+    with tempfile.TemporaryDirectory(dir=root) as d, _TrainShapes() as shapes:
+        for steps in ENTRY_TRAIN_STEPS:
+            kernels.reset_launch_counts()   # the training example starts here
+            out = train.main(list(ENTRY_TRAIN_ARGS) + [
+                "--steps", str(steps), "--ckpt", d, "--device", str(dev)])
+            counts = kernels.launch_counts()    # ... and ends here
+            ran = steps - out["start_step"]
+            want = dict(flash_attention=2 * n_layers * ran,
+                        flash_attention_bwd=n_layers * ran,
+                        paged_attention=0, tiara_gather=0, lockstep_vm=0)
+            if counts != want or out["final_step"] != steps:
+                raise AssertionError(f"train_tiny_lm_torch --steps {steps}: "
+                                     f"ended at {out['final_step']}, "
+                                     f"launches {counts}, expected {want}")
+            out.update(launches=counts, kept=sorted(
+                int(n[5:]) for n in os.listdir(d) if n.startswith("step_")),
+                latest=ckpt.latest_step(d))
+            calls.append(out)
+            walls = [x * 1e3 for x in out["step_walls_s"]]
+            log(f"[entry] train_tiny_lm_torch --steps {steps}: started at "
+                f"step {out['start_step']}, loss {out['first_loss']:.4f} "
+                f"at step {out['logged_steps'][0]} -> "
+                f"{out['last_loss']:.4f} at step {out['logged_steps'][-1]}; "
+                f"step wall median {np.median(walls):.2f} ms (first "
+                f"{walls[0]:.2f}); checkpoints kept {out['kept']}; "
+                f"stragglers {out['stragglers']}; launches {counts}")
+    first, second = calls
+    if not first["last_loss"] < first["first_loss"] \
+            or not np.isfinite([first["first_loss"], first["last_loss"],
+                                second["last_loss"]]).all():
+        raise AssertionError(f"train_tiny_lm_torch: the loss did not fall: "
+                             f"{first['first_loss']} -> "
+                             f"{first['last_loss']}")
+    if ENTRY_CKPT_EVERY not in first["kept"] \
+            or first["latest"] != ENTRY_TRAIN_STEPS[0] \
+            or second["start_step"] != first["latest"]:
+        raise AssertionError(f"train_tiny_lm_torch: checkpoints "
+                             f"{first['kept']} after the first call, the "
+                             f"second started at {second['start_step']}")
+    log(f"[entry] train_tiny_lm_torch: the second call resumed at step "
+        f"{second['start_step']}, the newest of the first call's "
+        f"checkpoints {first['kept']}, and ran to step "
+        f"{second['final_step']}; launches by shape: forward {shapes.fwd}, "
+        f"backward {shapes.bwd}")
+    return dict(calls=calls, fwd_by_shape=shapes.fwd,
+                bwd_by_shape=shapes.bwd,
+                counts={k: sum(c["launches"][k] for c in calls)
+                        for k in calls[0]["launches"]})
+
+
+def entry_disaggregated_kv(dev):
+    """``examples/disaggregated_kv_torch.py`` with its pool on the card,
+    then on the CPU: the same figures, and the same delivered blocks (the
+    example holds each reply to the pool's blocks at the requested ids).
+    ``Session.trace`` runs on the pool's host copy, so this holds the
+    pool's placement on the card and launches no kernel."""
+    kv = _load_file("examples/disaggregated_kv_torch.py")
+    card = kv.main(["--device", str(dev)])
+    host = kv.main(["--device", "cpu"])
+    if card["device"] != str(dev) or {k: v for k, v in card.items()
+                                      if k != "device"} != \
+            {k: v for k, v in host.items() if k != "device"}:
+        raise AssertionError(f"disaggregated_kv_torch: the card's figures "
+                             f"{card} != the CPU's {host}")
+    log(f"[entry] disaggregated_kv_torch on {card['device']}: tiara "
+        f"{card['tiara_us']:.1f} us, stop-and-wait "
+        f"{card['stop_and_wait_us']:.1f} us, batched "
+        f"{card['batched_us']:.1f} us "
+        f"({card['over_stop_and_wait']:.1f}x, {card['over_batched']:.2f}x), "
+        f"{card['fetched']} blocks delivered as the pools hold them; equal "
+        f"to the same call's on the CPU, blocks included")
+    return card
+
+
+def phase_entry_points(dev):
+    """Phase 17: the reference's last entry points on the port, each
+    through its ``main(argv)`` in process on ``dev``."""
+    t0 = time.perf_counter()
+    res = dict(serve=entry_serve(dev), train=entry_train(dev),
+               disaggregated_kv=entry_disaggregated_kv(dev))
+    gate = _load_file("tools/check_budgets_torch.py").main([])
+    if gate != 0:
+        raise AssertionError(f"check_budgets_torch returned {gate}")
+    res["budget_gate"] = gate
+    res["wall_s"] = time.perf_counter() - t0
+    log(f"[entry] check_budgets_torch: 0; phase 17 took "
+        f"{res['wall_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--attention-only", action="store_true",
@@ -5733,7 +5964,8 @@ def main() -> int:
     build_s = phase_build()
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)  # 256 MiB
     kinfo = phase_kernel(dev, scratch)
-    paged, flash = phase_attention(dev, scratch)
+    floor_ms = kinfo["launch_floor_ms"]
+    paged, flash = phase_attention(dev, scratch, floor_ms)
     del scratch
     torch.cuda.empty_cache()
 
@@ -5745,7 +5977,7 @@ def main() -> int:
             raise AssertionError(f"the endpoint path never launched {k}")
     log(f"[launches] endpoint path: {counts}")
     # resets the counts per wave, and takes its measurements' launches out
-    lockstep = phase_lockstep(dev, card, forced)
+    lockstep = phase_lockstep(dev, card, forced, floor_ms)
     del forced
     kernels.reset_launch_counts()           # the contracts' path starts here
     contracts = phase_contracts(dev, card)
@@ -5757,27 +5989,27 @@ def main() -> int:
     # the serving paths reset and read the counts around each resolver's
     # run; their host runs launch no tiara kernel
     runs, cpu_err, tiny_gathers, tiny_wave = phase_serving(dev)
-    scout, scout_gathers, scout_wave = phase_scout(dev)
+    scout, scout_gathers, scout_wave = phase_scout(dev, floor_ms)
     gc.collect()                             # Scout's weights go here
     torch.cuda.empty_cache()
     log(f"[memory] after the Scout phase: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     # the recurrent paths reset and read the counts around their own runs
-    jamba = phase_jamba(dev)
+    jamba = phase_jamba(dev, floor_ms)
     gc.collect()
     torch.cuda.empty_cache()
     rwkv = phase_rwkv(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    qwen = phase_qwen(dev)
+    qwen = phase_qwen(dev, floor_ms)
     gc.collect()
     torch.cuda.empty_cache()
-    seamless = phase_seamless(dev)
+    seamless = phase_seamless(dev, floor_ms)
     simulated = phase_simulator(dev)
     gc.collect()                             # SeamlessM4T's weights go here
     torch.cuda.empty_cache()
     # the training paths reset and read the counts around their own runs
-    training = phase_training(dev)
+    training = phase_training(dev, floor_ms)
     gc.collect()
     torch.cuda.empty_cache()
     # and so do the sharded paths, part by part
@@ -5786,11 +6018,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dry = phase_dryrun(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry = phase_entry_points(torch.device("cuda", 0))
+    training["entry"] = entry["train"]
+    # the serving paths: phase 5's runs and the serving example's (its
+    # f32 prefills and decode steps, and its tiara waves)
     serving = {k: sum(r["counts"][k] for r in runs.values())
+               + sum(r["launches"][k] for r in entry["serve"].values())
                for k in counts}
     scout_counts = {k: sum(r["counts"][k] for r in scout["runs"].values())
                     for k in counts}
-    log(f"[launches] tiny-lm serving path (host + tiara): {serving}")
+    log(f"[launches] tiny-lm serving paths (phase 5 and the serving "
+        f"example, host + tiara): {serving}")
     log(f"[launches] Scout serving path (host + tiara): {scout_counts}")
     for path in (serving, scout_counts):
         if path["flash_attention_bwd"]:
@@ -5818,10 +6058,11 @@ def main() -> int:
     paged["launches"] = serving["paged_attention"] \
         + scout_counts["paged_attention"] \
         + sum(c["paged_attention"] for c in model_paths)
-    train_paths = [training["tiny"]["counts"],
-                   training["seamless"]["counts"]]
+    train_paths = [training[p]["counts"]
+                   for p in ("tiny", "seamless", "entry")]
     log(f"[launches] training paths (tiny-lm {TRAIN_STEPS} steps, "
-        f"SeamlessM4T {SEAMLESS_TRAIN_STEPS} steps): {train_paths}")
+        f"SeamlessM4T {SEAMLESS_TRAIN_STEPS} steps, the training example "
+        f"{ENTRY_TRAIN_STEPS[-1]} steps): {train_paths}")
     # tiny-lm's f32 prefills (served, and over 4 homes) run the f32 route;
     # the bf16 paths' launches and the training paths' have rows of their
     # own
@@ -5831,8 +6072,6 @@ def main() -> int:
     # tiara_gather at the serving resolvers' and the sharded engine's own
     # shapes, as recorded, beside the launch floor and the latency bound
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
-    from repro_torch.kernels.tiara_gather import kernel as tk
-    floor_ms = time_cuda(tk.launch_empty, scratch)
     sharded_gathers = {
         "acceptance wave": sharded["endpoint"]["sharded"].pop("gather_call"),
         "auto wave": sharded["endpoint"]["auto"].pop("gather_call"),
@@ -5858,10 +6097,15 @@ def main() -> int:
                 f"{lockstep['latency_ns']:.1f} ns) = "
                 f"{(floor_ms + r['latency_bound_ms']) * 1e3:.2f} us; "
                 f"{r['host_ms_per_call'] * 1e3:.2f} us of host wall per "
-                f"call; plain {r['plain_ms'] * 1e3:.2f} us, byte bound "
-                f"{r['bound_ms'] * 1e6:.3f} ns; {card}")
+                f"call; plain {r['plain_ms'] * 1e3:.2f} us, library "
+                + (("none (per-lane masks: no one call applies them)"
+                    if r["per_lane_masks"] else "none (windows of more "
+                    "than one word)")
+                   if r["library_ms"] is None else
+                   f"(index_select at the precomputed word offsets) "
+                   f"{r['library_ms'] * 1e3:.2f} us")
+                + f", byte bound {r['bound_ms'] * 1e6:.3f} ns; {card}")
     kinfo["serving_shapes"] = shapes
-    kinfo["launch_floor_ms_late"] = floor_ms
     # lockstep_vm at the first lockstep wave a tiara resolver gave it
     # (Scout's; tiny-lm's waves run as compiled traces unless the cost
     # model picks the lockstep engine), and its launches on every path
@@ -5880,7 +6124,7 @@ def main() -> int:
                   max_abs_err=lrow["max_abs_err"], ms=lrow["ms"],
                   plain_ms=lrow["plain_ms"], bound_ms=lrow["bound_ms"],
                   bound_by="bytes", library_ms=None,
-                  launch_floor_ms=lrow["launch_floor_ms"],
+                  one_lane_wave_ms=lrow["one_lane_ms"],
                   latency_bound_ms=lrow["latency_bound_ms"],
                   shape=f"all paths; timed at {tag} resolver wave: "
                         f"{lrow['B']} lanes, {lrow['macro_steps']} "
@@ -5896,8 +6140,9 @@ def main() -> int:
         f"({lrow['bytes_moved']} bytes at 3.35 TB/s), latency bound "
         f"{lrow['latency_bound_ms'] * 1e3:.2f} us "
         f"({lrow['dependent_accesses']} dependent pool accesses at "
-        f"{lockstep['latency_ns']:.1f} ns), launch floor (one lane, one "
-        f"RET) {lrow['launch_floor_ms'] * 1e3:.2f} us; cycles a macro-step "
+        f"{lockstep['latency_ns']:.1f} ns), a one-lane wave (one RET) "
+        f"{lrow['one_lane_ms'] * 1e3:.2f} us, {floor_note(floor_ms)}; "
+        f"cycles a macro-step "
         + ", ".join(f"({k}) {lrow['clocks']['cycles_per_step'][k]:.0f}"
                     for k in "abcde")
         + f"; {lv_launches} launches on the counted paths; {card}")
@@ -5928,7 +6173,7 @@ def main() -> int:
                    "jamba": jamba, "rwkv": rwkv, "qwen": qwen,
                    "seamless": seamless, "simulator": simulated,
                    "training": training, "sharded": sharded,
-                   "dryrun": dry},
+                   "dryrun": dry, "entry_points": entry},
                   f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5937,7 +6182,7 @@ def main() -> int:
                      (kinfo, "the endpoint path's 4096 rows of 8 KiB"),
                      (paged, "tiny-lm's decode step"),
                      (flash, "tiny-lm's 2048-token prefill"))]
-    rows.append({k: lvinfo[k] for k in keys + ("shape", "launch_floor_ms",
+    rows.append({k: lvinfo[k] for k in keys + ("shape", "one_lane_wave_ms",
                                                 "latency_bound_ms")})
     for tag, ki, n in (("Scout", scout["kernels"]["flash"],
                         scout_counts["flash_attention"]),
@@ -5950,6 +6195,8 @@ def main() -> int:
                          shape=f"{tag}'s prefill: {ki['shape']} bf16"))
     rows += multimodal_rows(qwen, seamless, paged, flash)
     rows += training_rows(training)
+    for r in rows:
+        r["launch_floor_ms"] = floor_ms
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

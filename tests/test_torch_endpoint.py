@@ -304,8 +304,14 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        ROOT / p for p in (
+            "chip_smoke.py", "examples/quickstart_torch.py",
+            "examples/serve_paged_torch.py",
+            "examples/train_tiny_lm_torch.py",
+            "examples/disaggregated_kv_torch.py",
+            "tools/check_budgets_torch.py",
+            "experiments/mk_tables_torch.py")]
     assert len(files) > 15
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     for mod in ("configs/__init__", "models/transformer", "models/attention",
