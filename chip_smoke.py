@@ -41,9 +41,11 @@ kernel against its plain PyTorch version on the card:
   all name this card (the port's single-controller mesh runs n shards on
   one card as the reference's tests run n shards on one CPU; one card
   measures the routing, not an interconnect): the endpoint with
-  ``placement="sharded"`` at a 4 x 2.13 GiB pool, tiny-lm served over
-  four homes, and ``tiara_fetch``, the sharded paged decode, the
-  expert-parallel MoE and the int8 gradient all-reduce at full width;
+  ``placement="sharded"`` at a 4 x 2.13 GiB pool (each wave one
+  ``lockstep_vm`` launch over the shards' rows, held to the sharded host
+  loop), tiny-lm served over four homes, and ``tiara_fetch``, the
+  sharded paged decode, the expert-parallel MoE and the int8 gradient
+  all-reduce at full width;
 * the dry-run of every production cell on the meta device and its
   roofline with the H100's constants, held against InternLM2-1.8B's
   train, prefill and decode steps run for real on this card.
@@ -216,19 +218,27 @@ Phases:
    (a) phase 3's region table on a pool of SHARDS rows plus the
    reference's acceptance tenants, SHARDED_POSTS mixed posts over all
    homes with cross-home MEMCPYs and contended STORE/CAS through
-   ``doorbell(placement="sharded")`` and again ``"auto"``, each wave
+   ``doorbell(placement="sharded")`` — on a mesh of one card the sharded
+   engine's wave is ONE ``lockstep_vm`` launch over the shards' rows (no
+   collective, no ``tiara_gather``) — then the same wave through the
+   sharded engine's host loop (``impl="torch"``: ``shard_map``,
+   collectives, ``tiara_gather`` owner reads), the two bit for bit (every
+   row, every CQE field in arrival order), the kernel timed alone on the
+   wave's operands beside the launch floor, its byte and latency bounds
+   and the host loop's wall; and again ``"auto"``; each wave
    bit-identical to the dense mixed engine (the whole pool, on the card)
-   and to a pyvm replay, with its wall, collectives, bytes and
-   ``tiara_gather`` launches; then a failed device under ``"auto"`` (the
-   wave runs single, word ops homed there fault, ``revive()`` +
-   ``reset()`` recover); (b) tiny-lm at full width through
-   ``ServingEngine(resolver="tiara", n_homes=SHARDS,
-   placement="sharded")``: SHARDED_PLENS prompts, SHARDED_NEW new tokens,
-   the host resolver's tokens, a region rehomed mid-run, the decode-step
-   wall beside phase 5's; (c) ``tiara_fetch`` over a 1 GiB pool (bit-equal,
-   exactly 2 ``all_to_all``s, the client-side rounds beside it), tiny-lm's
-   decode with ``cfg.paged_attn_fn`` on a 2 x 2 mesh (both layouts) within
-   DECODE_TOL of the unsharded step, ``make_moe_ep`` at Scout's widths in
+   and to a pyvm replay, with its wall, collectives, bytes and launches;
+   then a failed device under ``"auto"`` (the wave runs single, word ops
+   homed there fault, ``revive()`` + ``reset()`` recover); (b) tiny-lm at
+   full width through ``ServingEngine(resolver="tiara",
+   n_homes=SHARDS, placement="sharded")``: SHARDED_PLENS prompts,
+   SHARDED_NEW new tokens, the host resolver's tokens, a region rehomed
+   mid-run, one ``lockstep_vm`` launch or more in every decode step, the
+   decode-step wall beside phase 5's; (c) ``tiara_fetch`` over a 1 GiB
+   pool (bit-equal, exactly 2 ``all_to_all``s, the client-side rounds
+   beside it), tiny-lm's decode with ``cfg.paged_attn_fn`` on a 2 x 2
+   mesh (both layouts) within DECODE_TOL of the unsharded step,
+   ``make_moe_ep`` at Scout's widths in
    f32 within MOE_REL_TOL of ``moe_apply`` and Scout's 4-layer cut in bf16
    with ``cfg.moe_fn`` held as SCOUT_LOGIT_TOL holds the kernels, and
    tiny-lm's gradients through ``make_grad_compressor`` within
@@ -590,15 +600,22 @@ def flush_l2(scratch: torch.Tensor) -> None:
 SPIN_CYCLES = 1 << 21
 
 
-def time_cuda(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
+def time_cuda(fn, scratch, reps: int = 20, warmup: int = 3,
+              setup=None) -> float:
     """Median milliseconds of one call, each call timed alone with CUDA
     events after a read flush of the L2 (``flush_l2``) and a spin of
     SPIN_CYCLES.  Every kernel time the smoke prints comes from here,
-    beside the launch floor (``launch_floor_ms``)."""
+    beside the launch floor (``launch_floor_ms``).  ``setup``, when
+    given, runs before each call's flush, outside the events (a wave
+    that writes its own inputs puts them back there)."""
     for _ in range(warmup):
+        if setup is not None:
+            setup()
         fn()
     times = []
     for _ in range(reps):
+        if setup is not None:
+            setup()
         flush_l2(scratch)
         torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
@@ -5030,27 +5047,208 @@ def _hold_wave(tag, ep, cs, dense, replay, span):
 
 
 def _replay(ep, host, cs):
-    """pyvm over ``cs`` in arrival order on the host pool, in place."""
+    """pyvm over ``cs`` in arrival order on the host pool, in place;
+    returns the pool, each post's (ret, status, steps) and, from pyvm's
+    traces, the pool bytes the wave's instructions move (8 a LOAD or
+    STORE, 16 a CAS or CAA, 16 a MEMCPY word) and the most LOAD, CAS, CAA
+    and MEMCPY instructions one post executes (each waits for a word of
+    the pool before the post can go on)."""
     from repro_torch.core import pyvm
+    from repro_torch.core.isa import Op
     vops = ep.registry.store_ops()
-    out = {}
+    per_op = {Op.LOAD: 8, Op.STORE: 8, Op.CAS: 16, Op.CAA: 16}
+    waits = (Op.LOAD, Op.CAS, Op.CAA, Op.MEMCPY)
+    out, moved, dependent = {}, 0, 0
     for c in sorted(cs, key=lambda c: c.seq):
         r = pyvm.run(vops[c.op_id], ep.regions, host, list(c.params),
-                     home=c.home)
+                     home=c.home, record_trace=True)
         out[c.seq] = (r.ret, r.status, r.steps)
-    return host, out
+        for ev in r.trace:
+            moved += 16 * ev.n_words if ev.op == Op.MEMCPY else \
+                per_op.get(ev.op, 0)
+        dependent = max(dependent, sum(ev.op in waits for ev in r.trace))
+    return host, out, dict(pool_bytes=moved, dependent=dependent)
 
 
-def sharded_endpoint(dev):
+class _KernelCalls:
+    """Records the operands of every ``lockstep_vm`` launch the engines
+    of ``core.vm`` make inside the block (each call forwarded
+    unchanged)."""
+
+    def __enter__(self):
+        from repro_torch.core import vm
+        self.ops = []
+        self._orig = orig = vm.lockstep_vm_kernel
+
+        def rec(**operands):
+            self.ops.append(operands)
+            return orig(**operands)
+        vm.lockstep_vm_kernel = rec
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import vm
+        vm.lockstep_vm_kernel = self._orig
+
+
+SHARDED_REPLACES = "src/repro/core/vm.py:1297"
+
+
+def sharded_host_loop(ep, mesh, cs, pre, replay):
+    """13 (a)'s plain version: the acceptance wave again through the
+    sharded engine's host loop (``impl="torch"``: ``shard_map`` over the
+    mesh, collectives, ``tiara_gather`` owner reads) on the pool as the
+    wave found it (``pre``), held bit for bit to the kernel route's
+    result through the endpoint — every shard's row, and each CQE in
+    arrival order (ret, status, steps, registers, fault) — and to the
+    pyvm replay.  Its launches are a yardstick's: taken back out of the
+    counts."""
+    from repro_torch import kernels
+    from repro_torch.core import compile as tc
+    from repro_torch.core import vm
+    saved = kernels.launch_counts()
+    ids = [c.op_id for c in cs]
+    homes = [c.home for c in cs]
+    plan = tc.plan_mixed_batch(ids, homes=homes, n_devices=mesh.size)
+    mesh.reset_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hl = vm.invoke_sharded_mixed(
+        ep.registry.store_ops(), ep.regions, pre, plan,
+        [list(c.params) for c in cs], mesh=mesh,
+        static_noconflict=bool(ep.registry.last_noconflict), impl="torch")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    gathers = kernels.launch_counts()["tiara_gather"] \
+        - saved["tiara_gather"]
+    _restore_counts(saved)
+    for d, row in enumerate(ep._dev_mem.shards):
+        if not torch.equal(row, hl.mem.shards[d]):
+            raise AssertionError(f"[sharded] row {d}: the kernel route "
+                                 f"differs from the host loop")
+    if [c.seq for c in cs] != sorted(c.seq for c in cs):
+        raise AssertionError("[sharded] CQEs out of arrival order")
+    fields = np.asarray([[c.ret, c.status, c.steps, *c.regs] for c in cs])
+    err = int(np.abs(fields - np.concatenate(
+        [np.stack([hl.ret, hl.status, hl.steps], 1), hl.regs], 1)).max())
+    for i, c in enumerate(cs):
+        want = (int(hl.ret[i]), int(hl.status[i]), int(hl.steps[i]),
+                vm.fault_info(hl.fault[i]))
+        if (c.ret, c.status, c.steps, c.fault) != want \
+                or not np.array_equal(c.regs, hl.regs[i]):
+            raise AssertionError(f"[sharded] seq {c.seq}: the kernel "
+                                 f"route differs from the host loop")
+        if want[:3] != replay[1][c.seq]:
+            raise AssertionError(f"[sharded] seq {c.seq}: the host loop "
+                                 f"differs from pyvm")
+    return dict(wall_s=wall, tiara_gather=gathers, max_abs_err=err,
+                collectives=mesh.collective_counts(),
+                collective_bytes=mesh.collective_bytes())
+
+
+def sharded_kernel_row(ops, span, pre, scratch, floor_ms, latency_ns,
+                       stats):
+    """The sharded form's ``lockstep_vm`` row at the acceptance wave: the
+    launch alone on the wave's own operands (``ops``, as the engine
+    packed them), on copies of the shards' rows whose span of tenant
+    words is put back to the pool as the wave found it (``pre``) before
+    every call, outside the events (the wave writes its latches and
+    replies, nothing else); equal to the endpoint's result after each
+    call; its byte bound (the tables and inputs read once, the outputs
+    written once and the pool words of ``stats``) and its latency bound
+    (the longest post's dependent pool accesses times ``latency_ns``),
+    beside the launch floor.  The timed launches are not counted."""
+    from repro_torch import kernels
+    from repro_torch.kernels.lockstep_vm.kernel import lockstep_vm_kernel
+    saved = kernels.launch_counts()
+    lo, hi = span
+    rows = [r.clone() for r in ops["rows"]]
+    want = [r[lo:hi].clone() for r in ops["rows"]]
+    inputs = ops["inputs"].clone()
+    n_dev = len(rows)
+    inputs[-n_dev:] = torch.tensor([r.data_ptr() for r in rows],
+                                   dtype=torch.int64)
+    run = dict(ops, rows=rows, inputs=inputs)
+
+    def setup():
+        for d, r in enumerate(rows):
+            r[lo:hi].copy_(pre[d, lo:hi])
+    ms = time_cuda(lambda: lockstep_vm_kernel(**run), scratch,
+                   setup=setup)
+    torch.cuda.synchronize()
+    if not all(torch.equal(r[lo:hi], w) for r, w in zip(rows, want)):
+        raise AssertionError("[sharded] the timed launches differ from the "
+                             "wave's")
+    # the clocks build on the same wave: its macro-steps, serial lane
+    # steps and thread 0's cycles a macro-step in each phase
+    setup()
+    out = lockstep_vm_kernel(**run)
+    setup()
+    clocks = phase_clocks(run, out)
+    _restore_counts(saved)
+    B = int(ops["B"])
+    tables = sum(ops[k].numel() for k in ("code", "rbase", "rmask",
+                                           "slot_start", "slot_end",
+                                           "slot_fuel", "inputs"))
+    moved = 8 * tables + B * (3 + 16 + 4) * 8 + stats["pool_bytes"]
+    del rows, inputs, run
+    torch.cuda.empty_cache()
+    return dict(B=B, ms=ms, launch_floor_ms=floor_ms, bytes_moved=moved,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                dependent_accesses=stats["dependent"],
+                latency_bound_ms=stats["dependent"] * latency_ns * 1e-6,
+                clocks=clocks)
+
+
+def sharded_call_walls(ep, mesh, cs, pre):
+    """Where the acceptance wave's doorbell wall goes: the host wall of
+    ``vm.invoke_sharded_mixed`` on the kernel route called directly (the
+    plan, the marshalling, the private row copies, the launch, the
+    scatter and the fields' copy to the host), and of the private row
+    copies alone; each the median of 3 calls ended by a device sync.  The
+    launches are taken back out of the counts."""
+    from repro_torch import kernels
+    from repro_torch.core import compile as tc
+    from repro_torch.core import memory, vm
+    saved = kernels.launch_counts()
+    ids = [c.op_id for c in cs]
+    params = [list(c.params) for c in cs]
+    sh = memory.shard_pool(pre, mesh, "pool")
+
+    def invoke():
+        plan = tc.plan_mixed_batch(ids, homes=[c.home for c in cs],
+                                   n_devices=mesh.size)
+        return vm.invoke_sharded_mixed(
+            ep.registry.store_ops(), ep.regions, sh, plan, params,
+            mesh=mesh, static_noconflict=bool(ep.registry.last_noconflict),
+            impl="cuda")
+    invoke_ms, out = _wall(invoke)
+    for d, row in enumerate(ep._dev_mem.shards):
+        if not torch.equal(row, out.mem.shards[d]):
+            raise AssertionError("[sharded] a direct kernel-route call "
+                                 "differs from the doorbell's wave")
+    del out
+    copies_ms, rows = _wall(lambda: [vm.private_pool(r) for r in sh.shards])
+    del rows
+    _restore_counts(saved)
+    torch.cuda.empty_cache()
+    return dict(invoke_ms=invoke_ms, copies_ms=copies_ms)
+
+
+def sharded_endpoint(dev, floor_ms, latency_ns):
     """13 (a): phase 3's region table on a pool of SHARDS rows, sharded
     over a mesh of SHARDS shards of the card, and the reference's
-    acceptance wave through ``doorbell(placement="sharded")`` then
-    ``"auto"``, each held to the dense mixed engine and to pyvm; then a
-    failed device under ``"auto"``."""
+    acceptance wave through ``doorbell(placement="sharded")`` — one
+    ``lockstep_vm`` launch over the shards' rows, no collective, no
+    ``tiara_gather`` — then through the sharded host loop
+    (``sharded_host_loop``), each held to the other, to the dense mixed
+    engine and to pyvm, the kernel timed alone (``sharded_kernel_row``);
+    then ``"auto"``; then a failed device under ``"auto"``."""
     from repro_torch.core import faults, isa, memory, vm
     from repro_torch.core import operators as ops
     from repro_torch.core.endpoint import TiaraEndpoint
     from repro_torch.distributed.mesh import Sharded, make_device_mesh
+    from repro_torch.kernels.lockstep_vm import kernel as lk
     from repro_torch.kernels.tiara_gather import kernel as tg
 
     mesh = make_device_mesh(SHARDS, devices=[dev] * SHARDS)
@@ -5095,51 +5293,91 @@ def sharded_endpoint(dev):
         torch.cuda.synchronize()
         mesh.reset_stats()
         n0 = tg.COUNTS["tiara_gather"]
-        calls = _GatherCalls()
-        with calls:
+        w0 = lk.COUNTS["lockstep_vm"]
+        kcalls = _KernelCalls()
+        with kcalls:
             t = time.perf_counter()
             ep.doorbell(placement=placement)
             torch.cuda.synchronize()
             walls[name] = time.perf_counter() - t
         launches = tg.COUNTS["tiara_gather"] - n0
+        waves = lk.COUNTS["lockstep_vm"] - w0
         _hold_wave(name, ep, cs, dense, replay, (lo, hi))
         sharded = isinstance(ep._dev_mem, Sharded)
         dec = ep.last_placement
+        kops[name] = kcalls.ops
         rec[name] = dict(
             posts=len(cs), wall_s=walls[name], launches=launches,
-            ran="sharded" if sharded else "single",
+            lockstep_vm=waves, ran="sharded" if sharded else "single",
             decision=None if dec is None else dict(mode=dec.mode,
                                                    costs=dec.costs),
             collectives=mesh.collective_counts(),
             collective_bytes=mesh.collective_bytes(),
-            ok=sum(c.ok for c in cs),
-            # the first owner read, timed after the phase (popped there)
-            gather_call=calls.first.get("lockstep"))
+            ok=sum(c.ok for c in cs))
         log(f"[sharded] {name}: {len(cs)} posts (4 tenants, homes over "
             f"{SHARDS}) placement={placement} -> ran "
             f"{rec[name]['ran']}"
             + ("" if dec is None else f" (cost model {dec.mode}: "
                f"{ {k: round(v, 1) for k, v in dec.costs.items()} } us)")
-            + f"; wave wall {walls[name] * 1e3:.1f} ms; tiara_gather "
-            f"launches {launches}; collectives {rec[name]['collectives']}, "
-            f"bytes read across shards {rec[name]['collective_bytes']}; "
-            f"== dense mixed engine (whole pool, every CQE field) and == "
-            f"pyvm replay ({rec[name]['ok']} ok)")
+            + f"; wave wall {walls[name] * 1e3:.1f} ms; lockstep_vm "
+            f"launches {waves}, tiara_gather launches {launches}; "
+            f"collectives {rec[name]['collectives']}, bytes read across "
+            f"shards {rec[name]['collective_bytes']}; == dense mixed "
+            f"engine (whole pool, every CQE field) and == pyvm replay "
+            f"({rec[name]['ok']} ok)")
         del dense
-        return cs
+        return cs, replay
 
-    wave("sharded", "sharded", _acceptance_posts(sessions, SHARDED_POSTS,
-                                                 SHARDS, rng), pool0)
+    kops = {}
+    cs, replay = wave("sharded", "sharded",
+                      _acceptance_posts(sessions, SHARDED_POSTS, SHARDS,
+                                        rng), pool0)
+    r = rec["sharded"]
+    if r["ran"] != "sharded" or r["lockstep_vm"] != 1 \
+            or r["launches"] != 0 or r["collectives"]:
+        raise AssertionError(
+            f"the sharded wave on a mesh of one card did not run as one "
+            f"lockstep_vm launch without tiara_gather or a collective: "
+            f"{r['lockstep_vm']} lockstep_vm, {r['launches']} tiara_gather, "
+            f"collectives {r['collectives']}")
+    hl = rec["host_loop"] = sharded_host_loop(ep, mesh, cs, pool0, replay)
+    walls_a = rec["call_walls"] = sharded_call_walls(ep, mesh, cs, pool0)
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    krow = rec["kernel_row"] = sharded_kernel_row(
+        kops["sharded"][0], (lo, hi), pool0, scratch, floor_ms, latency_ns,
+        replay[2])
+    krow.update(max_abs_err=hl.pop("max_abs_err"),
+                plain_ms=hl["wall_s"] * 1e3, wall_ms=r["wall_s"] * 1e3,
+                macro_steps=max(c.steps for c in cs))
+    del scratch, cs, replay
+    log(f"[sharded] acceptance wave, kernel route: one lockstep_vm launch "
+        f"over {SHARDS} row buffers, {krow['B']} lanes in arrival order: "
+        f"kernel {krow['ms'] * 1e3:.1f} us ({floor_note(floor_ms)}); the "
+        f"wave's host wall through the doorbell {r['wall_s'] * 1e3:.1f} ms "
+        f"(the {SHARDS} private row copies and marshalling included); "
+        f"bound {krow['bound_ms'] * 1e3:.3f} us ({krow['bytes_moved']} "
+        f"bytes at 3.35 TB/s), latency bound "
+        f"{krow['latency_bound_ms'] * 1e3:.2f} us "
+        f"({krow['dependent_accesses']} dependent pool accesses at "
+        f"{latency_ns:.1f} ns); host loop {hl['wall_s'] * 1e3:.1f} ms with "
+        f"{hl['tiara_gather']} tiara_gather launches and collectives "
+        f"{hl['collectives']}; bit-equal (every row, every CQE field in "
+        f"arrival order) and == pyvm; {card_line()}")
+    ck = krow["clocks"]
+    log(f"[sharded] the acceptance wave on the clocks build: "
+        f"{ck['macro_steps']} macro-steps, {ck['serial_lane_steps']} serial "
+        f"lane steps; thread 0's cycles a macro-step "
+        + ", ".join(f"({k}) {ck['cycles_per_step'][k]:.0f}" for k in "abcde")
+        + f"; of the doorbell's {r['wall_s'] * 1e3:.1f} ms, "
+        f"vm.invoke_sharded_mixed called directly takes "
+        f"{walls_a['invoke_ms']:.1f} ms, of which the {SHARDS} private row "
+        f"copies {walls_a['copies_ms']:.1f} ms")
     del pool0
     torch.cuda.empty_cache()
-    if rec["sharded"]["ran"] != "sharded" \
-            or rec["sharded"]["launches"] < 1:
-        raise AssertionError("the sharded wave did not run on the mesh "
-                             "through tiara_gather")
     pre = vm.as_pool(ep._dev_mem)           # the dense yardstick's input
     wave("auto", "auto", _acceptance_posts(sessions, SHARDED_POSTS, SHARDS,
                                            rng), pre)
-    del pre
+    del pre, kops
     torch.cuda.empty_cache()
 
     # a failed device: "auto" must run single, the posts homed there fault
@@ -5188,7 +5426,8 @@ def sharded_serving(dev, single_step_ms):
     """13 (b): tiny-lm at full width served with its block tables resolved
     over SHARDS homes on the mesh: ServingEngine(resolver="tiara",
     n_homes=SHARDS, placement="sharded") against resolver="host", tokens
-    equal, a region rehomed mid-run."""
+    equal, a region rehomed mid-run; every decode step's resolver wave is
+    one ``lockstep_vm`` launch over the shards' rows."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.distributed.mesh import Sharded, make_device_mesh
@@ -5214,16 +5453,14 @@ def sharded_serving(dev, single_step_ms):
     eng = engine(resolver="tiara", n_homes=SHARDS, placement="sharded",
                  rehome_every=2, mesh=mesh)
     timed = _Timed(eng)
-    calls = _GatherCalls()
-    with calls:
-        kernels.reset_launch_counts()       # the sharded serving path
-        mesh.reset_stats()
-        t = time.perf_counter()
-        hs = [eng.submit(p, max_new=SHARDED_NEW) for p in prompts]
-        out = eng.run_to_completion()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        counts = kernels.launch_counts()     # ... ends here
+    kernels.reset_launch_counts()           # the sharded serving path
+    mesh.reset_stats()
+    t = time.perf_counter()
+    hs = [eng.submit(p, max_new=SHARDED_NEW) for p in prompts]
+    out = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = kernels.launch_counts()         # ... ends here
     aud = eng.resolver_audit()
     if out != want or not all(h.ok for h in hs):
         raise AssertionError("sharded tiara serving: tokens differ from the "
@@ -5232,26 +5469,28 @@ def sharded_serving(dev, single_step_ms):
                                             Sharded):
         raise AssertionError("sharded tiara serving: no rehome, or the pool "
                              "did not stay sharded")
-    if counts["tiara_gather"] < 1 or min(timed.step_gathers) < 1:
+    if min(timed.step_waves) < 1:
         raise AssertionError("sharded tiara serving: a decode step launched "
-                             "no tiara_gather")
+                             "no lockstep_vm")
     step = float(np.median(timed.step_ms))
     r = dict(requests=len(prompts), new=SHARDED_NEW, wall_s=wall,
              step_ms=list(timed.step_ms), step_ms_median=step,
              single_step_ms_median=single_step_ms, counts=counts,
+             step_lockstep_vm=list(timed.step_waves),
+             step_tiara_gather=list(timed.step_gathers),
              collectives=mesh.collective_counts(),
              collective_bytes=mesh.collective_bytes(),
              rehomes=int(aud["rehomes"]),
              rehomed_words=int(aud["rehomed_words"]),
-             cross_device_words=int(aud["cross_device_words"]),
-             # the first owner read, timed after the phase (popped there)
-             gather_call=calls.first.get("lockstep"))
+             cross_device_words=int(aud["cross_device_words"]))
     log(f"[sharded] tiny-lm served over {SHARDS} homes (mesh: "
         f"{_mesh_note(mesh)}): {len(prompts)} requests (prompts "
         f"{min(SHARDED_PLENS)}..{max(SHARDED_PLENS)}), {SHARDED_NEW} new "
         f"tokens each, tokens == host resolver's; {len(timed.step_ms)} decode "
-        f"steps, median {step:.1f} ms (phase 5's single-placement tiara "
-        f"step: {single_step_ms:.1f} ms); launches {counts}; rehomes "
+        f"steps, median {step:.2f} ms (phase 5's single-placement tiara "
+        f"step: {single_step_ms:.1f} ms); launches a step: lockstep_vm "
+        f"{timed.step_waves}, tiara_gather {timed.step_gathers}; launches "
+        f"{counts}; rehomes "
         f"{r['rehomes']} ({r['rehomed_words']} words), cross-device words "
         f"{r['cross_device_words']}; collectives {r['collectives']}; "
         f"{wall:.1f} s")
@@ -5617,14 +5856,15 @@ def sharded_compress(dev):
                 bytes=mesh.collective_bytes(), n_grads=n)
 
 
-def phase_sharded(dev, single_step_ms):
+def phase_sharded(dev, single_step_ms, floor_ms, latency_ns):
     """Phase 13: the sharded endpoint at real size, tiny-lm served over
     SHARDS homes, and the distributed layer at full width, every mesh of
     SHARDS shards on this one card."""
     from repro_torch import kernels
     t = time.perf_counter()
     out = {}
-    for name, fn in (("endpoint", lambda: sharded_endpoint(dev)),
+    for name, fn in (("endpoint", lambda: sharded_endpoint(dev, floor_ms,
+                                                           latency_ns)),
                      ("serving", lambda: sharded_serving(dev,
                                                          single_step_ms)),
                      ("fetch", lambda: sharded_fetch(dev)),
@@ -5647,15 +5887,24 @@ def phase_sharded(dev, single_step_ms):
         + out["serving"]["counts"]["tiara_gather"] \
         + out["fetch"]["launches"]
     out["tiara_gather_launches"] = gathers
+    # the sharded engine's waves: the acceptance wave and the tiara
+    # serving run (the "auto" wave runs where the cost model puts it)
+    waves = out["endpoint"]["sharded"]["lockstep_vm"] \
+        + out["serving"]["counts"]["lockstep_vm"]
+    out["sharded_lockstep_vm_launches"] = waves
     log(f"[sharded] phase 13: {out['wall_s']:.1f} s (endpoint "
         f"{out['endpoint_s']:.1f}, serving {out['serving_s']:.1f}, fetch "
         f"{out['fetch_s']:.1f}, decode {out['decode_s']:.1f}, moe "
         f"{out['moe_s']:.1f}, compress {out['compress_s']:.1f}); "
-        f"tiara_gather launched {gathers} times on the sharded paths; "
-        f"{card_line()}")
+        f"tiara_gather launched {gathers} times on the sharded paths, "
+        f"lockstep_vm {waves} times by the sharded engine; {card_line()}")
     if gathers < 1:
         raise AssertionError("the sharded paths never launched "
                              "tiara_gather")
+    if out["endpoint"]["sharded"]["lockstep_vm"] < 1 \
+            or out["serving"]["counts"]["lockstep_vm"] < 1:
+        raise AssertionError("the sharded engine's waves never launched "
+                             "lockstep_vm")
     return out
 
 
@@ -6014,7 +6263,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # and so do the sharded paths, part by part
     sharded = phase_sharded(
-        dev, float(np.median(runs["tiara"]["step_ms"])))
+        dev, float(np.median(runs["tiara"]["step_ms"])), floor_ms,
+        lockstep["latency_ns"])
     gc.collect()
     torch.cuda.empty_cache()
     dry = phase_dryrun(dev)
@@ -6069,16 +6319,12 @@ def main() -> int:
     flash["launches"] = serving["flash_attention"] \
         + sharded["serving"]["counts"]["flash_attention"]
 
-    # tiara_gather at the serving resolvers' and the sharded engine's own
-    # shapes, as recorded, beside the launch floor and the latency bound
+    # tiara_gather at the serving resolvers' own shapes, as recorded,
+    # beside the launch floor and the latency bound (the sharded waves'
+    # window copies run inside lockstep_vm and launch no tiara_gather)
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
-    sharded_gathers = {
-        "acceptance wave": sharded["endpoint"]["sharded"].pop("gather_call"),
-        "auto wave": sharded["endpoint"]["auto"].pop("gather_call"),
-        "tiny-lm over 4 homes": sharded["serving"].pop("gather_call")}
     shapes = {}
-    for model, rec in (("tiny-lm", tiny_gathers), ("scout", scout_gathers),
-                       ("sharded", sharded_gathers)):
+    for model, rec in (("tiny-lm", tiny_gathers), ("scout", scout_gathers)):
         for engine, call in sorted((rec or {}).items()):
             if call is None:
                 continue
@@ -6184,6 +6430,21 @@ def main() -> int:
                      (flash, "tiny-lm's 2048-token prefill"))]
     rows.append({k: lvinfo[k] for k in keys + ("shape", "one_lane_wave_ms",
                                                 "latency_bound_ms")})
+    srow = sharded["endpoint"]["kernel_row"]
+    rows.append(dict(
+        name="lockstep_vm", route="cuda", source=LOCKSTEP_SOURCE,
+        replaces=SHARDED_REPLACES,
+        launches=sharded["sharded_lockstep_vm_launches"],
+        max_abs_err=srow["max_abs_err"], ms=srow["ms"],
+        plain_ms=srow["plain_ms"], bound_ms=srow["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        latency_bound_ms=srow["latency_bound_ms"],
+        shape=f"the sharded engine's wave on {SHARDS} rows of one card: "
+              f"timed at the acceptance wave, {srow['B']} lanes, "
+              f"{srow['macro_steps']} macro-steps, {srow['bytes_moved']} "
+              f"bytes, {srow['dependent_accesses']} dependent pool "
+              f"accesses on its longest lane; plain_ms is the sharded host "
+              f"loop's wall on the same wave"))
     for tag, ki, n in (("Scout", scout["kernels"]["flash"],
                         scout_counts["flash_attention"]),
                        ("Jamba", jamba["kernels"]["flash"],

@@ -33,7 +33,8 @@ shared store and enforce the aggregate capacity.
 
 Placement: ``placement="single"`` runs a wave on one device against the
 whole pool; ``placement="sharded"`` runs it on the mesh-sharded engine
-(``vm.invoke_sharded_mixed``), the pool split over a device mesh by row;
+(``vm.invoke_sharded_mixed``), the pool split over a device mesh by row
+(one ``lockstep_vm`` launch a wave when every shard lies on one card);
 ``placement="auto"`` lets the cost model pick between them.
 """
 

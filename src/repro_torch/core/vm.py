@@ -100,7 +100,8 @@ from repro_torch.core.memory import RegionTable
 from repro_torch.core.verifier import VerifiedOperator
 from repro_torch.distributed import mesh as _mesh
 from repro_torch.kernels import IMPLS
-from repro_torch.kernels.lockstep_vm.kernel import lockstep_vm_kernel
+from repro_torch.kernels.lockstep_vm.kernel import (lockstep_vm_kernel,
+                                                   wave_inputs)
 from repro_torch.kernels.lockstep_vm.ops import lockstep_vm
 from repro_torch.kernels.tiara_gather.ops import tiara_gather_window
 
@@ -174,6 +175,25 @@ class VMResult(NamedTuple):
 
 # The "no fault" FaultInfo row every clean lane carries (pc = -1).
 NO_FAULT = np.asarray([-1, 0, 0, 0], dtype=np.int64)
+
+
+def _unrun_lanes(params: torch.Tensor, B: int) -> dict:
+    """The result fields of ``B`` lanes before their first step, on
+    ``params``' device: ret 0, status fell off, no step, the params in the
+    registers, no fault.  Every lockstep wave starts from them, and a
+    padding lane (``op_sel < 0``), which never runs, returns them."""
+    dev = params.device
+    regs = torch.zeros((B, isa.NUM_REGS), dtype=_I64, device=dev)
+    params = params.reshape(B, -1)
+    k = min(int(params.shape[1]), isa.NUM_REGS)
+    if k:
+        regs[:, :k] = params[:, :k]
+    return dict(
+        ret=torch.zeros(B, dtype=_I64, device=dev),
+        status=torch.full((B,), isa.STATUS_FELL_OFF, dtype=_I64,
+                          device=dev),
+        steps=torch.zeros(B, dtype=_I64, device=dev), regs=regs,
+        fault=torch.as_tensor(NO_FAULT, device=dev).repeat(B, 1))
 
 
 def fault_info(row) -> Optional[isa.FaultInfo]:
@@ -917,40 +937,46 @@ class _Engine:
         return lockstep_vm(self, mem, params, homes, failed, op_sel,
                            impl=self.impl)
 
-    def kernel_operands(self, mem, params, homes, failed, op_sel):
-        """The ``lockstep_vm`` kernel's operands for one wave on ``mem``'s
-        device, less its outputs and scratch: the constant tables, the
-        wave's inputs packed into one tensor (params, op_sel, homes,
-        failed) and the engine's private copy of the pool (the pool
-        itself when it is donated, :func:`donate`)."""
-        dev = mem.device
-        code, base_c, mask_c, start_c, end_c, fuel_c = self._const(dev)
-        B = self.B
-        p = _host(params).astype(np.int64).reshape(B, -1)[:, :isa.NUM_REGS]
-        k = int(p.shape[1])
-        inputs = torch.from_numpy(np.concatenate([
-            p.reshape(-1),
-            _host(op_sel).astype(np.int64).reshape(B),
-            _host(homes).astype(np.int64).reshape(B),
-            _host(failed).astype(np.int64).reshape(-1)]))
-        if dev.type != "cpu":
-            # from pageable memory: staged at once, no stream sync
-            inputs = inputs.to(dev, non_blocking=True)
+    def wave_operands(self, rows, params, homes, failed, op_sel,
+                      batch: int):
+        """The ``lockstep_vm`` kernel's operands for one wave of ``batch``
+        lanes against the pool rows ``rows`` (``n_dev`` int64 tensors of
+        ``pool_words`` words on one device), less its outputs and scratch:
+        the constant tables and the wave's inputs and row table packed
+        into one tensor (``kernels.lockstep_vm.kernel.wave_inputs``)."""
+        code, base_c, mask_c, start_c, end_c, fuel_c = \
+            self._const(rows[0].device)
+        p = _host(params).astype(np.int64).reshape(batch, -1)
+        p = p[:, :isa.NUM_REGS]
         return dict(code=code, rbase=base_c, rmask=mask_c,
                     slot_start=start_c, slot_end=end_c, slot_fuel=fuel_c,
-                    inputs=inputs, n_params=k, B=B, n_dev=self.n_dev,
-                    pool_words=int(mem.shape[1]),
+                    inputs=wave_inputs(p, _host(op_sel), _host(homes),
+                                       _host(failed), rows),
+                    n_params=int(p.shape[1]), B=int(batch),
+                    n_dev=self.n_dev, pool_words=int(rows[0].numel()),
                     max_window=self.max_window, protect=self.protect,
-                    sweep=B > 1 and not self.static_noconflict,
-                    mem=_engine_pool(mem))
+                    sweep=batch > 1 and not self.static_noconflict,
+                    rows=rows)
+
+    def kernel_operands(self, mem, params, homes, failed, op_sel):
+        """The ``lockstep_vm`` kernel's operands for one wave on ``mem``'s
+        device (:meth:`wave_operands`): the rows are those of the
+        engine's private flat copy of the pool (the pool itself when it
+        is donated, :func:`donate`), row ``d`` at ``d * pool_words``."""
+        memx = _engine_pool(mem)
+        P = int(mem.shape[1])
+        rows = [memx[d * P:(d + 1) * P] for d in range(self.n_dev)]
+        return self.wave_operands(rows, params, homes, failed, op_sel,
+                                  self.B)
 
     def run_kernel(self, mem, params, homes, failed, op_sel) -> VMResult:
         """One wave as one ``lockstep_vm`` launch on ``mem``'s card; the
         result's tensors are filled when the launch lands."""
         ops = self.kernel_operands(mem, params, homes, failed, op_sel)
         out = lockstep_vm_kernel(**ops)
-        return VMResult(mem=ops["mem"][:-1].view(self.n_dev,
-                                                 ops["pool_words"]),
+        P = ops["pool_words"]
+        flat = ops["rows"][0]
+        return VMResult(mem=flat.as_strided((self.n_dev, P), (P, 1)),
                         ret=out.ret, status=out.status, steps=out.steps,
                         regs=out.regs, fault=out.fault)
 
@@ -971,12 +997,7 @@ class _Engine:
         end_arr = end_c[op_sel]
         fuel_arr = fuel_c[op_sel]
 
-        params = torch.as_tensor(params, dtype=_I64, device=dev) \
-            .reshape(B, -1)
-        regs0 = torch.zeros((B, isa.NUM_REGS), dtype=_I64, device=dev)
-        k = min(int(params.shape[1]), isa.NUM_REGS)
-        if k:
-            regs0[:, :k] = params[:, :k]
+        params = torch.as_tensor(params, dtype=_I64, device=dev)
 
         memx = _engine_pool(mem)
         ops = _DenseOps(n_dev, pool_words)
@@ -989,14 +1010,11 @@ class _Engine:
 
         zb = torch.zeros(B, dtype=_I64, device=dev)
         s = ReqState(
-            pc=pc0, regs=regs0,
+            pc=pc0,
             lstack=torch.zeros((B, depth, 3), dtype=_I64, device=dev),
             lsp=zb, inflight=zb,
             halted=torch.zeros(B, dtype=torch.bool, device=dev),
-            ret=zb, status=torch.full((B,), isa.STATUS_FELL_OFF, dtype=_I64,
-                                      device=dev),
-            steps=zb, ctrl=zb, pc_new=zb,
-            fault=torch.as_tensor(NO_FAULT, device=dev).repeat(B, 1))
+            ctrl=zb, pc_new=zb, **_unrun_lanes(params, B))
         sweep = B > 1 and not self.static_noconflict
         op_read = (int(Op.LOAD), int(Op.CAS), int(Op.CAA))
         op_write = (int(Op.STORE), int(Op.CAS), int(Op.CAA))
@@ -1102,6 +1120,30 @@ def build_mixed_batched_vm(ops: Sequence[VerifiedOperator],
                          static_noconflict=static_noconflict, impl=impl)
 
 
+def sharded_route(impl: str, mesh: "_mesh.Mesh") -> str:
+    """The sharded engine's route on ``mesh``: "cuda" (the wave as one
+    ``lockstep_vm`` launch) or "torch" (the host loop).  On a mesh whose
+    shards all name one CUDA card, "auto" and "cuda" take the kernel; on
+    any other mesh (CPU shards, or shards spread over several cards, where
+    one launch would need peer access) "auto" runs the host loop and
+    "cuda" raises.  "torch" runs the host loop on any mesh."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    if impl == "torch":
+        return "torch"
+    devs = mesh.flat_devices
+    if all(d.type == "cuda" for d in devs) and len(
+            {torch.cuda.current_device() if d.index is None else d.index
+             for d in devs}) == 1:
+        return "cuda"
+    if impl == "cuda":
+        raise ValueError(
+            "impl='cuda' runs a sharded wave as one lockstep_vm launch, "
+            "which needs every shard on one CUDA card; this mesh's shards "
+            f"lie on {sorted({str(d) for d in devs})}")
+    return "torch"
+
+
 class _ShardedEngine:
     """The mesh-sharded lockstep engine (see :func:`_build_sharded_engine`).
     Holds no mesh: each call runs on the mesh it is given, whose devices
@@ -1109,13 +1151,71 @@ class _ShardedEngine:
 
     def __init__(self, codes, fuels, regions: RegionTable, n_devices: int,
                  batch_per_device: int, axis: str, protect: bool,
-                 static_noconflict: bool):
+                 static_noconflict: bool, impl: str = "auto"):
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r}; expected one of "
+                             f"{IMPLS}")
+        self.impl = impl
         self.dense = _Engine(codes, fuels, regions, n_devices,
                              batch_per_device, protect, static_noconflict)
         self.axis = axis
 
     def __call__(self, mesh: "_mesh.Mesh", mem: "_mesh.Sharded", params,
                  homes, failed, op_sel, arrival) -> VMResult:
+        """One wave: one ``lockstep_vm`` launch on a mesh of one card, the
+        host loop elsewhere (see :func:`sharded_route`)."""
+        run = self.run_kernel if sharded_route(self.impl, mesh) == "cuda" \
+            else self.run_host_loop
+        return run(mesh, mem, params, homes, failed, op_sel, arrival)
+
+    def run_kernel(self, mesh: "_mesh.Mesh", mem: "_mesh.Sharded", params,
+                   homes, failed, op_sel, arrival) -> VMResult:
+        """The wave as ONE ``lockstep_vm`` launch over the shards' rows,
+        which lie on one card: each shard's row copied privately (as the
+        host loop copies it), the kernel's row table pointing at the
+        copies, the live lanes (``op_sel >= 0``) laid out in arrival order
+        — the dense wave whose replay order is the global arrival order —
+        and the fields scattered back to the device-major layout the host
+        loop returns.  No collective and no ``tiara_gather`` launch: the
+        window copies run inside the wave."""
+        e = self.dense
+        n_dev, Bp = e.n_dev, e.B
+        N = n_dev * Bp
+        sel = np.asarray(_host(op_sel), dtype=np.int64).reshape(N)
+        order = np.argsort(np.asarray(arrival, dtype=np.int64).reshape(N),
+                           kind="stable")
+        lanes = order[sel[order] >= 0]
+        p = np.asarray(_host(params), dtype=np.int64).reshape(N, -1)
+        memx = [private_pool(r) for r in mem.shards]
+        P = int(mem.shards[0].shape[-1])
+        ops = e.wave_operands(
+            [m[:P] for m in memx], p[lanes],
+            np.asarray(_host(homes), dtype=np.int64).reshape(N)[lanes],
+            failed, sel[lanes], int(lanes.size))
+        out = lockstep_vm_kernel(**ops)
+        # the live lanes' fields over those the padding lanes keep
+        dev = ops["inputs"].device
+        idx = torch.from_numpy(lanes).to(dev, non_blocking=True)
+        full = _unrun_lanes(torch.from_numpy(p).to(dev, non_blocking=True),
+                            N)
+        for f, v in full.items():
+            v.index_copy_(0, idx, getattr(out, f))
+        axis = self.axis
+
+        def shards(v):
+            return _mesh.Sharded(
+                mesh, _mesh.P(axis, *(None,) * (v.dim() - 1)),
+                [v[r * Bp:(r + 1) * Bp] for r in range(n_dev)])
+        return VMResult(
+            mem=_mesh.Sharded(mesh, _mesh.P(axis, None),
+                              [m[:P].view(1, P) for m in memx]),
+            **{f: shards(v) for f, v in full.items()})
+
+    def run_host_loop(self, mesh: "_mesh.Mesh", mem: "_mesh.Sharded",
+                      params, homes, failed, op_sel, arrival) -> VMResult:
+        """The kernel route's plain version: ``shard_map`` over the mesh,
+        each shard stepping its sub-wave against its own row one macro-step
+        at a time, remote traffic on collectives (:meth:`_shard`)."""
         e = self.dense
         for d in set(mesh.flat_devices):     # constant tables, once each
             e._const(d)
@@ -1157,11 +1257,6 @@ class _ShardedEngine:
         pad = op_sel < 0
         sel = op_sel.clamp(0, e.n_ops - 1)
         pc0, end_arr, fuel_arr = start_c[sel], end_c[sel], fuel_c[sel]
-        params = params.reshape(B, -1)
-        regs0 = torch.zeros((B, isa.NUM_REGS), dtype=_I64, device=dev)
-        k = min(int(params.shape[1]), isa.NUM_REGS)
-        if k:
-            regs0[:, :k] = params[:, :k]
 
         memx = private_pool(mem)
         common = dict(base_c=base_c, mask_c=mask_c, n_regions=e.n_regions,
@@ -1220,14 +1315,11 @@ class _ShardedEngine:
 
         zb = torch.zeros(B, dtype=_I64, device=dev)
         s = ReqState(
-            pc=pc0, regs=regs0,
+            pc=pc0,
             lstack=torch.zeros((B, depth, 3), dtype=_I64, device=dev),
             lsp=zb, inflight=zb,
             halted=pad,                       # padding lanes never run
-            ret=zb, status=torch.full((B,), isa.STATUS_FELL_OFF,
-                                      dtype=_I64, device=dev),
-            steps=zb, ctrl=zb, pc_new=zb,
-            fault=torch.as_tensor(NO_FAULT, device=dev).repeat(B, 1))
+            ctrl=zb, pc_new=zb, **_unrun_lanes(params.to(dev), B))
         sweep = n_dev * B > 1 and not e.static_noconflict
         read_t = torch.as_tensor(op_read, dtype=_I64, device=dev)
         write_t = torch.as_tensor(op_write, dtype=_I64, device=dev)
@@ -1271,7 +1363,8 @@ def _build_sharded_engine(codes: Sequence[np.ndarray], fuels: Sequence[int],
                           regions: RegionTable, n_devices: int,
                           batch_per_device: int, axis: str = "pool",
                           protect: bool = True,
-                          static_noconflict: bool = False):
+                          static_noconflict: bool = False,
+                          impl: str = "auto"):
     """Build the mesh-sharded lockstep engine: the pool's leading
     ``n_devices`` axis is sharded over a 1-D device mesh (``shard_map``,
     one host thread per shard), each shard executes the home-bucketed
@@ -1297,26 +1390,42 @@ def _build_sharded_engine(codes: Sequence[np.ndarray], fuels: Sequence[int],
     gathered), ``ret/status/steps`` are ``(n_devices, batch_per_device)``
     and ``regs`` is ``(n_devices, batch_per_device, 16)``, each kept per
     shard.  Lanes with ``op_sel < 0`` are padding (sub-waves are ragged)
-    and start halted."""
+    and start halted.
+
+    Two routes compute that result (``impl``, :func:`sharded_route`).
+    On a mesh whose shards all name one CUDA card, "auto" and "cuda" run
+    the wave as ONE ``lockstep_vm`` launch: the kernel addresses the
+    shards' rows through its row table and runs the live lanes in arrival
+    order, the dense wave the contract names — the counterpart of the
+    reference's one device program per wave (``shard_map`` around a
+    ``lax.while_loop``).  The host loop ("torch", and "auto" on any other
+    mesh) steps the shards in ``shard_map`` one macro-step at a time; it
+    is the kernel route's plain version and the only route of a mesh
+    whose shards span several cards (one launch there would need peer
+    access), where "cuda" raises.  Neither route falls back to the
+    other."""
     return _ShardedEngine(codes, fuels, regions, n_devices,
                           batch_per_device, axis, protect,
-                          static_noconflict)
+                          static_noconflict, impl)
 
 
 def build_sharded_mixed_vm(ops: Sequence[VerifiedOperator],
                            regions: RegionTable, n_devices: int,
                            batch_per_device: int, axis: str = "pool",
                            protect: bool = True,
-                           static_noconflict: bool = False):
+                           static_noconflict: bool = False,
+                           impl: str = "auto"):
     """The pod-scale engine: the pool's leading axis sharded over a 1-D
     device mesh, one home-bucketed sub-wave per shard, cross-shard
-    LOAD/MEMCPY lowered to collectives (see :func:`_build_sharded_engine`
-    for the semantics contract)."""
+    LOAD/MEMCPY lowered to collectives or, on one card, the whole wave
+    one ``lockstep_vm`` launch (see :func:`_build_sharded_engine` for the
+    semantics contract and the routes ``impl`` picks)."""
     return _build_sharded_engine([o.code for o in ops],
                                  [o.step_bound for o in ops],
                                  regions, n_devices, batch_per_device,
                                  axis, protect=protect,
-                                 static_noconflict=static_noconflict)
+                                 static_noconflict=static_noconflict,
+                                 impl=impl)
 
 
 def build_vm(op: VerifiedOperator, regions: RegionTable, n_devices: int,
@@ -1433,12 +1542,13 @@ def _sharded_engine_key(ops: Sequence[VerifiedOperator],
                         batch_per_device: int, axis: str,
                         protect: bool = True,
                         static_noconflict: bool = False,
-                        mesh: Optional["_mesh.Mesh"] = None) -> Tuple:
+                        mesh: Optional["_mesh.Mesh"] = None,
+                        impl: str = "auto") -> Tuple:
     dev_ids = None if mesh is None else tuple(
         str(d) for d in mesh.flat_devices)
     return mixed_engine_key(ops, regions, n_dev, batch_per_device,
                             "sharded", axis, dev_ids, bool(protect),
-                            bool(static_noconflict))
+                            bool(static_noconflict), impl)
 
 
 def sharded_engine_cached(ops: Sequence[VerifiedOperator],
@@ -1447,13 +1557,14 @@ def sharded_engine_cached(ops: Sequence[VerifiedOperator],
                           axis: str = "pool",
                           protect: bool = True,
                           static_noconflict: bool = False,
-                          mesh: Optional["_mesh.Mesh"] = None) -> bool:
+                          mesh: Optional["_mesh.Mesh"] = None,
+                          impl: str = "auto") -> bool:
     """True iff the sharded mesh engine for this (ops, sub-wave size,
-    mesh devices) is already built — the dispatch cost model charges a
-    miss, as the reference charges its compile."""
+    mesh devices, route) is already built — the dispatch cost model
+    charges a miss, as the reference charges its compile."""
     return _sharded_engine_key(ops, regions, n_dev, batch_per_device,
                                axis, protect, static_noconflict,
-                               mesh) in _VM_CACHE
+                               mesh, impl) in _VM_CACHE
 
 
 def _cached_sharded_engine(ops: Sequence[VerifiedOperator],
@@ -1461,14 +1572,16 @@ def _cached_sharded_engine(ops: Sequence[VerifiedOperator],
                            batch_per_device: int, axis: str = "pool",
                            protect: bool = True,
                            static_noconflict: bool = False,
-                           mesh: Optional["_mesh.Mesh"] = None):
+                           mesh: Optional["_mesh.Mesh"] = None,
+                           impl: str = "auto"):
     key = _sharded_engine_key(ops, regions, n_dev, batch_per_device, axis,
-                              protect, static_noconflict, mesh)
+                              protect, static_noconflict, mesh, impl)
     fn = _VM_CACHE.get(key)
     if fn is None:
         fn = build_sharded_mixed_vm(ops, regions, n_dev, batch_per_device,
                                     axis, protect=protect,
-                                    static_noconflict=static_noconflict)
+                                    static_noconflict=static_noconflict,
+                                    impl=impl)
         _VM_CACHE[key] = fn
     return fn
 
@@ -1664,12 +1777,15 @@ def invoke_sharded_mixed(ops: Sequence[VerifiedOperator],
                          axis: str = "pool",
                          protect: bool = True,
                          static_noconflict: bool = False,
-                         mesh: Optional["_mesh.Mesh"] = None
-                         ) -> "BatchedInvokeResult":
+                         mesh: Optional["_mesh.Mesh"] = None,
+                         impl: str = "auto") -> "BatchedInvokeResult":
     """Run a mixed wave on the mesh-sharded engine.
     ``static_noconflict=True`` asserts a registration-time conflict proof;
-    the engine then skips both the per-step footprint all_gather and the
-    sweep.
+    the engine then skips the per-step sweep (and, on the host loop, the
+    footprint all_gather).  ``impl`` picks the route
+    (:func:`sharded_route`): on a mesh whose shards all name one CUDA
+    card the wave is one ``lockstep_vm`` launch and makes no collective;
+    elsewhere "auto" runs the host loop.
 
     ``plan`` is a home-bucketed :class:`~repro_torch.core.compile.MixedPlan`
     (built with ``plan_mixed_batch(op_ids, homes=..., n_devices=...)``):
@@ -1731,7 +1847,7 @@ def invoke_sharded_mixed(ops: Sequence[VerifiedOperator],
     eng = _cached_sharded_engine(tuple(ops), regions, n_dev, Bp, axis,
                                  protect=protect,
                                  static_noconflict=static_noconflict,
-                                 mesh=mesh)
+                                 mesh=mesh, impl=impl)
     mem_sh = _memory.shard_pool(mem, mesh, axis)
     out = eng(mesh, mem_sh, pz, hz, _failed_mask(n_dev, failed), sel, az)
     got = {f: _host(getattr(out, f).full("cpu"))

@@ -1,15 +1,22 @@
 // The lockstep Tiara engine on Hopper (sm_90a): one launch runs a whole
 // wave, from the first macro-step to the last, on the card.
 //
-// Replaces, on the port's main path, the JAX engine's one device program
+// Replaces, on the port's main path, the JAX engines' one device program
 // per wave: the `lax.while_loop` of `src/repro/core/vm.py` (the dense
-// engine's run at :1122, its nested loop pops at :548 and :567), whose
-// MEMCPY is the window form of the Pallas kernel `tiara_gather_kernel`
-// (`src/repro/kernels/tiara_gather/kernel.py:28`).  The port's host loop
-// (`core/vm.py`, `_Engine.run_host_loop`) is its plain version: it ends
-// every macro-step in a host read of a few flags and launches dozens of
-// small kernels a step, `tiara_gather`'s window form among them.  Here no
-// host read happens until the caller retires the wave.
+// engine's run at :1122, its nested loop pops at :548 and :567; the
+// sharded engine's at :1297, inside `shard_map` at :1306 and `jax.jit` at
+// :1314), whose MEMCPY is the window form of the Pallas kernel
+// `tiara_gather_kernel` (`src/repro/kernels/tiara_gather/kernel.py:28`).
+// The sharded wave runs here when every shard's row lies on this card:
+// the kernel addresses the pool through a table of row addresses, so the
+// shards' rows stay separate buffers, and runs the live lanes in arrival
+// order, which is the sharded engine's contract.  The port's host loops
+// (`core/vm.py`, `_Engine.run_host_loop` and
+// `_ShardedEngine.run_host_loop`) are its plain versions: they end every
+// macro-step in a host read of a few flags and launch dozens of small
+// kernels a step, `tiara_gather`'s window form among them (the sharded one
+// also makes its collectives).  Here no host read happens until the
+// caller retires the wave.
 //
 // What bounds it on this card: neither bytes nor operations.  A
 // macro-step is a chain of dependent accesses (the lane's pc, its

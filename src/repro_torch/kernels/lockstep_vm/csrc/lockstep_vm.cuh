@@ -3,7 +3,11 @@
 //
 // `run_wave<Block>` executes one wave of B requests against the shared
 // pool from the first macro-step to the last, exactly as the port's host
-// loop (`core/vm.py`, `_Engine.run_host_loop`) does:
+// loop (`core/vm.py`, `_Engine.run_host_loop`) does.  The pool is n_dev
+// device rows reached through a table of row addresses (H_ROWS): the rows
+// of one flat buffer for the dense engine, one buffer per shard for the
+// sharded engine, whose wave (its lanes in arrival order) is the dense
+// engine's over the same rows:
 //
 //   * every macro-step, each live request executes its current
 //     instruction, and request i observes every memory effect of the
@@ -128,11 +132,16 @@ constexpr int64_t kBig = int64_t(1) << 62;
 // --- one launch's operands ----------------------------------------------
 // The host packs these as one int64 header (kernel.py's HEADER, same
 // order); pointers are device addresses (host addresses in the plain C++
-// build).
+// build).  The pool is addressed only through H_ROWS, a table of n_dev
+// row addresses, one device row of pool_words words each: the rows of one
+// flat buffer (the dense engine's, whose sink word past the last row only
+// its host loop writes) or one buffer per shard (the sharded engine's on
+// one card).  The kernel writes no word outside the rows: a suppressed
+// write is not made.
 enum Hdr : int64_t {
   H_CODE = 0, H_N_INSTR, H_RBASE, H_RMASK, H_N_REGIONS, H_SLOT_START,
   H_SLOT_END, H_SLOT_FUEL, H_N_OPS, H_INPUTS, H_N_PARAMS, H_B, H_N_DEV,
-  H_POOL_WORDS, H_MAX_WINDOW, H_PROTECT, H_SWEEP, H_MEM, H_RET, H_STATUS,
+  H_POOL_WORDS, H_MAX_WINDOW, H_PROTECT, H_SWEEP, H_ROWS, H_RET, H_STATUS,
   H_STEPS, H_REGS, H_FAULT, H_SCRATCH, H_COUNT
 };
 
@@ -145,9 +154,10 @@ enum : int64_t {
 };
 constexpr int64_t kStackWords = 3 * kDepth;
 constexpr int64_t kLaneWords = kCtlWords + kRegs + kStackWords;
-// a queued window copy: source row start, masked source offset, source
-// mask, destination row start, masked destination offset, destination
-// mask, words, its first copy unit
+// a queued window copy: the address of the source region's first word,
+// masked source offset, source mask, the address of the destination
+// region's first word, masked destination offset, destination mask,
+// words, its first copy unit
 enum : int64_t {
   C_SROW = 0, C_SOFF, C_SMASK, C_DROW, C_DOFF, C_DMASK, C_LEN, C_UNIT0,
   kDescWords
@@ -208,7 +218,7 @@ struct Wave {
   int64_t max_window;
   int64_t protect;
   int64_t sweep;
-  int64_t* mem;            // n_dev * pool_words words, then the sink word
+  int64_t* const* rows;    // (n_dev,) row addresses, pool_words words each
   int64_t* ret;            // (B,)
   int64_t* status;         // (B,)
   int64_t* steps;          // (B,)
@@ -242,7 +252,7 @@ inline Wave unpack(const int64_t* h) {
   w.max_window = h[H_MAX_WINDOW];
   w.protect = h[H_PROTECT];
   w.sweep = h[H_SWEEP];
-  w.mem = reinterpret_cast<int64_t*>(h[H_MEM]);
+  w.rows = reinterpret_cast<int64_t* const*>(h[H_ROWS]);
   w.ret = reinterpret_cast<int64_t*>(h[H_RET]);
   w.status = reinterpret_cast<int64_t*>(h[H_STATUS]);
   w.steps = reinterpret_cast<int64_t*>(h[H_STEPS]);
@@ -293,7 +303,7 @@ struct Plan {
   int64_t words;           // shared words the plan uses
   int64_t ring;            // bulk copy ring slots (0: no bulk copies)
   int64_t stage;           // the serial warp's staging window
-  int64_t code, tabs;      // instruction store; rbase, rmask, failed
+  int64_t code, tabs;      // instruction store; rbase, rmask, failed, rows
   int64_t part[kParts];
   int64_t ring_at;
 };
@@ -314,7 +324,7 @@ inline Plan make_plan(const Wave& w, int64_t nt, int64_t ws,
   p.stage = take(w.max_window);
   const bool sorted = w.sweep && !small_wave(w.B, nt, ws);
   p.code = take(w.n_instr * kInstrWidth);
-  p.tabs = take(2 * w.n_regions + w.n_dev);
+  p.tabs = take(2 * w.n_regions + 2 * w.n_dev);
   p.part[P_CTL] = take(part_words(P_CTL, w.B));
   p.part[P_FOOT] = take(part_words(P_FOOT, w.B));
   if (sorted) {
@@ -352,6 +362,7 @@ struct View {
   const int64_t* rbase;
   const int64_t* rmask;
   const int64_t* failed;
+  int64_t* const* rows;    // (n_dev,) the pool's row addresses
   int64_t* ctl;            // (kCtlWords, B)
   int64_t* regs;           // (16, B)
   int64_t* stack;          // (3 * kDepth, B)
@@ -381,6 +392,9 @@ LSVM_FN View view_of(const Wave& w, const Plan& p, int64_t* smem,
   v.rbase = p.tabs >= 0 ? smem + p.tabs : w.rbase;
   v.rmask = p.tabs >= 0 ? smem + p.tabs + w.n_regions : w.rmask;
   v.failed = p.tabs >= 0 ? smem + p.tabs + 2 * w.n_regions : w.failed;
+  v.rows = p.tabs >= 0 ? reinterpret_cast<int64_t* const*>(
+                             smem + p.tabs + 2 * w.n_regions + w.n_dev)
+                       : w.rows;
   v.ctl = base[P_CTL];
   v.regs = base[P_REGS];
   v.stack = base[P_STACK];
@@ -429,6 +443,14 @@ LSVM_FN int64_t pymod(int64_t a, int64_t n) {
   if (static_cast<uint64_t>(a) < static_cast<uint64_t>(n)) return a;
   const int64_t r = a % n;
   return r < 0 ? r + n : r;
+}
+
+// a queued window's region start, kept as a word of its descriptor
+LSVM_FN int64_t addr_word(const int64_t* p) {
+  return static_cast<int64_t>(reinterpret_cast<uintptr_t>(p));
+}
+LSVM_FN int64_t* word_addr(int64_t a) {
+  return reinterpret_cast<int64_t*>(static_cast<uintptr_t>(a));
 }
 
 // the 16-entry ALU table of vm.py's `_alu_table`, indexed by the clamped
@@ -563,7 +585,9 @@ LSVM_FN void decode(const Wave& w, const View& v, int64_t b, Dec& d) {
 // --- footprints (vm.py's `lane_intervals`), flat dev * P + addr words -----
 // iv: read window [iv[0], iv[1]), write window [iv[2], iv[3]); an empty
 // window is [kBig, -kBig).  Every opcode's windows are computed and the
-// lane's selected (no divergence between lanes).
+// lane's selected (no divergence between lanes).  The footprints are only
+// compared, never dereferenced, so they keep the flat coordinates whatever
+// the rows' addresses.
 LSVM_FN void intervals(const Wave& w, const Dec& d, int64_t* iv) {
   const int64_t P = w.pool_words;
   const bool is_load = d.op == OP_LOAD;
@@ -626,8 +650,8 @@ LSVM_FN void execute(const Wave& w, const View& v, int64_t b, const Dec& d,
   // LOAD / CAS / CAA read the word (vm.py's `_DenseOps.readv` clamps)
   int64_t w_old = 0;
   if (is_load || is_atom) {
-    w_old = w.mem[clampi(d.w_dev, 0, w.n_dev - 1) * P +
-                  clampi(d.w_addr, 0, P - 1)];
+    w_old = v.rows[clampi(d.w_dev, 0, w.n_dev - 1)][clampi(d.w_addr, 0,
+                                                            P - 1)];
   }
   // the register write channel
   const int64_t alu_v = alu(d.df, d.rA, (flags & FLAG_IMMB) ? d.imm : d.rB);
@@ -643,21 +667,23 @@ LSVM_FN void execute(const Wave& w, const View& v, int64_t b, const Dec& d,
   const int64_t wval = is_store ? d.rDST
                                 : (hit ? (is_cas ? d.rD : wadd(w_old, d.rD))
                                        : w_old);
-  const int64_t at = wadd(wmul(d.w_dev, P), d.w_addr);
-  if ((is_store || is_atom) && !flt && at >= 0 && at < w.n_dev * P) {
-    w.mem[at] = wval;
+  // (a word outside the pool's rows, from a home past the last device, is
+  // never written)
+  if ((is_store || is_atom) && !flt && d.w_dev >= 0 && d.w_dev < w.n_dev &&
+      d.w_addr >= 0 && d.w_addr < P) {
+    v.rows[d.w_dev][d.w_addr] = wval;
   }
   // MEMCPY: the window (words past max_window are never copied; a
-  // destination row outside the pool, from a home past the last device,
-  // is never written)
+  // destination region outside the pool's rows is never written)
   const int64_t n = imin(d.ln, w.max_window);
-  const int64_t drow = wadd(wmul(d.m_ddev, P), d.m_dbase);
-  const bool copies = is_mcpy && !flt && n > 0 && drow >= 0 &&
-                      drow + d.m_dmask < w.n_dev * P;
-  cp[C_SROW] = clampi(d.m_sdev, 0, w.n_dev - 1) * P + d.m_sbase;
+  const bool dst_in = d.m_ddev >= 0 && d.m_ddev < w.n_dev &&
+                      d.m_dbase >= 0 && d.m_dbase + d.m_dmask < P;
+  const bool copies = is_mcpy && !flt && n > 0 && dst_in;
+  cp[C_SROW] = addr_word(v.rows[clampi(d.m_sdev, 0, w.n_dev - 1)] +
+                         d.m_sbase);
   cp[C_SOFF] = d.m_soff & d.m_smask;
   cp[C_SMASK] = d.m_smask;
-  cp[C_DROW] = drow;
+  cp[C_DROW] = dst_in ? addr_word(v.rows[d.m_ddev] + d.m_dbase) : 0;
   cp[C_DOFF] = d.m_doff & d.m_dmask;
   cp[C_DMASK] = d.m_dmask;
   cp[C_LEN] = copies ? n : 0;
@@ -754,13 +780,15 @@ LSVM_FN bool wraps(const int64_t* cp) {
 
 // Copy words [w0, w1) of one window with the `g` threads of a group, this
 // thread being `t` of them: the source and destination do not overlap.
-LSVM_FN void copy_range(int64_t* mem, const int64_t* cp, int64_t w0,
-                        int64_t w1, int64_t t, int64_t g) {
+LSVM_FN void copy_range(const int64_t* cp, int64_t w0, int64_t w1,
+                        int64_t t, int64_t g) {
   const int64_t soff = cp[C_SOFF], smask = cp[C_SMASK];
   const int64_t doff = cp[C_DOFF], dmask = cp[C_DMASK];
+  const int64_t* srow = word_addr(cp[C_SROW]);
+  int64_t* drow = word_addr(cp[C_DROW]);
   if (!wraps(cp)) {
-    const int64_t* src = mem + cp[C_SROW] + soff + w0;
-    int64_t* dst = mem + cp[C_DROW] + doff + w0;
+    const int64_t* src = srow + soff + w0;
+    int64_t* dst = drow + doff + w0;
     const int64_t n = w1 - w0;
     // one word first where both windows start 8 bytes past a 16-byte
     // boundary, then 16-byte vectors, then the last word
@@ -788,9 +816,8 @@ LSVM_FN void copy_range(int64_t* mem, const int64_t* cp, int64_t w0,
     }
   } else {
     // a window that wraps its region, word by word
-    const int64_t srow = cp[C_SROW], drow = cp[C_DROW];
     for (int64_t i = w0 + t; i < w1; i += g) {
-      mem[drow + ((doff + i) & dmask)] = mem[srow + ((soff + i) & smask)];
+      drow[(doff + i) & dmask] = srow[(soff + i) & smask];
     }
   }
 }
@@ -812,18 +839,20 @@ LSVM_FN const int64_t* find_unit(const View& v, bool bulk, int64_t count,
 
 // (c): a free lane's short window, copied by its owner at once; every
 // load issued together, masked past the window's end
-LSVM_FN void copy_inline(int64_t* mem, const int64_t* cp) {
+LSVM_FN void copy_inline(const int64_t* cp) {
   const int64_t n = cp[C_LEN];
-  const int64_t srow = cp[C_SROW], soff = cp[C_SOFF], smask = cp[C_SMASK];
-  const int64_t drow = cp[C_DROW], doff = cp[C_DOFF], dmask = cp[C_DMASK];
+  const int64_t* srow = word_addr(cp[C_SROW]);
+  int64_t* drow = word_addr(cp[C_DROW]);
+  const int64_t soff = cp[C_SOFF], smask = cp[C_SMASK];
+  const int64_t doff = cp[C_DOFF], dmask = cp[C_DMASK];
   int64_t word[kInlineWords];
   LSVM_UNROLL
   for (int i = 0; i < kInlineWords; ++i) {
-    if (i < n) word[i] = mem[srow + ((soff + i) & smask)];
+    if (i < n) word[i] = srow[(soff + i) & smask];
   }
   LSVM_UNROLL
   for (int i = 0; i < kInlineWords; ++i) {
-    if (i < n) mem[drow + ((doff + i) & dmask)] = word[i];
+    if (i < n) drow[(doff + i) & dmask] = word[i];
   }
 }
 
@@ -833,16 +862,16 @@ LSVM_FN void copy_inline(int64_t* mem, const int64_t* cp) {
 // serialize).  Every thread of the warp calls it; `cp[C_LEN]` is 0 for a
 // thread with nothing to queue.
 template <class Block>
-LSVM_FN void enqueue(Block& k, const View& v, uint64_t* S, int64_t* mem,
+LSVM_FN void enqueue(Block& k, const View& v, uint64_t* S,
                      const int64_t* cp) {
   const int64_t n = cp[C_LEN];
   const bool want = n > kInlineWords;
   if (!k.warp_or(want)) return;
   const int last = static_cast<int>(k.warp_size()) - 1;
   const uintptr_t s = reinterpret_cast<uintptr_t>(
-      mem + cp[C_SROW] + cp[C_SOFF]);
+      word_addr(cp[C_SROW]) + cp[C_SOFF]);
   const uintptr_t d = reinterpret_cast<uintptr_t>(
-      mem + cp[C_DROW] + cp[C_DOFF]);
+      word_addr(cp[C_DROW]) + cp[C_DOFF]);
   const bool bulk = want && v.ring_slots >= 2 && n >= kBulkMinWords &&
                     !wraps(cp) && ((s ^ d) & 15) == 0;
   // (count << 32) | units, in each queue
@@ -874,8 +903,8 @@ LSVM_FN void enqueue(Block& k, const View& v, uint64_t* S, int64_t* mem,
 // slot's mbarrier) and stored from it; a unit's unaligned first and last
 // words are copied by the thread itself.
 template <class Block>
-LSVM_FN void produce(Block& k, const View& v, uint64_t* S, int64_t* mem,
-                     int64_t nb, int64_t nbu) {
+LSVM_FN void produce(Block& k, const View& v, uint64_t* S, int64_t nb,
+                     int64_t nbu) {
   uint64_t* M = v.misc;
   int64_t* rdst = reinterpret_cast<int64_t*>(M + M_RDST);
   int64_t* rbytes = reinterpret_cast<int64_t*>(M + M_RBYTES);
@@ -888,8 +917,8 @@ LSVM_FN void produce(Block& k, const View& v, uint64_t* S, int64_t* mem,
       const int64_t* cp = find_unit(v, true, nb, u);
       int64_t w0 = (u - cp[C_UNIT0]) * kUnitWords;
       int64_t w1 = imin(w0 + kUnitWords, cp[C_LEN]);
-      const int64_t* src = mem + cp[C_SROW] + cp[C_SOFF];
-      int64_t* dst = mem + cp[C_DROW] + cp[C_DOFF];
+      const int64_t* src = word_addr(cp[C_SROW]) + cp[C_SOFF];
+      int64_t* dst = word_addr(cp[C_DROW]) + cp[C_DOFF];
       if (reinterpret_cast<uintptr_t>(src + w0) & 15) {
         dst[w0] = src[w0];
         ++w0;
@@ -924,8 +953,8 @@ LSVM_FN void produce(Block& k, const View& v, uint64_t* S, int64_t* mem,
 // (d): a warp's share: units claimed one at a time, the other windows'
 // first, then the bulk windows' that the producer has not taken
 template <class Block>
-LSVM_FN void copy_units(Block& k, const View& v, uint64_t* S, int64_t* mem,
-                        int64_t nb, int64_t nbu, int64_t nv, int64_t nvu) {
+LSVM_FN void copy_units(Block& k, const View& v, uint64_t* S, int64_t nb,
+                        int64_t nbu, int64_t nv, int64_t nvu) {
   const int64_t lane = k.tid() % k.ws();
   const int64_t g = k.warp_size();
   for (;;) {
@@ -943,7 +972,7 @@ LSVM_FN void copy_units(Block& k, const View& v, uint64_t* S, int64_t* mem,
     const int64_t uu = bulk ? u - nvu : u;
     const int64_t* cp = find_unit(v, bulk, bulk ? nb : nv, uu);
     const int64_t w0 = (uu - cp[C_UNIT0]) * kUnitWords;
-    copy_range(mem, cp, w0, imin(w0 + kUnitWords, cp[C_LEN]), lane, g);
+    copy_range(cp, w0, imin(w0 + kUnitWords, cp[C_LEN]), lane, g);
   }
 }
 
@@ -972,16 +1001,16 @@ LSVM_FN void replay(Block& k, const Wave& w, const View& v) {
       const int64_t n = sd[C_LEN];
       if (n > 0) {
         // the whole source window first, then the destination: memmove
-        const int64_t srow = sd[C_SROW], soff = sd[C_SOFF],
-                      smask = sd[C_SMASK];
-        const int64_t drow = sd[C_DROW], doff = sd[C_DOFF],
-                      dmask = sd[C_DMASK];
+        const int64_t* srow = word_addr(sd[C_SROW]);
+        int64_t* drow = word_addr(sd[C_DROW]);
+        const int64_t soff = sd[C_SOFF], smask = sd[C_SMASK];
+        const int64_t doff = sd[C_DOFF], dmask = sd[C_DMASK];
         for (int64_t j = lane; j < n; j += g) {
-          v.stage[j] = w.mem[srow + ((soff + j) & smask)];
+          v.stage[j] = srow[(soff + j) & smask];
         }
         k.warp_sync();
         for (int64_t j = lane; j < n; j += g) {
-          w.mem[drow + ((doff + j) & dmask)] = v.stage[j];
+          drow[(doff + j) & dmask] = v.stage[j];
         }
       }
       k.warp_sync();
@@ -1334,7 +1363,7 @@ LSVM_FN void help_wave(const Wave& w, const Plan& plan, Block& k) {
     const int64_t nbu = static_cast<int64_t>(qb & 0xffffffffu);
     const int64_t nvu = static_cast<int64_t>(qv & 0xffffffffu);
     if (nbu + nvu > 0) {
-      copy_units(k, v, S, w.mem, static_cast<int64_t>(qb >> 32), nbu,
+      copy_units(k, v, S, static_cast<int64_t>(qb >> 32), nbu,
                  static_cast<int64_t>(qv >> 32), nvu);
     }
     k.cluster_sync();
@@ -1375,6 +1404,8 @@ LSVM_FN void run_wave(const Wave& w, const Plan& plan, Block& k,
     }
     for (int64_t i = tid; i < w.n_dev; i += nt) {
       smem[plan.tabs + 2 * w.n_regions + i] = w.failed[i];
+      smem[plan.tabs + 2 * w.n_regions + w.n_dev + i] =
+          addr_word(w.rows[i]);
     }
   }
   if (tid == 0) {
@@ -1497,10 +1528,10 @@ LSVM_FN void run_wave(const Wave& w, const Plan& plan, Block& k,
           else decode(w, v, b, d);
           execute(w, v, b, d, cp);
           if (cp[C_LEN] > 0 && cp[C_LEN] <= kInlineWords) {
-            copy_inline(w.mem, cp);
+            copy_inline(cp);
           }
         }
-        enqueue(k, v, S, w.mem, cp);
+        enqueue(k, v, S, cp);
       }
       const uint64_t m = k.warp_or(mine);
       if (m && lane == 0) k.fetch_or(S + M_FLAGS, m);
@@ -1540,10 +1571,10 @@ LSVM_FN void run_wave(const Wave& w, const Plan& plan, Block& k,
     }
     LSVM_LAP(K_E);
     if (nbu > 0 && warp == nwarps - 1) {
-      if (lane == 0) produce(k, v, S, w.mem, nb, nbu);
+      if (lane == 0) produce(k, v, S, nb, nbu);
       k.warp_sync();
     }
-    if (nbu + nvu > 0) copy_units(k, v, S, w.mem, nb, nbu, nvq, nvu);
+    if (nbu + nvu > 0) copy_units(k, v, S, nb, nbu, nvq, nvu);
     if (cluster) k.cluster_sync();
     else k.sync();
     LSVM_LAP(K_D);

@@ -1184,8 +1184,9 @@ def test_cuda_init_params_defaults_to_the_card(cuda_device):
 def test_cuda_sharded_wave_matches_cpu(cuda_device):
     """A contended mixed wave with cross-home MEMCPYs on 4 shards of one
     card: the same pool, rets, statuses, steps and registers as the same
-    wave on 4 CPU shards, with ``tiara_gather`` launched on the shards'
-    window reads."""
+    wave on 4 CPU shards (the host loop), the card's wave as one
+    ``lockstep_vm`` launch over the shards' rows, its window copies inside
+    the wave (no ``tiara_gather`` launch)."""
     from repro_torch.core.endpoint import TiaraEndpoint
     from repro_torch.core.program import OperatorBuilder
     from repro_torch.distributed.mesh import Sharded, make_device_mesh
@@ -1229,13 +1230,14 @@ def test_cuda_sharded_wave_matches_cpu(cuda_device):
         kernels.reset_launch_counts()
         ep.doorbell(placement="sharded")
         assert isinstance(ep._dev_mem, Sharded)
-        launches = kernels.launch_counts()["tiara_gather"]
+        counts = kernels.launch_counts()
+        launches = (counts["lockstep_vm"], counts["tiara_gather"])
         results[str(dev)] = (ep._host_view().copy(),
                              [(c.ret, c.status, c.steps, tuple(c.regs))
                               for c in cs], launches)
     cpu, card = results["cpu"], results[str(cuda_device)]
     assert np.array_equal(cpu[0], card[0]) and cpu[1] == card[1]
-    assert cpu[2] == 0 and card[2] >= 4
+    assert cpu[2] == (0, 0) and card[2] == (1, 0)
 
 
 @pytest.mark.gpu

@@ -6,15 +6,20 @@ seeded cases of ``test_torch_vm.py`` (its helpers, imported inside the
 tests so this file imports no JAX when the card half runs), and the
 kernel's own wave algorithm (``csrc/lockstep_vm.cuh``) compiled as host
 C++ (``tests/lockstep_vm_host.cpp``, host threads for the block's) and
-held to the host loop on a seeded corpus at small sizes.
+held to the host loop on a seeded corpus at small sizes.  The sharded
+engine's kernel route runs the same host build on one row buffer per
+shard, held to the sharded host loop and to the JAX package's dense
+mixed engine over the arrival-order wave (``test_torch_sharded.py``'s
+deployment, imported inside the tests).
 
 On the card (``gpu`` marker, skipped here):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_lockstep_vm.py
 
 the kernel bit for bit against the host loop over the corpus of
-``core/lockstep_corpus.py`` at small sizes, and one launch per wave with
-no ``tiara_gather`` launch.
+``core/lockstep_corpus.py`` at small sizes, one launch per wave with no
+``tiara_gather`` launch, and a sharded wave on a mesh of one card as one
+launch equal to the sharded host loop.
 """
 
 import ctypes
@@ -103,6 +108,13 @@ def test_header_order_matches_the_kernel_source():
     clocks = re.search(r"K_A = 0, (.*?),\s*kClockWords", src, re.S)
     assert len(clocks.group(1).split(",")) + 1 == len(lk.CLOCK_WORDS)
     assert f"kMaxThreads = {lk.MAX_THREADS};" in src
+    # the pool is reached only through the row table: no flat pool pointer
+    # and no dev * P + addr index anywhere in the code
+    assert "rows" in lk.HEADER and "mem" not in lk.HEADER
+    code = re.sub(r"//[^\n]*", "", src)
+    assert re.search(r"int64_t\* const\* rows;", code)
+    assert not re.search(r"\bmem\b", code)
+    assert not re.search(r"\[[^\]]*\* P \+", code)
 
 
 def test_packing_round_trips_the_program_statics():
@@ -136,10 +148,21 @@ def test_packing_round_trips_the_program_statics():
     assert np.array_equal(inputs[:9 * k].reshape(9, k), w.params[:, :k])
     assert np.array_equal(inputs[9 * k:9 * k + 9], w.op_sel)
     assert np.array_equal(inputs[9 * k + 9:9 * k + 18], w.homes)
-    assert np.array_equal(inputs[9 * k + 18:], w.failed.astype(np.int64))
-    assert hdr["mem"] == ops["mem"].data_ptr()
-    assert ops["mem"].numel() == w.mem.size + 1
-    assert torch.equal(ops["mem"][:-1].view(w.mem.shape), mem)
+    n_dev, P = w.mem.shape
+    assert np.array_equal(inputs[9 * k + 18:9 * k + 18 + n_dev],
+                          w.failed.astype(np.int64))
+    # the row table: the engine's private flat copy, row d at d * P, its
+    # sink word past the last row; the header points at the table
+    rows = ops["rows"]
+    flat = rows[0].data_ptr()
+    assert [r.data_ptr() for r in rows] == [flat + 8 * d * P
+                                            for d in range(n_dev)]
+    assert flat != mem.data_ptr()
+    assert rows[0].untyped_storage().nbytes() == 8 * (w.mem.size + 1)
+    assert inputs[9 * k + 18 + n_dev:].tolist() == [r.data_ptr()
+                                                    for r in rows]
+    assert hdr["rows"] == ops["inputs"].data_ptr() + 8 * (9 * k + 18 + n_dev)
+    assert torch.equal(torch.stack(rows), mem)
     for f in FIELDS:
         assert hdr[f] == getattr(out, f).data_ptr()
     assert hdr["scratch"] == scratch.data_ptr()
@@ -252,8 +275,22 @@ class HostKernel:
             smem_words, int(keep),
             None if clocks is None else clocks.ctypes.data, cluster)
         assert rc == 0
-        return vm.VMResult(mem=ops["mem"][:-1].view(mem.shape),
-                           **out._asdict())
+        return vm.VMResult(mem=torch.stack(ops["rows"]), **out._asdict())
+
+    def launcher(self, launched, threads=64):
+        """A stand-in for ``lockstep_vm_kernel``: the host build run on the
+        operands as the card's wrapper packs them (CPU tensors), each
+        launch's operands appended to ``launched``."""
+        def launch(**operands):
+            out, scratch = lk.alloc(operands["B"], operands["inputs"].device)
+            hdr = lk.pack(out=out, scratch=scratch, **operands)
+            rc = self.lib.lockstep_vm_host_run(
+                hdr.ctypes.data, hdr.size, threads, BLOCKS[threads],
+                CARD_SMEM_WORDS, 0, None, 0)
+            assert rc == 0
+            launched.append(operands)
+            return out
+        return launch
 
     def sweep(self, iv, threads, ws, sorted_):
         iv = np.ascontiguousarray(iv, dtype=np.int64)
@@ -475,6 +512,177 @@ def test_sorted_sweep_contains_the_pairwise_set_on_the_corpus(
 
 
 # ---------------------------------------------------------------------------
+# CPU: the sharded engine's kernel route, one row buffer a shard
+# ---------------------------------------------------------------------------
+
+SHARDED_WAVES = ("acceptance", "contended", "memcpy", "failed")
+
+
+@pytest.fixture(scope="module")
+def sharded_pair():
+    """test_torch_sharded's deployment on both packages: 4 tenants of
+    latch/data/reply (1024 reply words) over 4 homes, every acceptance
+    operator registered (plus rmw and the yardstick's nop)."""
+    import test_torch_sharded as ts
+    return ts, ts._connect(n_tenants=4, reply_words=1024)
+
+
+def _sharded_wave(ts, pair, name, seed=3):
+    """A wave of posts over ``ts.N_DEV`` homes: ``acceptance`` the
+    reference's acceptance mix (tests/test_sharded.py) cut to 32 posts,
+    ``contended`` CAS, STORE and store-then-load on shared latches from
+    every home, ``memcpy`` MEMCPYs from every device into every home,
+    ``failed`` the acceptance mix with the last device failed.  Returns
+    (op ids, params, homes, failed devices)."""
+    rng = np.random.default_rng(seed)
+    n = ts.N_DEV
+    posts = []
+    for i in range(32 if name in ("acceptance", "failed") else 16):
+        s = pair.sessions[i % 4]
+        home = int(rng.integers(0, n))
+        if name == "contended":
+            posts.append((s, ("rcas", "store_latch", "rmw")[i % 3],
+                          ([1000 + i, 0], [2000 + i], [3000 + i, 1])[i % 3],
+                          home))
+        elif name == "memcpy":
+            posts.append((s, "rcpy", [int(rng.integers(0, 60)),
+                                      512 + 4 * i, (3 * i + 1) % n],
+                          i % n))
+        else:
+            kind = i % 8
+            if kind < 3:
+                posts.append((s, "sum2", [int(rng.integers(0, 60)), i], home))
+            elif kind < 5:
+                posts.append((s, "rcpy", [int(rng.integers(0, 60)),
+                                          512 + 4 * i,
+                                          int(rng.integers(0, n))], home))
+            elif kind == 5:
+                posts.append((s, "cas_latch", [10_000 + i], home))
+            elif kind == 6:
+                posts.append((s, "store_latch", [20_000 + i], home))
+            else:
+                posts.append((s, "rcas", [30_000 + i,
+                                          int(rng.integers(0, n))], home))
+    failed = {n - 1} if name == "failed" else None
+    return ([s.op_id(op) for s, op, _, _ in posts],
+            [p for _, _, p, _ in posts], [h for _, _, _, h in posts], failed)
+
+
+def _spy_sharded_routes(monkeypatch):
+    """Keep each sharded engine route's device-major result."""
+    seen = {}
+    for name in ("run_kernel", "run_host_loop"):
+        orig = getattr(vm._ShardedEngine, name)
+
+        def spy(self, *a, _orig=orig, _name=name):
+            seen[_name] = _orig(self, *a)
+            return seen[_name]
+        monkeypatch.setattr(vm._ShardedEngine, name, spy)
+    return seen
+
+
+@pytest.mark.parametrize("name", SHARDED_WAVES)
+def test_kernel_source_runs_the_sharded_wave_on_row_buffers(
+        host_kernel, sharded_pair, monkeypatch, name):
+    """The sharded engine's kernel route with the host build as its
+    launch: one launch over one private row buffer per shard, no
+    collective; bit for bit the sharded host loop's result, device-major
+    (pool rows, ret, status, steps, registers and fault rows, padding
+    lanes included), and the JAX package's dense mixed engine's over the
+    arrival-order wave on the same pool (the reference's mixed engines
+    count a fault's pc in the merged store, the port from the operator's
+    entry)."""
+    from repro.core import vm as jvm
+    from repro_torch.core import compile as tc
+    ts, pair = sharded_pair
+    ep = pair.ep
+    ids, params, homes, failed = _sharded_wave(ts, pair, name)
+    pool = ep.host_mem().copy()
+    vops, rt = ep.registry.store_ops(), ep.regions
+    plan = tc.plan_mixed_batch(ids, homes=homes, n_devices=ts.N_DEV)
+    mesh = ts._mesh()
+    seen = _spy_sharded_routes(monkeypatch)
+    want = vm.invoke_sharded_mixed(vops, rt, pool, plan, params,
+                                   failed=failed, mesh=mesh, impl="torch")
+    assert sum(mesh.collective_counts().values()) > 0
+    launched = []
+    monkeypatch.setattr(vm, "sharded_route", lambda impl, mesh: "cuda")
+    monkeypatch.setattr(vm, "lockstep_vm_kernel",
+                        host_kernel.launcher(launched))
+    mesh.reset_stats()
+    got = vm.invoke_sharded_mixed(vops, rt, pool, plan, params,
+                                  failed=failed, mesh=mesh)
+    assert len(launched) == 1 and mesh.collective_counts() == {}
+    ops = launched[0]
+    assert ops["B"] == len(ids) and ops["n_dev"] == ts.N_DEV
+    assert len({r.untyped_storage().data_ptr() for r in ops["rows"]}) \
+        == ts.N_DEV
+    for f in vm.VMResult._fields:
+        assert torch.equal(getattr(seen["run_kernel"], f).full(),
+                           getattr(seen["run_host_loop"], f).full()), f
+    assert not np.array_equal(got.mem.full().numpy(), pool)
+    assert np.array_equal(got.mem.full().numpy(), want.mem.full().numpy())
+    for f in ("ret", "status", "steps", "regs", "fault"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    # the JAX dense mixed engine over the arrival-order wave, padded with
+    # memoryless lanes as test_torch_sharded's yardstick pads it
+    pad = -len(ids) % ts.YARD_PAD
+    jp = [list(p) + [0] * (ts.YARD_PARAMS - len(p)) for p in params]
+    j = jvm.invoke_batched_mixed(
+        pair.jep.registry.store_ops(), pair.jep.regions, pool,
+        ids + [pair.sessions[0].op_id("nop")] * pad,
+        jp + [[0] * ts.YARD_PARAMS] * pad, homes=homes + [0] * pad,
+        failed=failed)
+    B = len(ids)
+    assert np.array_equal(np.asarray(j.mem), got.mem.full().numpy())
+    for f in ("ret", "status", "steps", "regs"):
+        assert np.array_equal(np.asarray(getattr(j, f))[:B],
+                              getattr(got, f)), f
+    fault = np.array(j.fault)[:B]
+    entry = pair.jep.registry.dispatch_table()[ids]
+    fault[:, 0] = np.where(fault[:, 0] >= 0, fault[:, 0] - entry, -1)
+    assert np.array_equal(fault, got.fault)
+    if name == "failed":
+        assert (got.fault[:, 0] >= 0).any()
+        assert (got.fault[got.fault[:, 0] >= 0, 3] == ts.N_DEV - 1).all()
+
+
+def test_kernel_source_rows_of_one_flat_buffer(host_kernel, sharded_pair,
+                                               monkeypatch):
+    """The dense route, its rows laid out in one flat buffer at d * P,
+    runs the acceptance wave in arrival order on the host build equal to
+    its host loop and to the sharded kernel route over one buffer a
+    shard (the same lanes, rows and results, only the rows' addresses
+    differ)."""
+    from repro_torch.core import compile as tc
+    ts, pair = sharded_pair
+    ep = pair.ep
+    ids, params, homes, _ = _sharded_wave(ts, pair, "acceptance")
+    pool = torch.from_numpy(ep.host_mem().copy())
+    vops = ep.registry.store_ops()
+    p, h = vm._marshal_batch(params, homes)
+    eng = vm.build_mixed_batched_vm(vops, ep.regions, ts.N_DEV, len(ids))
+    args = (p, h, np.zeros(ts.N_DEV, bool), np.asarray(ids))
+    flat = host_kernel(eng, pool, args, 64, keep=False)
+    ops, _, _, _ = host_kernel.header(eng, pool, args)
+    P = pool.shape[1]
+    assert [r.data_ptr() for r in ops["rows"]] == [
+        ops["rows"][0].data_ptr() + 8 * d * P for d in range(ts.N_DEV)]
+    assert_same_wave(flat, eng.run_host_loop(pool, *args), "flat rows")
+    launched = []
+    monkeypatch.setattr(vm, "sharded_route", lambda impl, mesh: "cuda")
+    monkeypatch.setattr(vm, "lockstep_vm_kernel",
+                        host_kernel.launcher(launched))
+    got = vm.invoke_sharded_mixed(
+        vops, ep.regions, pool.numpy(),
+        tc.plan_mixed_batch(ids, homes=homes, n_devices=ts.N_DEV), params,
+        mesh=ts._mesh())
+    assert torch.equal(got.mem.full(), flat.mem)
+    for f in FIELDS:
+        assert np.array_equal(getattr(got, f), getattr(flat, f).numpy()), f
+
+
+# ---------------------------------------------------------------------------
 # the card
 # ---------------------------------------------------------------------------
 
@@ -528,6 +736,39 @@ def test_cuda_wave_is_one_launch(cuda_device):
     assert_same_wave(got, eng.run_host_loop(mem, *w.args()), w.name)
     with pytest.raises(ValueError, match="impl='torch'"):
         w.engine(impl="torch")(mem, *w.args())
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_wave_is_one_launch(cuda_device):
+    """The mixed stock wave (contended lock lanes, remote replies) over a
+    mesh of 2 shards of the card: "auto" runs it as one lockstep_vm
+    launch, no tiara_gather launch and no collective, equal to the
+    sharded host loop ("torch") bit for bit; "cuda" on a mesh of CPU
+    shards raises."""
+    from repro_torch.core import compile as tc
+    from repro_torch.distributed.mesh import make_device_mesh
+    w = corpus.mixed_stock_wave(64)
+    plan = tc.plan_mixed_batch(w.op_sel, homes=w.homes, n_devices=w.n_dev)
+    mesh = make_device_mesh(w.n_dev, devices=[cuda_device] * w.n_dev)
+    pool = torch.from_numpy(w.mem.copy()).to(cuda_device)
+    run = dict(mesh=mesh, failed={1})
+    want = vm.invoke_sharded_mixed(w.ops, w.regions, pool, plan,
+                                   w.params.tolist(), impl="torch", **run)
+    kernels.reset_launch_counts()
+    mesh.reset_stats()
+    got = vm.invoke_sharded_mixed(w.ops, w.regions, pool, plan,
+                                  w.params.tolist(), **run)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["lockstep_vm"] == 1 and counts["tiara_gather"] == 0
+    assert mesh.collective_counts() == {}
+    assert torch.equal(got.mem.full(), want.mem.full())
+    for f in FIELDS:
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    cpu = make_device_mesh(w.n_dev, devices=["cpu"] * w.n_dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        vm.invoke_sharded_mixed(w.ops, w.regions, w.mem, plan,
+                                w.params.tolist(), mesh=cpu, impl="cuda")
 
 
 @pytest.mark.gpu

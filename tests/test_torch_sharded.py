@@ -15,6 +15,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import compile as jcompile
 from repro.core import memory as jmemory
@@ -507,3 +508,70 @@ def test_sharded_4tenant_b1024_bit_identical():
     assert counts["all-gather"] > 0 and counts["all-reduce"] > 0
     # the wave moved data across shards: the cross-home MEMCPYs
     assert mesh.collective_bytes()["all-reduce"] > 0
+
+
+def test_sharded_engine_routes_by_impl_and_mesh(monkeypatch):
+    """``impl`` on the sharded engine: "auto" on a mesh of CPU shards runs
+    the host loop (its collectives counted, the kernel route never
+    taken), as "torch" does; "cuda" raises there, and on a mesh whose
+    shards span two cards (one launch would need peer access), where
+    "auto" keeps the host loop; a mesh whose shards all name one card
+    takes the kernel under "auto" and "cuda"."""
+    pair = _connect()
+    ep = pair.ep
+    vops, rt = ep.registry.store_ops(), ep.regions
+    pool = ep.host_mem().copy()
+    ids, homes = [0, 3, 4], [0, 2, 1]
+    params = [[2, 0], [8, 20, 3], [77, 1]]
+    plan = tc.plan_mixed_batch(ids, homes=homes, n_devices=N_DEV)
+
+    def refuse(*a):
+        raise AssertionError("the kernel route ran on a CPU mesh")
+    monkeypatch.setattr(vm._ShardedEngine, "run_kernel", refuse)
+    mesh = _mesh()
+    got = vm.invoke_sharded_mixed(vops, rt, pool, plan, params, mesh=mesh)
+    assert sum(mesh.collective_counts().values()) > 0
+    want = vm.invoke_sharded_mixed(vops, rt, pool, plan, params, mesh=mesh,
+                                   impl="torch")
+    assert torch.equal(got.mem.full(), want.mem.full())
+    for f in ("ret", "status", "steps", "regs", "fault"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="CUDA"):
+        vm.invoke_sharded_mixed(vops, rt, pool, plan, params, mesh=mesh,
+                                impl="cuda")
+    with pytest.raises(ValueError, match="impl"):
+        vm.build_sharded_mixed_vm(vops, rt, N_DEV, 2, impl="triton")
+    two = make_device_mesh(2, devices=["cuda:0", "cuda:1"])
+    eng = vm.build_sharded_mixed_vm(vops, rt, 2, 2, impl="cuda")
+    with pytest.raises(ValueError, match="one CUDA card"):
+        eng(two, None, None, None, None, None, None)
+    assert vm.sharded_route("auto", two) == "torch"
+    assert vm.sharded_route("torch", two) == "torch"
+    one = make_device_mesh(N_DEV, devices=["cuda:0"] * N_DEV)
+    assert vm.sharded_route("auto", one) == "cuda"
+    assert vm.sharded_route("cuda", one) == "cuda"
+    assert vm.sharded_route("auto", mesh) == "torch"
+
+
+def test_sharded_engine_key_holds_impl():
+    """The sharded engine cache keys on ``impl`` as the dense engines'
+    do: an "auto" engine and a "torch" engine are two entries, and
+    ``sharded_engine_cached`` asks for the route it is given."""
+    pair = _connect(n_tenants=1)
+    vops, rt = pair.ep.registry.store_ops(), pair.ep.regions
+    mesh = _mesh()
+    keys = {impl: vm._sharded_engine_key(vops, rt, N_DEV, 5, "pool",
+                                         mesh=mesh, impl=impl)
+            for impl in ("auto", "cuda", "torch")}
+    assert len(set(keys.values())) == 3
+    assert vm._sharded_engine_key(vops, rt, N_DEV, 5, "pool",
+                                  mesh=mesh) == keys["auto"]
+    eng = vm._cached_sharded_engine(vops, rt, N_DEV, 5, mesh=mesh,
+                                    impl="torch")
+    assert eng.impl == "torch"
+    assert vm.sharded_engine_cached(vops, rt, N_DEV, 5, mesh=mesh,
+                                    impl="torch")
+    assert not vm.sharded_engine_cached(vops, rt, N_DEV, 5, mesh=mesh,
+                                        impl="cuda")
+    assert vm._cached_sharded_engine(vops, rt, N_DEV, 5, mesh=mesh,
+                                     impl="torch") is eng
