@@ -25,7 +25,9 @@ kernel against its plain PyTorch version on the card:
   v0.1 at its published widths (d_model 4096, 32/8 heads of 128, no RoPE,
   Mamba d_inner 8192, 16 experts top-2 of 14336 at capacity factor 1.25,
   vocab 65536, bf16, page 128) cut to one period, 8 of 32 layers (26.6 GB
-  of weights drawn on the card from seed 0), and RWKV-6 1.6B whole;
+  of weights drawn on the card from seed 0), and RWKV-6 1.6B whole; their
+  recurrences run as one ``selective_scan`` or ``wkv6`` launch per layer
+  call;
 * the multimodal families whole at their published widths, through the
   same entry points: Qwen2-VL-7B (28 layers, d_model 3584, 28/4 heads of
   128, M-RoPE over distinct t/h/w streams, an image prefix of 256 vision
@@ -164,19 +166,29 @@ Phases:
    time of a one-lane wave and the build's registers and spills);
 7. Jamba, after Scout's weights are freed: both attention kernels at its
    bf16 path shapes against their plain versions (within
-   ``SCOUT_ATTN_TOL``), timed with their bounds and SDPA; 8 greedy
+   ``SCOUT_ATTN_TOL``), timed with their bounds and SDPA; ``selective_scan``
+   at its prefill (8 x 1024 x 8192, 16 states, ``valid`` from the prompts'
+   lengths) and decode (S = 1) shapes against its plain version within
+   ``SCAN_TOL``, the same bits twice, timed with the plain version's
+   time, a decode call's host wall and its bound (the
+   larger of bytes, f32 flops and exps at the SFU rate); 8 greedy
    requests (prompts 16..1024) right-padded into one ``tf.prefill`` with
    ``lengths``, then 16 ``tf.decode_step``s: prefill wall, decode-step
    times, tokens/s, ``flash_attention`` once per prefill and
    ``paged_attention`` once per decode step (one attention layer in
-   eight), the real tokens the capacity factor dropped, one profiled
-   decode step, peak memory; check (a), the decode logits against the
-   full forward over prompt plus token, and check (b), the prefill
-   logits of the CUDA kernels against the plain versions, both per
-   position within ``RECURRENT_LOGIT_TOL`` with the MoE's expert choices
-   pinned from one run into the other;
-8. RWKV-6 1.6B whole, the same requests and steps (no kernel on this
-   path) and check (a);
+   eight), ``selective_scan`` once per Mamba layer (7) in the prefill and
+   in every decode step, the real tokens the capacity factor dropped, one
+   profiled decode step, peak memory, the scans' device time in one more
+   prefill and step; check (a), the decode logits against the full
+   forward over prompt plus token, and check (b), the prefill logits of
+   the CUDA kernels (attention and scans) against the plain versions,
+   both per position within ``RECURRENT_LOGIT_TOL`` with the MoE's expert
+   choices pinned from one run into the other;
+8. RWKV-6 1.6B whole: ``wkv6`` at its prefill (8 x 1024 x 32 heads of
+   64) and decode shapes as phase 7 holds ``selective_scan``; the same
+   requests and steps, ``wkv6`` once per layer (24) in the prefill and in
+   every decode step and no attention kernel; check (a); check (b) on the
+   same weights drawn in f32, within ``RWKV_F32_LOGIT_TOL``;
 9. Qwen2-VL-7B whole: both attention kernels at its bf16 path shapes (G =
    7, D = 128) against their plain versions within ``SCOUT_ATTN_TOL``,
    the same bits twice, timed with their bounds and SDPA; 8 requests of
@@ -291,8 +303,9 @@ runs phase 14 alone and prints its numbers as one JSON line.
     python3 chip_smoke.py --decode-only [--src DIR] [--label NAME]
 
 does the same for the decode steps that run no tiara: tiny-lm's
-host-resolved serving run and Jamba's ``tf.decode_step``s, one JSON line
-each.
+host-resolved serving run, and Jamba's and RWKV-6's main paths (phases 7
+and 8: the prefill and decode-step walls, peak memory, launches and the
+scans' device time), one JSON line each.
 """
 
 from __future__ import annotations
@@ -319,6 +332,12 @@ TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 on the tensor cores
 #                                 (NVIDIA data sheet, dense)
 BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores
 #                                 (NVIDIA data sheet, dense)
+F32_FLOPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+#                                 (NVIDIA data sheet)
+# exps a second: one MUFU.EX2 each, 16 a clock per SM (the CUDA C
+# programming guide's throughput table, compute capability 9.0) on 132
+# SMs at the H100 SXM's 1980 MHz boost clock
+SFU_EXPS_PER_S = 16 * 132 * 1.98e9
 # tests/test_kernels.py's attention tolerances, as (atol, rtol)
 ATTN_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (0.05, 0.05)}
 # The attention kernels at Scout's bf16 path shapes, whose outputs have an
@@ -415,6 +434,26 @@ RECURRENT_LOGIT_TOL = 2 ** -3
 # n_experts / top_k = 8, where the capacity is every token; the timed run
 # and check (b) keep the published 1.25.
 JAMBA_CHECK_CF = 8.0
+# The recurrent scans' kernels (one launch per layer call) against their
+# plain versions on the card, in f32 as (atol, rtol): both run the same
+# arithmetic per step, and only the order of y's sums and the fusing of
+# multiply-adds differ (errors about 1e-6 at the path shapes); a state
+# read after its update or a lost mask is O(0.1).
+SCAN_TOL = (1e-5, 1e-5)
+# RWKV-6's check (b) runs on f32 weights, and holds each position's logit
+# vector within RWKV_F32_LOGIT_TOL of its norm.  In bf16 the comparison
+# has no floor to hold it to: moving every scan's y by one unit in its
+# last place moves RWKV-6's random-weight logits by about a fifth of
+# their norm (measured on an H100, see PERF.md), bf16 roundings flipping
+# and compounding over 24 recurrent layers, as a wrong scan would.  In
+# f32 the same move gives about 6e-5; a state read after its update or a
+# lost mask gives O(0.1).
+RWKV_F32_LOGIT_TOL = 1e-3
+SELECTIVE_SCAN_SOURCE = ("src/repro_torch/kernels/selective_scan/csrc/"
+                         "selective_scan.cu")
+SELECTIVE_SCAN_REPLACES = "src/repro/models/mamba.py:150"
+WKV6_SOURCE = "src/repro_torch/kernels/wkv6/csrc/wkv6.cu"
+WKV6_REPLACES = "src/repro/models/rwkv.py:142"
 # The multimodal families whole, at their published widths, through the
 # model's entry points like Jamba's (the reference's ServingEngine refuses
 # an encoder-decoder and passes no M-RoPE ids), with RECURRENT_STEPS decode
@@ -1409,8 +1448,10 @@ def attention_only(dev, label):
 def decode_only(dev, label):
     """``--decode-only``: the decode steps that run no tiara, for the
     ``repro_torch`` that ``--src`` named: tiny-lm's host-resolved serving
-    run (phase 5's weights and requests) and Jamba's ``tf.decode_step``s
-    (phase 7's, through ``model_run``); one JSON line each."""
+    run (phase 5's weights and requests), and Jamba's and RWKV-6's main
+    paths (phases 7 and 8, through ``model_run``: prefill and decode-step
+    walls, peak memory, launches, the scans' device time in one more
+    prefill and step); one JSON line each."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.serving import ServingEngine
@@ -1437,15 +1478,26 @@ def decode_only(dev, label):
         wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall)))
     del eng, params
     torch.cuda.empty_cache()
-    full = get_config(JAMBA_ARCH)
-    cfg = full.replace(n_layers=JAMBA_LAYERS)
-    params, _, _ = _draw_model("jamba", cfg, full, dev)
-    run = model_run("jamba", cfg, params, _recurrent_prompts(cfg, 15), dev)
-    log(json.dumps(dict(
-        label=label, card=card, path="jamba, tf.decode_step",
-        step_ms_median=float(np.median(run["step_ms"])),
-        step_ms=run["step_ms"], prefill_ms=run["prefill_ms"],
-        tokens=run["tokens"], tokens_per_s=run["tokens_per_s"])))
+    for tag, arch, layers, seed in (("jamba", JAMBA_ARCH, JAMBA_LAYERS, 15),
+                                    ("rwkv", RWKV_ARCH, None, 16)):
+        full = get_config(arch)
+        cfg = full if layers is None else full.replace(n_layers=layers)
+        params, _, _ = _draw_model(tag, cfg, full, dev)
+        run = model_run(tag, cfg, params, _recurrent_prompts(cfg, seed), dev)
+        log(json.dumps(dict(
+            label=label, card=card, path=f"{tag}, tf.prefill + "
+            f"{RECURRENT_STEPS} tf.decode_steps",
+            step_ms_median=float(np.median(run["step_ms"])),
+            step_ms=run["step_ms"], prefill_ms=run["prefill_ms"],
+            tokens=run["tokens"], tokens_per_s=run["tokens_per_s"],
+            max_memory_allocated=run["max_memory_allocated"],
+            scans=run["scans"], prefill_counts=run["prefill_counts"],
+            step_counts=run["step_counts"],
+            step_kernels=run["profile"]["kernel_launches"],
+            step_device_busy_ms=run["profile"]["device_busy_ms"])))
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
     return 0
 
 
@@ -2301,14 +2353,17 @@ def model_run(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
     decoder layer's self and cross attention) and ``paged_attention`` once
     per attention layer in every decode step (plus, in an
     encoder-decoder, one cross-attention ``flash_attention`` per decoder
-    layer), the counts set to 0 just before the prefill and read after
-    the last step.  Then one more decode step under ``torch.profiler``,
-    and, for a recurrent model, the scans' share of one more prefill and
-    step (``scan_cost``)."""
+    layer), and ``selective_scan`` once per Mamba layer and ``wkv6`` once
+    per RWKV layer in the prefill and in every decode step, the counts set
+    to 0 just before the prefill and read after the last step.  Then one
+    more decode step under ``torch.profiler``, and, for a recurrent model,
+    the scans' share of one more prefill and step (``scan_cost``)."""
     from repro_torch import kernels
     from repro_torch.models import transformer as tf
     from repro_torch.models.moe import _capacity
     n_attn = sum(s.kind == "attn" for s in cfg.pattern) * cfg.n_repeat
+    n_scan = {k: sum(s.kind == kind for s in cfg.pattern) * cfg.n_repeat
+              for k, kind in (("selective_scan", "mamba"), ("wkv6", "rwkv"))}
     n_cross = cfg.n_layers if cfg.enc_dec else 0
     want_prefill = n_attn + n_cross + (cfg.n_enc_layers if cfg.enc_dec
                                        else 0)
@@ -2358,12 +2413,15 @@ def model_run(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
             or prefill_counts["paged_attention"] \
             or any(c["paged_attention"] != n_attn
                    or c["flash_attention"] != n_cross for c in step_counts) \
+            or any(c[k] != n for c in [prefill_counts] + step_counts
+                   for k, n in n_scan.items()) \
             or counts["tiara_gather"]:
         raise AssertionError(
             f"{tag}: launches prefill {prefill_counts}, decode steps "
             f"{step_counts}; expected flash_attention {want_prefill} per "
             f"prefill, and paged_attention {n_attn} and flash_attention "
-            f"{n_cross} per decode step")
+            f"{n_cross} per decode step, and {n_scan} in the prefill and "
+            f"in every decode step")
     for k in ("flash", "paged"):
         if calls.total(k) != counts[f"{k}_attention"]:
             raise AssertionError(
@@ -2434,29 +2492,28 @@ def model_run(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
     return run
 
 
-def hold_logits(tag, check, got, want):
+def hold_logits(tag, check, got, want, tol=RECURRENT_LOGIT_TOL):
     """``got`` against ``want`` ((positions, vocab) f32 logits), each
-    position's vector within RECURRENT_LOGIT_TOL of ``want``'s norm;
-    returns the per-position relative errors and the elementwise
-    differences, for the record."""
+    position's vector within ``tol`` of ``want``'s norm; returns the
+    per-position relative errors and the elementwise differences, for the
+    record."""
     diff = (got - want).float()
     rel = diff.norm(dim=-1) / want.float().norm(dim=-1)
     r = dict(positions=int(want.shape[0]),
              max_rel_l2=float(rel.max()), mean_rel_l2=float(rel.mean()),
              rel_l2_all=float(diff.norm() / want.float().norm()),
-             limit_share=float(rel.max()) / RECURRENT_LOGIT_TOL,
+             limit_share=float(rel.max()) / tol,
              max_abs_err=float(diff.abs().max()),
              max_abs_logit=float(want.abs().max()),
              same_argmax=int((got.argmax(-1) == want.argmax(-1)).sum()))
     log(f"[{tag}] {check}: {r['positions']} positions, per-position "
         f"||diff|| / ||logits|| max {r['max_rel_l2']:.4g} = "
-        f"{r['limit_share']:.3f} of the limit {RECURRENT_LOGIT_TOL}, mean "
+        f"{r['limit_share']:.3f} of the limit {tol}, mean "
         f"{r['mean_rel_l2']:.4g} (over all {r['rel_l2_all']:.4g}); max "
         f"|diff| {r['max_abs_err']:.4g} (max |logit| "
         f"{r['max_abs_logit']:.2f}); same argmax {r['same_argmax']}/"
         f"{r['positions']}")
-    if not bool(torch.isfinite(got).all()) \
-            or r["max_rel_l2"] > RECURRENT_LOGIT_TOL:
+    if not bool(torch.isfinite(got).all()) or r["max_rel_l2"] > tol:
         raise AssertionError(f"{tag} {check}: a position's logits differ "
                              f"by {r['max_rel_l2']:.4g} of their norm")
     return r
@@ -2528,15 +2585,19 @@ def _real_mask(b, s, lengths, dev):
         .reshape(-1)
 
 
-def kernel_logits(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
-    """Check (b): the prefill logits with the CUDA attention kernels
-    against the same model with the plain versions, on the card, at every
-    real position of the 8 right-padded prompts; the plain run takes the
-    kernel run's expert choices (``_Routes``; the positions whose own
-    route differed are counted), so every position is held
-    (``hold_logits``)."""
+def kernel_logits(tag, cfg, params, prompts, dev, extra=NO_EXTRA,
+                  tol=RECURRENT_LOGIT_TOL):
+    """Check (b): the prefill logits with the CUDA kernels (attention and
+    the recurrent scans) against the same model with the plain versions,
+    on the card, at every real position of the 8 right-padded prompts,
+    within ``tol`` (``hold_logits``); the plain run takes the kernel run's
+    expert choices (``_Routes``; the positions whose own route differed
+    are counted), so every position is held."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.selective_scan import selective_scan_plain
+    from repro_torch.kernels.wkv6 import wkv6_plain
     from repro_torch.models import attention as am
+    from repro_torch.models import mamba, rwkv
     from repro_torch.models import transformer as tf
 
     def plain_flash(q, k, v, lengths=None, *, causal=True, impl="auto"):
@@ -2548,13 +2609,15 @@ def kernel_logits(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
     lengths = torch.tensor(plens, dtype=torch.int32, device=dev)
     real = _real_mask(b, s, lengths, dev)
     kcfg = cfg.replace(attn_impl="cuda")
-    saved = am.flash_attention
+    saved = am.flash_attention, mamba._scan, rwkv._scan
+    route = {"cuda": saved,
+             "plain": (plain_flash, selective_scan_plain, wkv6_plain)}
     got = {}
     try:
         with torch.no_grad(), _Routes() as routes:
-            for name in ("cuda", "plain"):
-                am.flash_attention = saved if name == "cuda" else plain_flash
-                if name == "plain":
+            for i, name in enumerate(("cuda", "plain")):
+                am.flash_attention, mamba._scan, rwkv._scan = route[name]
+                if i == 1:
                     n = len(routes.own)
                     routes.pin = lambda i, own: routes.own[i - n]
                 got[name] = tf.prefill(params, kcfg, dict(
@@ -2572,10 +2635,10 @@ def kernel_logits(tag, cfg, params, prompts, dev, extra=NO_EXTRA):
                             != _route_sets(routes.own[n + i])).any(-1)
             n_flip = int((flipped & real).sum())
     finally:
-        am.flash_attention = saved
+        am.flash_attention, mamba._scan, rwkv._scan = saved
     r = hold_logits(tag, "check (b), prefill logits with the CUDA "
-                    "kernels vs the plain versions on the card",
-                    got["cuda"], got["plain"])
+                    f"kernels vs the plain versions on the card, "
+                    f"{cfg.dtype}", got["cuda"], got["plain"], tol)
     r["routes_pinned"] = n_flip
     if n:
         log(f"[{tag}] check (b): {n_flip} positions whose own route in the "
@@ -2714,6 +2777,123 @@ def jamba_kernels(cfg, plens, dev, scratch, floor_ms):
          {"causal": True})], dev, scratch, floor_ms)
 
 
+def _scan_inputs(kind, cfg, plens, s, dev, seed):
+    """The arguments of ``kind``'s kernel (``selective_scan`` or ``wkv6``)
+    at the model's path shape, f32 on the card, drawn there from ``seed``:
+    the prefill of the right-padded prompts of ``plens`` (``s`` the
+    longest, ``valid`` from their lengths) or one decode step (``s`` = 1,
+    no mask).  Values in the path's ranges: dt > 0, A < 0, decays in (0,
+    1)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    b = len(plens)
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g, device=dev) * (hi - lo) + lo
+    valid = None if s == 1 else \
+        torch.arange(s, device=dev)[None] < torch.tensor(plens,
+                                                         device=dev)[:, None]
+    if kind == "selective_scan":
+        d, n = cfg.mamba.dims(cfg.d_model)[0], cfg.mamba.d_state
+        return (u(b, d, n), u(b, s, d, lo=0.0, hi=2.0), u(b, s, d),
+                u(b, s, n), u(b, s, n), -u(d, n, lo=0.1, hi=3.0), valid)
+    hs = cfg.rwkv.head_size
+    nh = cfg.d_model // hs
+    return (u(b, nh, hs, hs), u(b, s, nh, hs), u(b, s, nh, hs),
+            u(b, s, nh, hs), u(b, s, nh, hs, lo=0.3, hi=0.999), u(nh, hs),
+            valid)
+
+
+def scan_work(kind, args):
+    """(bytes moved, f32 flops, exps) of one call of ``kind``'s scan on
+    ``args``: what this data needs, each input read once and each output
+    written once.  A padded step updates nothing, so only the valid steps
+    need the update's inputs (the selective scan's dt, x and B, wkv6's w)
+    and operations; every step writes y, so every step needs the inputs y
+    reads (C; r, k and v, since a padded step's y still adds u k v)."""
+    valid = args[-1]
+    if kind == "selective_scan":
+        h, dt = args[:2]
+        b, s, d = dt.shape
+        n = h.shape[-1]
+        live = b * s if valid is None else int(valid.sum())
+        moved = 4 * (2 * h.numel() + b * s * d + 2 * live * d
+                     + (b * s + live) * n + d * n) \
+            + (0 if valid is None else valid.numel())
+        return moved, live * d * (1 + 4 * n) + b * s * d * 2 * n, \
+            live * d * n
+    state, rh = args[:2]
+    b, s, nh, hs = rh.shape
+    live = b * s if valid is None else int(valid.sum())
+    moved = 4 * (2 * state.numel() + 4 * rh.numel() + live * nh * hs
+                 + nh * hs) + (0 if valid is None else valid.numel())
+    return moved, b * s * nh * hs * (4 * hs + 1) + live * nh * hs * hs * 3, 0
+
+
+def scan_cases(tag, kind, cfg, plens, dev, scratch, floor_ms):
+    """``kind``'s kernel (``selective_scan`` or ``wkv6``) at the model's
+    prefill shape (the 8 right-padded prompts, ``valid`` from their
+    lengths) and decode shape (S = 1) against its plain version on the
+    card within SCAN_TOL, two calls giving the same bits; then its time
+    (``time_cuda``), the plain version's time, the host wall of a decode
+    call, and its bound: the larger of the bytes at 3.35 TB/s, the f32
+    flops at 67 TFLOP/s and, for the selective scan, its exps at the SFU
+    rate (SFU_EXPS_PER_S).  No single PyTorch call computes either
+    recurrence (``library_ms`` None)."""
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_plain)
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    kernel, plain = (selective_scan, selective_scan_plain) \
+        if kind == "selective_scan" else (wkv6, wkv6_plain)
+    res = {}
+    for i, (label, s) in enumerate((("prefill", max(plens)), ("decode", 1))):
+        args = _scan_inputs(kind, cfg, plens, s, dev, 40 + i)
+        name = f"{kind} ({tag}, {label})"
+
+        def fn(args=args):
+            return kernel(*args)
+
+        def ref(args=args):
+            return plain(*args)
+        out, want = fn(), ref()
+        torch.cuda.synchronize()
+        err = max(_check_close(name, o, w, torch.float32, SCAN_TOL)
+                  for o, w in zip(out, want))
+        share = max(_limit_share(o, w, SCAN_TOL) for o, w in zip(out, want))
+        again = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, o) for a, o in zip(again, out)):
+            raise AssertionError(f"{name}: two calls differ")
+        del out, want, again
+        moved, flops, exps = scan_work(kind, args)
+        t_bytes, t_flops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        t_ops = max(t_flops, exps / SFU_EXPS_PER_S)
+        r = dict(shape=[list(a.shape) for a in args[:6]],
+                 valid=args[-1] is not None, max_abs_err=err,
+                 limit_share=share, ms=time_cuda(fn, scratch),
+                 plain_ms=time_cuda(ref, scratch, reps=5 if s > 1 else 20),
+                 bytes_moved=moved, flops=flops, exps=exps,
+                 bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="operations" if t_ops > t_bytes else "bytes",
+                 library_ms=None)
+        if s == 1:
+            r["host_ms_per_call"] = host_wall_ms(fn, reps=200, rounds=3)
+        log(f"[{tag}] {name}: shapes {r['shape']}"
+            + (f", lengths {list(plens)}" if r["valid"] else "")
+            + f": max err {err:.3g} = {share:.3f} of the limit {SCAN_TOL}, "
+            f"two calls same bits; kernel {r['ms'] * 1e3:.2f} us, plain "
+            f"{r['plain_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
+            f"{moved / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP f32, "
+            f"{exps / 1e9:.3f} G exps)"
+            + (f", host wall {r['host_ms_per_call'] * 1e3:.2f} us a call"
+               if s == 1 else "")
+            + f"; {floor_note(floor_ms)}; library none")
+        res[label] = r
+        del args
+    torch.cuda.empty_cache()
+    return res
+
+
 def _draw_model(tag, cfg, full, dev):
     """Random bf16 weights from seed 0, drawn on the card."""
     from repro_torch.models import transformer as tf
@@ -2758,6 +2938,8 @@ def phase_jamba(dev, floor_ms):
     scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
     kern = jamba_kernels(cfg, [len(p) for p in prompts], dev, scratch,
                          floor_ms)
+    scans = scan_cases("jamba", "selective_scan", cfg,
+                       [len(p) for p in prompts], dev, scratch, floor_ms)
     del scratch
     torch.cuda.empty_cache()
     run = model_run("jamba", cfg, params, prompts, dev)
@@ -2771,13 +2953,14 @@ def phase_jamba(dev, floor_ms):
     torch.cuda.empty_cache()
     logits = kernel_logits("jamba", cfg, params, prompts, dev)
     return dict(n_params=n_params, weight_bytes=n_bytes, kernels=kern,
-                run=run, check_a=full_fwd, check_b=logits)
+                scans=scans, run=run, check_a=full_fwd, check_b=logits)
 
 
-def phase_rwkv(dev):
-    """RWKV-6 1.6B whole: the main path and check (a).  Attention-free: no
-    kernel of the port runs on this path (``model_run`` checks that
-    neither attention kernel launched)."""
+def phase_rwkv(dev, floor_ms):
+    """RWKV-6 1.6B whole: ``wkv6`` at its path shapes, the main path (one
+    ``wkv6`` launch per layer in the prefill and in every decode step, no
+    attention kernel: ``model_run`` checks both), check (a), and check (b)
+    on the same weights in f32 (see RWKV_F32_LOGIT_TOL)."""
     from repro_torch.configs import get_config
     cfg = get_config(RWKV_ARCH)
     log(f"[rwkv] {cfg.name} whole: {cfg.n_layers} layers, "
@@ -2786,11 +2969,24 @@ def phase_rwkv(dev):
         f"{cfg.d_ff}, {cfg.norm}; no reduction")
     params, n_params, n_bytes = _draw_model("rwkv", cfg, cfg, dev)
     prompts = _recurrent_prompts(cfg, 16)
+    scratch = torch.zeros(32 << 20, dtype=torch.int64, device=dev)
+    scans = scan_cases("rwkv", "wkv6", cfg, [len(p) for p in prompts], dev,
+                       scratch, floor_ms)
+    del scratch
+    torch.cuda.empty_cache()
     run = model_run("rwkv", cfg, params, prompts, dev)
     torch.cuda.empty_cache()
     full_fwd = check_full_forward("rwkv", cfg, params, prompts, dev)
-    return dict(n_params=n_params, weight_bytes=n_bytes, run=run,
-                check_a=full_fwd)
+    torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params, _, _ = _draw_model("rwkv", f32, cfg, dev)
+    logits = kernel_logits("rwkv", f32, params, prompts, dev,
+                           tol=RWKV_F32_LOGIT_TOL)
+    return dict(n_params=n_params, weight_bytes=n_bytes, scans=scans,
+                run=run, check_a=full_fwd, check_b=logits)
 
 
 class _VisionInputs(_Extra):
@@ -3290,7 +3486,8 @@ def train_tiny(dev, root):
     losses = [m["loss"] for m in tr.metrics_log]
     want = dict(flash_attention=2 * cfg.n_layers * TRAIN_STEPS,
                 flash_attention_bwd=cfg.n_layers * TRAIN_STEPS,
-                paged_attention=0, tiara_gather=0, lockstep_vm=0)
+                paged_attention=0, tiara_gather=0, lockstep_vm=0,
+                selective_scan=0, wkv6=0)
     if counts != want:
         raise AssertionError(f"tiny-lm training launches {counts}, expected "
                              f"{want}: per step 12 forward, 12 under the "
@@ -3455,7 +3652,7 @@ def train_seamless(dev):
     n_attn = cfg.n_enc_layers + 2 * cfg.n_layers
     want = dict(flash_attention=n_attn + 2 * cfg.n_layers,
                 flash_attention_bwd=n_attn, paged_attention=0,
-                tiara_gather=0, lockstep_vm=0)
+                tiara_gather=0, lockstep_vm=0, selective_scan=0, wkv6=0)
     if any(c != want for c in step_counts):
         raise AssertionError(f"seamless training launches per step "
                              f"{step_counts}, expected {want}")
@@ -6087,7 +6284,8 @@ def entry_train(dev):
             ran = steps - out["start_step"]
             want = dict(flash_attention=2 * n_layers * ran,
                         flash_attention_bwd=n_layers * ran,
-                        paged_attention=0, tiara_gather=0, lockstep_vm=0)
+                        paged_attention=0, tiara_gather=0, lockstep_vm=0,
+                        selective_scan=0, wkv6=0)
             if counts != want or out["final_step"] != steps:
                 raise AssertionError(f"train_tiny_lm_torch --steps {steps}: "
                                      f"ended at {out['final_step']}, "
@@ -6175,8 +6373,8 @@ def main() -> int:
                          "shapes and print one JSON line per shape")
     ap.add_argument("--decode-only", action="store_true",
                     help="only time the decode steps that run no tiara "
-                         "(tiny-lm host serving, Jamba) and print one JSON "
-                         "line per path")
+                         "(tiny-lm host serving, Jamba, RWKV-6) and print "
+                         "one JSON line per path")
     ap.add_argument("--dryrun-only", action="store_true",
                     help="only run phase 14 (the dry-run and its card "
                          "cross-check) and print its numbers as JSON")
@@ -6184,8 +6382,8 @@ def main() -> int:
                     "the src directory whose repro_torch is timed (another "
                     "tree, e.g. a parent commit unpacked with git archive)")
     ap.add_argument("--label", default="this tree",
-                    help="with --attention-only or --decode-only: the name "
-                         "of the tree")
+                    help="with --attention-only or --decode-only: the "
+                         "name of the tree")
     args = ap.parse_args()
     if args.src and not (args.attention_only or args.decode_only):
         ap.error("--src needs --attention-only or --decode-only")
@@ -6247,7 +6445,7 @@ def main() -> int:
     jamba = phase_jamba(dev, floor_ms)
     gc.collect()
     torch.cuda.empty_cache()
-    rwkv = phase_rwkv(dev)
+    rwkv = phase_rwkv(dev, floor_ms)
     gc.collect()
     torch.cuda.empty_cache()
     qwen = phase_qwen(dev, floor_ms)
@@ -6299,6 +6497,8 @@ def main() -> int:
     jamba_counts = jamba["run"]["counts"]
     log(f"[launches] Jamba path (prefill + {RECURRENT_STEPS} decode steps): "
         f"{jamba_counts}")
+    log(f"[launches] RWKV-6 path (prefill + {RECURRENT_STEPS} decode "
+        f"steps): {rwkv['run']['counts']}")
     for tag, ph in (("Qwen2-VL", qwen), ("SeamlessM4T", seamless)):
         log(f"[launches] {tag} path (prefill + {RECURRENT_STEPS} decode "
             f"steps): {ph['run']['counts']}")
@@ -6454,6 +6654,20 @@ def main() -> int:
                          source=FLASH_BF16_SOURCE,
                          replaces=flash["replaces"], launches=n,
                          shape=f"{tag}'s prefill: {ki['shape']} bf16"))
+    for ph, name, source, replaces, model in (
+            (jamba, "selective_scan", SELECTIVE_SCAN_SOURCE,
+             SELECTIVE_SCAN_REPLACES, "Jamba"),
+            (rwkv, "wkv6", WKV6_SOURCE, WKV6_REPLACES, "RWKV-6")):
+        for label, r in ph["scans"].items():
+            rows.append(dict(
+                {k: r[k] for k in keys if k in r}, name=name, route="cuda",
+                source=source, replaces=replaces,
+                launches=ph["run"]["counts"][name],
+                shape=f"{model}'s {label}: " + ", ".join(
+                    "x".join(map(str, sh)) for sh in r["shape"])
+                + (", valid from the prompts' lengths" if r["valid"]
+                   else "") + " f32; launches: the path's prefill and "
+                f"{RECURRENT_STEPS} decode steps"))
     rows += multimodal_rows(qwen, seamless, paged, flash)
     rows += training_rows(training)
     for r in rows:

@@ -1,6 +1,7 @@
-"""Hand-written Hopper kernels of the port, one package per TPU kernel
-(``kernel.py`` launch wrapper + ``ref.py`` plain version + ``ops.py``
-entry point + ``csrc/`` CUDA source).  ``_build.py`` compiles every
+"""Hand-written Hopper kernels of the port, one package per TPU kernel or
+device program of the reference (``kernel.py`` launch wrapper +
+``ref.py`` plain version + ``ops.py`` entry point + ``csrc/`` CUDA
+source).  ``_build.py`` compiles every
 ``csrc/*.cu`` into one shared library on first use."""
 
 from typing import Dict
@@ -29,8 +30,10 @@ def _modules():
     from repro_torch.kernels.flash_attention import kernel as _fa
     from repro_torch.kernels.lockstep_vm import kernel as _lv
     from repro_torch.kernels.paged_attention import kernel as _pa
+    from repro_torch.kernels.selective_scan import kernel as _ss
     from repro_torch.kernels.tiara_gather import kernel as _tg
-    return _tg, _pa, _fa, _lv
+    from repro_torch.kernels.wkv6 import kernel as _wk
+    return _tg, _pa, _fa, _lv, _ss, _wk
 
 
 def launch_counts() -> Dict[str, int]:

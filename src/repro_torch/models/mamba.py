@@ -2,23 +2,16 @@
 
 The reference's ``models/mamba.py`` in PyTorch: a selective SSM with
 input-dependent (dt, B, C), a linear recurrence over time on the state
-``h`` (B, d_inner, d_state) in f32.  The reference has no kernel for it
-(a ``lax.scan``; its docstring names a chunked selective-scan kernel as
-future work), so the port's scan is plain PyTorch too.
-
-The reference forms the (B, C, d_inner, d_state) f32 coefficients
-``a = exp(dt A)`` and ``bx = dt x B`` for chunks of 256 tokens, or for the
-whole sequence when its length is no multiple of 256: 4.3 GB each at
-Jamba's width for 8 sequences of 1024 tokens.  The port forms them for
-chunks of at most ``SCAN_CHUNK_BYTES`` and runs the recurrence in place
-on ``bx``, one fused multiply-add per step (``bx[t] += a[t] * h``), so the
-chunk's ``bx`` ends up holding the states and the outputs ``y = h . C``
-are one batched product per chunk.  The arithmetic per step is the
-reference's.  When gradients flow, autograd could not differentiate
-through states overwritten in place, so the same step runs out of place
-(``h = torch.addcmul(bx[t], a[t], h)``) and the chunk's states are
-stacked: the same arithmetic, and the memory of one more chunk-sized
-tensor.
+``h`` (B, d_inner, d_state) in f32.  The reference runs the recurrence as
+a ``lax.scan`` device program (its docstring names a chunked
+selective-scan kernel as the fast path on real hardware); the port runs
+it through :func:`repro_torch.kernels.selective_scan.selective_scan`: on
+the card one launch of the hand-written ``selective_scan`` kernel per
+layer call, on the CPU the plain version, which forms the reference's
+per-step coefficients ``exp(dt A)`` and ``dt x B`` in chunks
+(``kernels/selective_scan/ref.py``).  The kernel has no backward yet:
+gradients flow through the scan on the CPU (the plain version's
+autograd-safe form); on the card the scan raises where they would.
 """
 
 from __future__ import annotations
@@ -30,11 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.mesh import P
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models.param import ParamDef
-
-# Bytes of each f32 chunk coefficient (a, bx): the scan runs in chunks of
-# as many steps as fit (at least one).
-SCAN_CHUNK_BYTES = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,43 +99,13 @@ def _conv_causal(params, x, spec: MambaSpec,
         if spec.d_conv > 1 else prefix
 
 
-def _chunk_steps(b: int, d_inner: int, d_state: int) -> int:
-    return max(1, SCAN_CHUNK_BYTES // (4 * b * d_inner * d_state))
-
-
 def _scan(h, dt, xcf, bm, cm, a_mat, valid):
     """The recurrence ``h = exp(dt A) h + dt x B``, ``y = h . C`` over the
     S steps of (B, S, ...) inputs from the state ``h`` (B, d, N); steps
     where ``valid`` (B, S) is false leave the state as it was.  Returns
-    (the last state, y (B, S, d) f32)."""
-    b, s, d = dt.shape
-    ys = dt.new_empty((b, s, d))
-    step = _chunk_steps(b, d, a_mat.shape[-1])
-    for c0 in range(0, s, step):
-        c1 = min(s, c0 + step)
-        dt_c = dt[:, c0:c1].transpose(0, 1)                 # (C, B, d)
-        a = torch.exp(dt_c[..., None] * a_mat)              # (C, B, d, N)
-        bx = (dt_c * xcf[:, c0:c1].transpose(0, 1))[..., None] \
-            * bm[:, c0:c1].transpose(0, 1)[:, :, None, :]
-        if valid is not None:
-            vm = valid[:, c0:c1].transpose(0, 1)[..., None, None]
-            a = torch.where(vm, a, 1.0)
-            bx = torch.where(vm, bx, 0.0)
-        if torch.is_grad_enabled() and (a.requires_grad or bx.requires_grad
-                                        or h.requires_grad):
-            # out of place: autograd keeps every state
-            states = []
-            for t in range(c1 - c0):
-                h = torch.addcmul(bx[t], a[t], h)
-                states.append(h)
-            bx = torch.stack(states)
-        else:
-            for t in range(c1 - c0):   # bx[t] becomes the state after t
-                h = bx[t].addcmul_(a[t], h)
-        ys[:, c0:c1] = torch.einsum("cbdn,cbn->bcd", bx,
-                                    cm[:, c0:c1].transpose(0, 1))
-        del a, bx                   # freed before the next chunk's
-    return h.clone(), ys
+    (the last state, y (B, S, d) f32): one ``selective_scan`` launch on
+    the card, the plain version on the CPU."""
+    return selective_scan(h, dt, xcf, bm, cm, a_mat, valid)
 
 
 def mamba_forward(params, x: torch.Tensor, spec: MambaSpec,

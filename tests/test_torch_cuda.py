@@ -7,6 +7,8 @@ which has no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -807,13 +809,17 @@ def test_cuda_recurrent_model_matches_cpu(cuda_device, arch):
     lengths and two decode steps: logits and every carried state equal
     the port on the CPU with the same weights.  Jamba's prefill launches
     flash_attention once per attention layer, each decode step
-    paged_attention once per attention layer; RWKV-6 launches neither."""
+    paged_attention once per attention layer; the prefill and each decode
+    step launch selective_scan once per Mamba layer and wkv6 once per
+    RWKV layer (RWKV-6 launches no attention kernel)."""
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.models import transformer as tf
     from repro_torch.models.param import tree_map
     cfg = reduce_config(get_config(arch))
     cfg = cfg.replace(n_layers=len(cfg.pattern))
     n_attn = sum(s.kind == "attn" for s in cfg.pattern)
+    n_mamba = sum(s.kind == "mamba" for s in cfg.pattern)
+    n_rwkv = sum(s.kind == "rwkv" for s in cfg.pattern)
     params = tf.init_params(cfg, seed=0)
     b, maxp = 3, 4
     rng = np.random.default_rng(8)
@@ -840,6 +846,8 @@ def test_cuda_recurrent_model_matches_cpu(cuda_device, arch):
                 counts = kernels.launch_counts()
                 assert counts["flash_attention"] == n_attn
                 assert counts["paged_attention"] == n_attn * step
+                assert counts["selective_scan"] == n_mamba * (step + 1)
+                assert counts["wkv6"] == n_rwkv * (step + 1)
         got[dev.type] = (logits,
                          [t.cpu() for t in _recurrent_leaves(caches)])
     (lc, sc), (lh, sh) = got["cuda"], got["cpu"]
@@ -1278,3 +1286,100 @@ def test_cuda_dryrun_cross_check_at_a_small_cell(cuda_device):
     assert rec["card_arg_bytes"] == rec["arg_bytes"]
     # the kernels' route launched the paged kernel, 12 layers per step
     assert kernels.launch_counts()["paged_attention"] >= 12
+
+
+# -- the recurrent scans -----------------------------------------------------
+
+SCAN_TOL = 1e-5
+
+
+def _scan_tensor(rng, dev, *shape, lo=-1.0, hi=1.0):
+    return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)) \
+        .to(dev)
+
+
+def _scan_valid(s, lengths, dev):
+    if lengths is None:
+        return None
+    return (torch.arange(s)[None] < torch.tensor(lengths)[:, None]).to(dev)
+
+
+def _same_bits_and_close(kernel_fn, plain_fn, name):
+    before = kernels.launch_counts()[name]
+    got, again = kernel_fn(), kernel_fn()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[name] == before + 2
+    want = plain_fn()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert torch.allclose(g, w, atol=SCAN_TOL, rtol=SCAN_TOL), \
+            float((g - w).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [16, 8, 3, 32])
+@pytest.mark.parametrize("b,s,d,lengths", [(8, 1, 8192, None),
+                                           (3, 300, 200, (300, 0, 129)),
+                                           (2, 1024, 512, (1024, 700))])
+def test_cuda_selective_scan_matches_plain(cuda_device, n, b, s, d,
+                                           lengths):
+    """selective_scan against its plain version on the card at f32: B and C
+    as strided views of one projection, a length-0 row, one decode step
+    at Jamba's 8192 channels, the same bits twice, one launch a call."""
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_plain)
+    rng = np.random.default_rng(n * 7 + s)
+    t = functools.partial(_scan_tensor, rng, cuda_device)
+    xdb = t(b, s, 4 + 2 * n)
+    args = (t(b, d, n), t(b, s, d, lo=0.0, hi=2.0), t(b, s, d),
+            xdb[..., 4:4 + n], xdb[..., 4 + n:], -t(d, n, lo=0.1, hi=3.0),
+            _scan_valid(s, lengths, cuda_device))
+    assert not args[3].is_contiguous()
+    _same_bits_and_close(lambda: selective_scan(*args),
+                         lambda: selective_scan_plain(*args),
+                         "selective_scan")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hs", [64, 32, 8, 40])
+@pytest.mark.parametrize("b,s,nh,lengths", [(8, 1, 32, None),
+                                            (3, 300, 4, (300, 0, 129)),
+                                            (2, 1024, 2, (1024, 17))])
+def test_cuda_wkv6_matches_plain(cuda_device, hs, b, s, nh, lengths):
+    """wkv6 against its plain version on the card at f32: heads of 64
+    (RWKV-6's), 32 and padded ones, a length-0 row, one decode step at
+    RWKV-6's 32 heads, the same bits twice, one launch a call."""
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_plain
+    rng = np.random.default_rng(hs * 7 + s)
+    t = functools.partial(_scan_tensor, rng, cuda_device)
+    args = (t(b, nh, hs, hs), t(b, s, nh, hs), t(b, s, nh, hs),
+            t(b, s, nh, hs), t(b, s, nh, hs, lo=0.3, hi=0.999), t(nh, hs),
+            _scan_valid(s, lengths, cuda_device))
+    _same_bits_and_close(lambda: wkv6(*args), lambda: wkv6_plain(*args),
+                         "wkv6")
+
+
+@pytest.mark.gpu
+def test_cuda_scans_under_gradients_raise(cuda_device):
+    """No backward kernel: on the card under gradients both ``impl="auto"``
+    and ``impl="cuda"`` raise before anything launches; with no gradient
+    the same call launches the kernel once."""
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.wkv6 import wkv6
+    rng = np.random.default_rng(9)
+    t = functools.partial(_scan_tensor, rng, cuda_device)
+    ss = [t(2, 6, 4), t(2, 5, 6, lo=0.0), t(2, 5, 6), t(2, 5, 4),
+          t(2, 5, 4), -t(6, 4, lo=0.1), None]
+    wk = [t(2, 2, 8, 8), t(2, 5, 2, 8), t(2, 5, 2, 8), t(2, 5, 2, 8),
+          t(2, 5, 2, 8, lo=0.3), t(2, 8), None]
+    for fn, args, name in ((selective_scan, ss, "selective_scan"),
+                           (wkv6, wk, "wkv6")):
+        args[1] = args[1].requires_grad_(True)
+        before = kernels.launch_counts()[name]
+        for impl in ("auto", "cuda"):
+            with pytest.raises(ValueError, match="no backward kernel"):
+                fn(*args, impl=impl)
+        assert kernels.launch_counts()[name] == before
+        with torch.no_grad():
+            fn(*args)
+        assert kernels.launch_counts()[name] == before + 1

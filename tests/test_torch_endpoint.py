@@ -316,7 +316,9 @@ def test_port_imports_neither_jax_nor_reference():
     scanned = {f.relative_to(ROOT).as_posix() for f in files}
     for mod in ("configs/__init__", "models/transformer", "models/attention",
                 "kernels/flash_attention/ops",
-                "kernels/paged_attention/kernel", "serving/engine",
+                "kernels/paged_attention/kernel",
+                "kernels/selective_scan/ops", "kernels/wkv6/ops",
+                "serving/engine",
                 "serving/resolver", "launch/serve"):
         assert f"src/repro_torch/{mod}.py" in scanned, mod
     bad = [(f.name, m) for f in files for m in _imports(f)

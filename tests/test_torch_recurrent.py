@@ -43,6 +43,8 @@ from repro.models import rwkv as jrwkv
 from repro.models import transformer as jtf
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import caches_from_numpy, params_from_numpy
+from repro_torch.kernels.selective_scan import ref as ss_ref
+from repro_torch.kernels.wkv6 import ref as wkv6_ref
 from repro_torch.models import mamba as tmamba
 from repro_torch.models import moe as tmoe
 from repro_torch.models import rwkv as trwkv
@@ -210,8 +212,8 @@ def test_scan_chunking_does_not_change_the_result(monkeypatch):
     ln = torch.tensor([40, 17])
     outs = []
     for chunk_bytes in (1 << 30, 1):
-        monkeypatch.setattr(tmamba, "SCAN_CHUNK_BYTES", chunk_bytes)
-        monkeypatch.setattr(trwkv, "SCAN_CHUNK_BYTES", chunk_bytes)
+        monkeypatch.setattr(ss_ref, "SCAN_CHUNK_BYTES", chunk_bytes)
+        monkeypatch.setattr(wkv6_ref, "SCAN_CHUNK_BYTES", chunk_bytes)
         m = tmamba.mamba_forward(mw, x, MSPEC,
                                  tmamba.init_mamba_cache(2, D, MSPEC),
                                  lengths=ln)

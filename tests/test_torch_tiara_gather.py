@@ -80,7 +80,8 @@ def test_cpu_route_does_not_count_launches():
     assert kernels.launch_counts() == {"tiara_gather": 0, "paged_attention": 0,
                                        "flash_attention": 0,
                                        "flash_attention_bwd": 0,
-                                       "lockstep_vm": 0}
+                                       "lockstep_vm": 0, "selective_scan": 0,
+                                       "wkv6": 0}
 
 
 def test_no_fallback_on_cpu_tensors():

@@ -56,6 +56,8 @@ from repro_torch.checkpoint import manager as ckpt
 from repro_torch.configs import ARCH_IDS, get_config, reduce_config
 from repro_torch.convert import train_state_from_numpy, train_state_to_numpy
 from repro_torch.data import DataConfig, LMPipeline
+from repro_torch.kernels.selective_scan import ref as ss_ref
+from repro_torch.kernels.wkv6 import ref as wkv6_ref
 from repro_torch.launch import train as launch_train
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
@@ -361,8 +363,8 @@ def test_scans_autograd_safe_form_equals_in_place(monkeypatch, chunk_bytes):
     results equal the in-place form's (the inference path) within 1e-5 of
     the largest value, over ragged ``valid`` masks and several chunks, and
     a backward runs through them."""
-    monkeypatch.setattr(mamba_mod, "SCAN_CHUNK_BYTES", chunk_bytes)
-    monkeypatch.setattr(rwkv_mod, "SCAN_CHUNK_BYTES", chunk_bytes)
+    monkeypatch.setattr(ss_ref, "SCAN_CHUNK_BYTES", chunk_bytes)
+    monkeypatch.setattr(wkv6_ref, "SCAN_CHUNK_BYTES", chunk_bytes)
     rng = np.random.default_rng(5)
 
     def t(*shape, lo=-1.0, hi=1.0):
